@@ -1,0 +1,100 @@
+"""Quantized linear modules (the counterpart of ``layers/linear.py``).
+
+``MPQLinear`` holds its :class:`MPQTensor` as buffers (``packed``,
+``scales``, ``zeros`` and the optional ``g_idx`` / ``q_perm``) so that
+``.to()``, ``state_dict()`` and ``named_buffers()`` see them; the static
+fields (bit width, group size, layout, ...) are plain attributes.  The
+binary and n-bit QAT layers and fp projections come with their slices.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.mpq_linear import mpq_linear
+from ..ops.quant import quantize_mpq
+from ..qtensor import MPQTensor
+
+_TENSOR_FIELDS = ("packed", "scales", "zeros", "g_idx", "q_perm")
+_STATIC_FIELDS = ("w_bit", "group_size", "asym", "code_bits", "layout", "act_bits", "zeros_mid")
+
+
+def kaiming_uniform(
+    shape, generator: Optional[torch.Generator], device: torch.device
+) -> torch.Tensor:
+    """Kaiming-uniform fan-in init (``a = sqrt(5)``), fan-in = ``shape[1]``."""
+    bound = 1.0 / math.sqrt(shape[1]) * math.sqrt(3.0)
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return w.uniform_(-bound, bound, generator=generator)
+
+
+class MPQLinear(nn.Module):
+    """Weight-only group-quantized linear: ``x @ dequant(qweight) [+ bias]``.
+
+    Without ``qweight`` the constructor quantizes a random Kaiming-uniform
+    weight (tests and benchmarks) on ``device``, which defaults to ``cuda``
+    and raises without a GPU (pass ``device="cpu"`` for the plain path);
+    with ``qweight`` the layer lives where that tensor does.
+    :meth:`set_qweight` installs a loaded or prepared tensor.  ``out_slice``
+    keeps only the first outputs of a padded projection
+    (``LlamaConfig.proj_pad_to``).
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        w_bit: int = 4,
+        group_size: int = 128,
+        asym: bool = False,
+        use_bias: bool = False,
+        mid_sym: bool = False,
+        dtype: torch.dtype = torch.bfloat16,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+        out_slice: Optional[int] = None,
+        qweight: Optional[MPQTensor] = None,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.out_slice = out_slice
+        if qweight is not None and device is None:
+            device = qweight.device
+        device = resolve_device(device)
+        if qweight is None:
+            gs = group_size if group_size > 0 else in_features
+            w = kaiming_uniform((out_features, in_features), generator, device).T
+            qweight = quantize_mpq(w, w_bit=w_bit, group_size=gs, asym=asym, mid_sym=mid_sym)
+        self.set_qweight(qweight)
+        self.bias = None
+        if use_bias:
+            self.bias = nn.Parameter(
+                torch.zeros(out_features, dtype=dtype, device=device), requires_grad=False
+            )
+
+    @property
+    def qweight(self) -> MPQTensor:
+        return MPQTensor(
+            **{f: getattr(self, f) for f in _TENSOR_FIELDS},
+            **{f: getattr(self, "_" + f) for f in _STATIC_FIELDS},
+        )
+
+    def set_qweight(self, qt: MPQTensor) -> None:
+        for f in _TENSOR_FIELDS:
+            self.register_buffer(f, getattr(qt, f))
+        for f in _STATIC_FIELDS:
+            setattr(self, "_" + f, getattr(qt, f))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = mpq_linear(x.to(self.dtype), self.qweight)
+        if self.bias is not None:
+            out = out + self.bias
+        if self.out_slice is not None:
+            out = out[..., : self.out_slice]
+        return out
+

@@ -1,0 +1,621 @@
+"""Llama family with weight-only quantized projections, in PyTorch.
+
+The counterpart of ``bitorch_engine_tpu/models/llama.py`` for the serving
+path: MPQ projections, optionally fused q|k|v and gate|up, RoPE,
+RMSNorm and SwiGLU, dense bf16 or int8 KV caches, a bf16 / int8 / w4
+head.  Parameters live in the modules (``LlamaModel(cfg, device)`` builds
+random ones from a seeded ``torch.Generator``; ``utils.convert`` loads the
+JAX package's); the entry points are :func:`prefill`, :func:`decode_step`
+and ``models.generate.generate``.
+
+Attention reads the dense cache in one of four ways, as the reference does:
+no cache (full causal attention over the tokens), full read (window None or
+covering the whole cache: attend over the updated cache), window 0
+(prefill from an empty cache: causal attention over the new tokens only,
+through the flash kernel on the card) and the two-part window (a prefix
+of the cache before this step's write, plus this step's tokens as a causal
+block, under one softmax).  The caches are updated in place and returned;
+the window paths write after they have read.
+
+Outside this slice: fp (unquantized) and MBWQ projections, MoE, paged KV,
+sequence parallelism and remat raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, List, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..layers.linear import MPQLinear
+from ..ops.cuda.flash_attention import HEAD_DIMS, flash_attention
+from ..ops.quant import concat_mpq
+
+# a host-side cache length: one position for the batch, or one per row
+CacheLen = Union[None, int, List[int]]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    max_seq_len: int = 4096
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    # quantization
+    w_bit: int = 4
+    group_size: int = 128
+    asym: bool = False
+    quantized: bool = True
+    mbwq_strategy: Any = None  # sub-4-bit slice
+    quant_mid_sym: bool = False
+    remat: bool = False  # training slice
+    sequence_parallel: Optional[str] = None  # parallel-layouts slice
+    moe_num_experts: int = 0  # MoE slice
+    kv_cache_dtype: str = "bf16"
+    quantize_embed: bool = False
+    head_w_bit: Optional[int] = None
+    head_pad_to: int = 0
+    proj_pad_to: int = 0
+    fuse_qkv: bool = False
+    fuse_gate_up: bool = False
+    attn_qkv_bias: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def replace(self, **changes) -> "LlamaConfig":
+        return dataclasses.replace(self, **changes)
+
+
+def llama3_8b(**overrides) -> LlamaConfig:
+    return LlamaConfig(**overrides)
+
+
+def llama2_7b(**overrides) -> LlamaConfig:
+    defaults = dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_layers=32,
+        num_heads=32, num_kv_heads=32, rope_theta=10000.0, rms_eps=1e-5,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def mistral_7b(**overrides) -> LlamaConfig:
+    """Mistral-7B-v0.2+: llama blocks with 8-head GQA and a 14336 MLP."""
+    defaults = dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
+        num_heads=32, num_kv_heads=8, rope_theta=1000000.0, rms_eps=1e-5,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def qwen2_7b(**overrides) -> LlamaConfig:
+    """Qwen2/Qwen2.5-7B: q/k/v projection biases, 4-head GQA, 152k vocab."""
+    defaults = dict(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_layers=28,
+        num_heads=28, num_kv_heads=4, rope_theta=1000000.0, rms_eps=1e-6,
+        attn_qkv_bias=True,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def llama3_8b_serving(**overrides) -> LlamaConfig:
+    """Llama-3-8B in the serving form of the JAX package's bench: w4 g128
+    projections with fused q|k|v and gate|up, int8 KV cache, int8
+    embedding, w4 head padded to 2048, bf16, a 1024-position cache."""
+    defaults = dict(
+        dtype=torch.bfloat16, max_seq_len=1024, kv_cache_dtype="int8", quantize_embed=True,
+        head_w_bit=4, head_pad_to=2048, fuse_qkv=True, fuse_gate_up=True,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def tiny_llama(**overrides) -> LlamaConfig:
+    """Small config for tests and CPU dry runs."""
+    defaults = dict(
+        vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+        num_heads=4, num_kv_heads=2, max_seq_len=128, group_size=64,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def _check_slice(cfg: LlamaConfig) -> None:
+    later = {
+        "mbwq_strategy": (cfg.mbwq_strategy is not None, "the sub-4-bit slice (MBWQ)"),
+        "moe_num_experts": (cfg.moe_num_experts > 0, "the MoE slice"),
+        "sequence_parallel": (cfg.sequence_parallel is not None, "the parallel-layouts slice"),
+        "remat": (cfg.remat, "the training slice"),
+        "quantized": (not cfg.quantized, "the training slice (fp projections)"),
+    }
+    for field, (set_, slice_) in later.items():
+        if set_:
+            raise NotImplementedError(f"LlamaConfig.{field} arrives with {slice_} of the port")
+    if cfg.kv_cache_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {cfg.kv_cache_dtype!r}")
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device), requires_grad=False
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+        return (x32 * torch.rsqrt(var + self.eps) * self.weight).to(self.dtype)
+
+
+def _rope(pos: torch.Tensor, head_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for positions ``pos`` (any shape) → (..., head_dim/2)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=pos.device) / head_dim
+    inv_freq = 1.0 / (theta ** exps)
+    angles = pos.float()[..., None] * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (b, s, h, d) with cos/sin (b, s, d/2), rotate-half convention."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2 :]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _proj(cfg: LlamaConfig, in_features: int, out_features: int, device, generator,
+          use_bias: bool = False) -> MPQLinear:
+    if cfg.proj_pad_to and out_features % cfg.proj_pad_to and not use_bias:
+        n_pad = -(-out_features // cfg.proj_pad_to) * cfg.proj_pad_to
+        return MPQLinear(
+            in_features, n_pad, w_bit=cfg.w_bit, group_size=cfg.group_size, asym=cfg.asym,
+            mid_sym=cfg.quant_mid_sym, dtype=cfg.dtype, device=device, generator=generator,
+            out_slice=out_features,
+        )
+    return MPQLinear(
+        in_features, out_features, w_bit=cfg.w_bit, group_size=cfg.group_size,
+        asym=cfg.asym, use_bias=use_bias, mid_sym=cfg.quant_mid_sym, dtype=cfg.dtype,
+        device=device, generator=generator,
+    )
+
+
+def _quantize_kv(u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(position, head) int8: ``scale = max(amax, 1e-6) / 127``."""
+    u32 = u.float()
+    scale = torch.clamp_min(u32.abs().amax(dim=-1), 1e-6) / 127.0
+    q8 = torch.clamp(torch.round(u32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q8, scale
+
+
+def _write(cache: torch.Tensor, update: torch.Tensor, cache_len) -> None:
+    """Write ``update`` (b, s, ...) at ``cache_len`` along axis 1, in place,
+    clamping the start into the cache as ``dynamic_update_slice`` does."""
+    length, s = cache.shape[1], update.shape[1]
+    update = update.to(cache.dtype)
+    if isinstance(cache_len, list):
+        for i, p in enumerate(cache_len):
+            start = min(max(p, 0), length - s)
+            cache[i, start : start + s] = update[i]
+    else:
+        start = min(max(cache_len, 0), length - s)
+        cache[:, start : start + s] = update
+
+
+_NEG = torch.finfo(torch.float32).min  # the reference's mask value
+
+
+def _scores(qg: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """f32 products of the working-dtype operands: queries grouped per KV head
+    (b, s, nkv, rep, hd) against keys (b, L, nkv, hd) → (b, nkv, rep, s, L)."""
+    scale = math.sqrt(qg.shape[-1])
+    return torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), keys.to(qg.dtype).float()) / scale
+
+
+def _context(probs: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """(b, nkv, rep, s, L) probabilities × values (b, L, nkv, hd) → (b, s, nh·hd)."""
+    ctx = torch.einsum("bgrqk,bkgd->bqgrd", probs, values.to(probs.dtype))
+    return ctx.reshape(ctx.shape[0], ctx.shape[1], -1)
+
+
+def _scale_keys(t: torch.Tensor) -> torch.Tensor:
+    """Per-position scales (b, L, nkv) → (b, nkv, 1, 1, L), broadcast over
+    (rep, query) in the score layout (b, nkv, rep, q, k)."""
+    return t.permute(0, 2, 1)[:, :, None, None, :]
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        hd, nh, nkv, h = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.hidden_size
+        bias = cfg.attn_qkv_bias
+        if cfg.fuse_qkv:
+            self.qkv_proj = _proj(cfg, h, (nh + 2 * nkv) * hd, device, generator, bias)
+        else:
+            self.q_proj = _proj(cfg, h, nh * hd, device, generator, bias)
+            self.k_proj = _proj(cfg, h, nkv * hd, device, generator, bias)
+            self.v_proj = _proj(cfg, h, nkv * hd, device, generator, bias)
+        self.o_proj = _proj(cfg, nh * hd, h, device, generator)
+
+    def _use_flash(self, x: torch.Tensor, s: int) -> bool:
+        cfg = self.cfg
+        return (
+            x.device.type == "cuda"
+            and s > 1
+            and s % 128 == 0
+            and cfg.dtype == torch.bfloat16
+            and cfg.head_dim in HEAD_DIMS
+        )
+
+    def _flash(self, q, k, v) -> torch.Tensor:
+        """Kernel 3 on (b, s, h, d) operands → ctx (b, s, nh * hd)."""
+        b, s = q.shape[:2]
+
+        def heads_first(t):
+            return t.transpose(1, 2).to(self.cfg.dtype).contiguous()
+
+        ctx, _ = flash_attention(
+            heads_first(q), heads_first(k), heads_first(v),
+            causal=True, sm_scale=1.0 / math.sqrt(self.cfg.head_dim),
+        )
+        return ctx.transpose(1, 2).reshape(b, s, -1)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        positions: torch.Tensor,
+        kv_cache: Optional[tuple] = None,
+        cache_len: CacheLen = None,
+        attn_window: Optional[int] = None,
+    ):
+        """``attn_window``: prefix of the cache to read (a power-of-2 bucket
+        chosen per step).  Contract: ``attn_window >= max(cache_len)``; a
+        violation poisons the output with NaN instead of silently dropping
+        cached positions."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        rep = nh // nkv
+        if cfg.fuse_qkv:
+            q, k, v = torch.split(self.qkv_proj(x), [nh * hd, nkv * hd, nkv * hd], dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        cos, sin = _rope(positions, hd, cfg.rope_theta)
+        q = _apply_rope(q.reshape(b, s, nh, hd), cos, sin)
+        k = _apply_rope(k.reshape(b, s, nkv, hd), cos, sin)
+        v = v.reshape(b, s, nkv, hd)
+        qg = q.reshape(b, s, nkv, rep, hd)
+
+        if kv_cache is not None and not isinstance(kv_cache, (tuple, list)):
+            raise NotImplementedError("paged KV caches arrive with the serving slice of the port")
+        kv_quant = cfg.kv_cache_dtype == "int8" and kv_cache is not None
+        cl_rows = None  # per-row cache lengths on the device, (b, 1, 1, 1, 1)
+        if isinstance(cache_len, list):
+            cl_rows = torch.tensor(cache_len, device=x.device)[:, None, None, None, None]
+
+        if kv_cache is None:
+            if self._use_flash(x, s):
+                return self.o_proj(self._flash(q, k, v)), None
+            return self.o_proj(self._full_read(qg, positions, k, v)), None
+
+        total_len = kv_cache[0].shape[1]
+        full_read = attn_window is None or attn_window >= total_len
+        if kv_quant:
+            ck0, cv0, ckvs0 = kv_cache
+            k_new, ks_new = _quantize_kv(k)
+            v_new, vs_new = _quantize_kv(v)
+            writes = ((ck0, k_new), (cv0, v_new), (ckvs0, torch.cat([ks_new, vs_new], dim=-1)))
+        else:
+            ck0, cv0 = kv_cache
+            k_new, v_new = k.to(ck0.dtype), v.to(cv0.dtype)
+            ks_new = vs_new = None
+            writes = ((ck0, k_new), (cv0, v_new))
+
+        if full_read:
+            for cache, update in writes:
+                _write(cache, update, cache_len)
+            ks_all = vs_all = None
+            if kv_quant:
+                ks_all, vs_all = ckvs0[..., :nkv], ckvs0[..., nkv:]
+            valid = (cache_len + s) if cl_rows is None else (cl_rows + s)
+            ctx = self._full_read(qg, positions, ck0, cv0, ks_all, vs_all, valid)
+            return self.o_proj(ctx), kv_cache
+
+        prefix_len = attn_window
+        lens = cache_len if isinstance(cache_len, list) else [cache_len]
+        viol = float("nan") if any(c > prefix_len for c in lens) else 0.0
+        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+
+        if prefix_len == 0:
+            # prefill from an empty cache: causal attention over the new
+            # tokens, over their dequantized k/v (what a later read sees)
+            if self._use_flash(x, s):
+                if kv_quant:
+                    kd = (k_new.float() * ks_new[..., None]).to(cfg.dtype)
+                    vd = (v_new.float() * vs_new[..., None]).to(cfg.dtype)
+                else:
+                    kd, vd = k_new.to(cfg.dtype), v_new.to(cfg.dtype)
+                ctx = self._flash(q, kd, vd)
+            else:
+                # codes in the dot, scales factored out: the same math as
+                # the two-part window's new-token block
+                sc = _scores(qg, k_new)
+                if kv_quant:
+                    sc = sc * _scale_keys(ks_new)
+                sc = torch.where(causal, sc, _NEG)
+                probs = torch.softmax(sc, dim=-1).to(cfg.dtype)
+                if kv_quant:
+                    probs = probs * _scale_keys(vs_new).to(probs.dtype)
+                ctx = _context(probs, v_new)
+            ctx = (ctx.float() + viol).to(cfg.dtype)
+        else:
+            k_pre, v_pre = ck0[:, :prefix_len], cv0[:, :prefix_len]
+            sc_p = _scores(qg, k_pre)
+            if kv_quant:
+                sc_p = sc_p * _scale_keys(ckvs0[:, :prefix_len, :nkv])
+            kv_pos = torch.arange(prefix_len, device=x.device)
+            cl = cache_len if cl_rows is None else cl_rows
+            sc_p = torch.where(kv_pos < cl, sc_p, _NEG) + viol
+            sc_n = _scores(qg, k_new)
+            if kv_quant:
+                sc_n = sc_n * _scale_keys(ks_new)
+            sc_n = torch.where(causal, sc_n, _NEG)
+            probs = torch.softmax(torch.cat([sc_p, sc_n], dim=-1), dim=-1).to(cfg.dtype)
+            pp, pn = probs[..., :prefix_len], probs[..., prefix_len:]
+            if kv_quant:
+                pp = pp * _scale_keys(ckvs0[:, :prefix_len, nkv:]).to(pp.dtype)
+                pn = pn * _scale_keys(vs_new).to(pn.dtype)
+            ctx = _context(pp, v_pre) + _context(pn, v_new)
+        # this step read the cache before its write (stream order keeps it so)
+        for cache, update in writes:
+            _write(cache, update, cache_len)
+        return self.o_proj(ctx), kv_cache
+
+    def _full_read(self, qg, positions, k_all, v_all, ks_all=None, vs_all=None, valid=None):
+        """One softmax over all of ``k_all``/``v_all`` under the causal mask in
+        absolute positions (and ``kv_pos < valid`` with a cache); int8 keys
+        and values come with their per-position scales."""
+        sc = _scores(qg, k_all)
+        if ks_all is not None:
+            sc = sc * _scale_keys(ks_all)
+        kv_pos = torch.arange(k_all.shape[1], device=qg.device)
+        mask = kv_pos <= positions[:, None, None, :, None]
+        if valid is not None:
+            mask = mask & (kv_pos < valid)
+        probs = torch.softmax(torch.where(mask, sc, _NEG), dim=-1).to(self.cfg.dtype)
+        if vs_all is not None:
+            probs = probs * _scale_keys(vs_all).to(probs.dtype)
+        return _context(probs, v_all)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        if cfg.fuse_gate_up:
+            self.gate_up_proj = _proj(cfg, h, 2 * i, device, generator)
+        else:
+            self.gate_proj = _proj(cfg, h, i, device, generator)
+            self.up_proj = _proj(cfg, h, i, device, generator)
+        self.down_proj = _proj(cfg, i, h, device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.fuse_gate_up:
+            gate, up = torch.chunk(self.gate_up_proj(x), 2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        h = nn.functional.silu(gate.float()).to(cfg.dtype) * up
+        return self.down_proj(h)
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, device)
+        self.attn = LlamaAttention(cfg, device, generator)
+        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, device)
+        self.mlp = LlamaMLP(cfg, device, generator)
+
+    def forward(self, x, positions, kv_cache=None, cache_len=None, attn_window=None):
+        h, new_cache = self.attn(self.input_norm(x), positions, kv_cache, cache_len, attn_window)
+        x = x + h
+        x = x + self.mlp(self.post_attn_norm(x))
+        return x, new_cache
+
+
+class Int8Embedding(nn.Module):
+    """int8 table with per-row f32 scales (``quantize_embed``)."""
+
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        scale = torch.clamp_min(table.abs().amax(dim=1), 1e-6) / 127.0
+        data = torch.clamp(torch.round(table / scale[:, None]), -127, 127).to(torch.int8)
+        self.register_buffer("data", data)
+        self.register_buffer("scale", scale.float())
+
+
+def _host_cache_len(cache_len) -> CacheLen:
+    """An int, a 0-d tensor or a per-row sequence → int or list of ints
+    (read once per call, so no layer waits on the device for it)."""
+    if cache_len is None or isinstance(cache_len, int):
+        return cache_len
+    t = torch.as_tensor(cache_len)
+    return int(t) if t.dim() == 0 else [int(c) for c in t.tolist()]
+
+
+class LlamaModel(nn.Module):
+    """Decoder-only Llama; call with token ids ``(b, s)``.
+
+    ``device`` defaults to ``cuda`` (and raises without a GPU); pass
+    ``device="cpu"`` for the plain PyTorch path.  Random parameters come
+    from a ``torch.Generator`` seeded with ``seed``; quantized projections
+    are quantized on ``device``.
+    """
+
+    def __init__(self, cfg: LlamaConfig, device=None, seed: int = 0):
+        super().__init__()
+        _check_slice(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        table = torch.randn(
+            cfg.vocab_size, cfg.hidden_size, generator=gen, device=self.device
+        ) * 0.02
+        if cfg.quantize_embed:
+            self.embed = Int8Embedding(table)
+        else:
+            self.register_buffer("embed", table.to(cfg.dtype))
+        del table
+        self.layers = []
+        for i in range(cfg.num_layers):
+            block = LlamaBlock(cfg, self.device, gen)
+            self.add_module(f"layer_{i}", block)
+            self.layers.append(block)
+        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, self.device)
+        self.lm_head = None
+        if cfg.head_w_bit is not None:
+            n_head = cfg.vocab_size
+            if cfg.head_pad_to:
+                n_head = -(-cfg.vocab_size // cfg.head_pad_to) * cfg.head_pad_to
+            # the head is quantized at group size 128 whatever cfg.group_size says
+            self.lm_head = MPQLinear(
+                cfg.hidden_size, n_head, w_bit=cfg.head_w_bit, group_size=128,
+                dtype=cfg.dtype, device=self.device, generator=gen,
+            )
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        positions: Optional[torch.Tensor] = None,
+        kv_caches: Optional[Sequence[tuple]] = None,
+        cache_len=None,
+        attn_window: Optional[int] = None,
+    ):
+        """Returns ``(logits f32 (b, s, vocab), caches or None)``."""
+        cfg = self.cfg
+        tokens = tokens.to(self.device)
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=self.device).expand(b, s)
+        positions = positions.to(self.device)
+        cache_len = _host_cache_len(cache_len)
+
+        if cfg.quantize_embed:
+            x = self.embed.data[tokens].to(cfg.dtype) * self.embed.scale[tokens][..., None].to(cfg.dtype)
+        else:
+            x = self.embed[tokens].to(cfg.dtype)
+        for i, layer in enumerate(self.layers):
+            cache_i = kv_caches[i] if kv_caches is not None else None
+            x, _ = layer(x, positions, cache_i, cache_len, attn_window)
+        x = self.final_norm(x)
+        if self.lm_head is not None:
+            logits = self.lm_head(x)[..., : cfg.vocab_size].float()
+        elif cfg.quantize_embed:
+            e8 = self.embed.data.T.to(cfg.dtype).float()
+            logits = torch.matmul(x.float(), e8) * self.embed.scale
+        else:
+            logits = torch.matmul(x.float(), self.embed.T.to(cfg.dtype).float())
+        return logits, kv_caches
+
+
+def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None, device=None):
+    """Empty per-layer dense caches: bf16 ``(k, v)`` of (b, L, nkv, hd), or
+    int8 ``(k, v, kv_scales)`` with the k and v per-position f32 scales in
+    one (b, L, 2·nkv) tensor, ``[k-scales | v-scales]``."""
+    device = resolve_device(device)
+    max_len = max_len or cfg.max_seq_len
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = (batch, max_len, 2 * cfg.num_kv_heads)
+        return [
+            (
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(sshape, dtype=torch.float32, device=device),
+            )
+            for _ in range(cfg.num_layers)
+        ]
+    return [
+        (torch.zeros(shape, dtype=cfg.dtype, device=device),
+         torch.zeros(shape, dtype=cfg.dtype, device=device))
+        for _ in range(cfg.num_layers)
+    ]
+
+
+@torch.no_grad()
+def decode_step(model: LlamaModel, tokens, kv_caches, cache_len, attn_window=None):
+    """One decode step: tokens (b, 1) at position ``cache_len`` → (logits
+    (b, vocab), caches).  ``attn_window``: see :class:`LlamaAttention`."""
+    cache_len = _host_cache_len(cache_len)
+    b = tokens.shape[0]
+    if isinstance(cache_len, list):
+        positions = torch.tensor(cache_len, device=model.device)[:, None]
+    else:
+        positions = torch.full((b, 1), cache_len, device=model.device)
+    logits, caches = model(
+        tokens, positions=positions, kv_caches=kv_caches, cache_len=cache_len,
+        attn_window=attn_window,
+    )
+    return logits[:, -1], caches
+
+
+@torch.no_grad()
+def prefill(model: LlamaModel, tokens, kv_caches):
+    """Prefill an empty cache with a whole prompt → (logits, caches).
+
+    ``attn_window=0``: no cache read; on the card the flash kernel runs the
+    causal attention when the prompt length is a multiple of 128."""
+    return model(tokens, kv_caches=kv_caches, cache_len=0, attn_window=0)
+
+
+def _fuse_group(parent: nn.Module, names: Sequence[str], fused_name: str) -> None:
+    parts = [getattr(parent, n) for n in names]
+    if any(p.out_slice is not None for p in parts):
+        raise ValueError(f"cannot fuse {names}: padded projections")
+    qt = concat_mpq([p.qweight for p in parts])
+    fused = MPQLinear(qt.in_features, qt.out_features, dtype=parts[0].dtype, qweight=qt)
+    if all(p.bias is not None for p in parts):
+        fused.bias = nn.Parameter(torch.cat([p.bias for p in parts]), requires_grad=False)
+    for n in names:
+        delattr(parent, n)
+    setattr(parent, fused_name, fused)
+
+
+@torch.no_grad()
+def fuse_llama_params(model: LlamaModel, fuse_qkv: bool = True, fuse_gate_up: bool = True):
+    """Rewrite an unfused model in place into the ``fuse_qkv`` /
+    ``fuse_gate_up`` form: q|k|v and gate|up concatenate along the output
+    features (``concat_mpq``), which leaves the logits unchanged.  Returns
+    the model."""
+    cfg = model.cfg.replace(
+        fuse_qkv=model.cfg.fuse_qkv or fuse_qkv,
+        fuse_gate_up=model.cfg.fuse_gate_up or fuse_gate_up,
+    )
+    for layer in model.layers:
+        if fuse_qkv and not layer.attn.cfg.fuse_qkv:
+            _fuse_group(layer.attn, ("q_proj", "k_proj", "v_proj"), "qkv_proj")
+        if fuse_gate_up and not layer.mlp.cfg.fuse_gate_up:
+            _fuse_group(layer.mlp, ("gate_proj", "up_proj"), "gate_up_proj")
+        layer.attn.cfg = layer.mlp.cfg = cfg
+    model.cfg = cfg
+    return model

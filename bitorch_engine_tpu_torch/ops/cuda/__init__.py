@@ -1,0 +1,28 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+Sources live in ``bitorch_engine_tpu_torch/csrc``; ``_build`` compiles them
+with ``nvcc`` at first use.  Importing this package builds nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .dequant_matmul import dequant_mpq, mpq_matmul
+from .flash_attention import flash_attention
+
+# every kernel wrapper of the port, by name
+KERNELS = {
+    "mpq_matmul": mpq_matmul,
+    "dequant_mpq": dequant_mpq,
+    "flash_attention": flash_attention,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -1,0 +1,193 @@
+"""Kernels 1 and 2: the fused dequant-matmul and the streaming dequant.
+
+The counterpart of ``bitorch_engine_tpu/ops/pallas/dequant_matmul.py``.  The
+kernels (``csrc/dequant_matmul.cu``) take the "gptq" row order with
+symmetric float zeros (``w = q * s - z``); :func:`prepare_for_kernel`
+brings any :class:`MPQTensor` to that form once, at load time.
+
+Each wrapper launches its kernel for CUDA tensors and raises on what the
+kernel does not take; it runs the plain PyTorch version beside it only for
+CPU tensors.  ``<wrapper>.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ...qtensor import MPQTensor
+from .. import packing
+from ..quant import dequantize_mpq
+from . import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def prepare_for_kernel(qt: MPQTensor, meta_dtype: Optional[torch.dtype] = None) -> MPQTensor:
+    """Canonical kernel form: symmetric zeros, "gptq" row order, metadata in
+    ``meta_dtype`` (float32 or bfloat16; ``None`` keeps it).
+
+    The asym→sym rewrite ``w = s(q - z) = q s - s z`` stores
+    ``zeros = (s · z_int in f32).astype(scales.dtype)`` before the metadata
+    cast, as ``relayout_tpu`` does; a TPU row layout is unpacked and
+    repacked in gptq order.
+    """
+    if qt.act_bits != 16:
+        raise NotImplementedError(
+            "act_bits=8 (the A8 decode regime) arrives with the sub-4-bit slice"
+        )
+    if qt.group_size % (32 // qt.w_bit) != 0:
+        raise ValueError("group_size must be a multiple of 32 / w_bit")
+    zeros = qt.zeros
+    if qt.asym:
+        z_int = packing.unpack_cols(qt.zeros, qt.w_bit).float()
+        zeros = (qt.scales.float() * z_int).to(qt.scales.dtype)
+    packed = qt.packed
+    if qt.layout != "gptq":
+        q_int = packing.unpack_rows_layout(packed, qt.w_bit, qt.group_size, qt.layout)
+        packed = packing.pack_rows(q_int, qt.w_bit)
+    scales = qt.scales
+    if meta_dtype is not None:
+        scales = scales.to(meta_dtype)
+        zeros = zeros.to(meta_dtype)
+    return qt.replace(
+        packed=packed.contiguous(), scales=scales.contiguous(),
+        zeros=zeros.contiguous(), asym=False, layout="gptq",
+    )
+
+
+def _check_weight(qt: MPQTensor, device: torch.device) -> None:
+    if qt.layout != "gptq" or qt.asym or qt.act_bits != 16:
+        raise ValueError(
+            "the CUDA kernels take gptq-order symmetric A16 tensors: "
+            "call prepare_for_kernel (or utils.convert.prepare_params_for_cuda) first"
+        )
+    if qt.g_idx is not None or qt.q_perm is not None:
+        raise NotImplementedError("act-order g_idx/q_perm tensors arrive with the checkpoint slice")
+    if qt.w_bit not in packing.SUPPORTED_BITS:
+        raise ValueError(f"w_bit={qt.w_bit} unsupported")
+    k, n = qt.logical_shape
+    ppw = 32 // qt.w_bit
+    if qt.group_size % ppw or k % qt.group_size:
+        raise ValueError(f"K={k} and group_size={qt.group_size} must tile by {ppw}-code words")
+    if n % 4:
+        raise ValueError(f"N={n} must be a multiple of 4 (16-byte word loads)")
+    if qt.packed.dtype != torch.int32:
+        raise ValueError("packed must be int32")
+    if qt.scales.dtype not in _DTYPE_CODE or qt.zeros.dtype != qt.scales.dtype:
+        raise ValueError("scales and zeros must share one dtype, float32 or bfloat16")
+    g = k // qt.group_size
+    for name, t, shape in (
+        ("packed", qt.packed, (k // ppw, n)),
+        ("scales", qt.scales, (g, n)),
+        ("zeros", qt.zeros, (g, n)),
+    ):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the activations on {device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} tensor, got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _mpq_fn():
+    return _build.function(
+        "dequant_matmul", "bte_mpq_matmul",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _dequant_fn():
+    return _build.function(
+        "dequant_matmul", "bte_dequant",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    )
+
+
+def mpq_matmul_ref(
+    x: torch.Tensor, qt: MPQTensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """Plain version of kernel 1: ``x @ dequantize_mpq(qt)`` in f32, cast."""
+    w = dequantize_mpq(qt, torch.float32)
+    return (x.float() @ w).to(out_dtype or x.dtype)
+
+
+def mpq_matmul(
+    x: torch.Tensor, qt: MPQTensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """Kernel 1: ``x (m, K) @ dequant(qt) (K, N)`` with f32 accumulation.
+
+    ``out_dtype`` defaults to ``x.dtype``; ``torch.float32`` returns the
+    accumulator before any cast."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return mpq_matmul_ref(x, qt, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"mpq_matmul: unsupported device {x.device}")
+    _check_weight(qt, x.device)
+    k, n = qt.logical_shape
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (m, {k}), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError("x and the output must be float32 or bfloat16")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    err = _mpq_fn()(
+        x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(),
+        out.data_ptr(), m, k, n, qt.w_bit, qt.group_size,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[qt.scales.dtype], _DTYPE_CODE[out_dtype],
+        _stream(x.device),
+    )
+    _build.check("dequant_matmul", err, "mpq_matmul launch")
+    mpq_matmul.launches += 1
+    return out
+
+
+mpq_matmul.launches = 0
+
+
+def dequant_mpq_ref(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of kernel 2: ``q * s - z`` rounded once to f32 (as the
+    JAX package's jitted dequantize and the kernel's FMA do), cast."""
+    return dequantize_mpq(qt, dtype)
+
+
+def dequant_mpq(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Kernel 2: the logical weight ``(K, N)`` in ``dtype``, bit-exact with
+    :func:`dequant_mpq_ref`."""
+    dev = qt.packed.device
+    if dev.type == "cpu":
+        return dequant_mpq_ref(qt, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"dequant_mpq: unsupported device {dev}")
+    _check_weight(qt, dev)
+    if dtype not in _DTYPE_CODE:
+        raise ValueError("dequant_mpq writes float32 or bfloat16")
+    k, n = qt.logical_shape
+    out = torch.empty((k, n), dtype=dtype, device=dev)
+    err = _dequant_fn()(
+        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(), out.data_ptr(),
+        k, n, qt.w_bit, qt.group_size,
+        _DTYPE_CODE[qt.scales.dtype], _DTYPE_CODE[dtype], _stream(dev),
+    )
+    _build.check("dequant_matmul", err, "dequant_mpq launch")
+    dequant_mpq.launches += 1
+    return out
+
+
+dequant_mpq.launches = 0

@@ -1,0 +1,183 @@
+"""MPQ (GPTQ/GBA) quantize, dequantize, concatenate and slice, in PyTorch.
+
+The counterpart of the MPQ half of ``bitorch_engine_tpu/ops/quant.py``,
+bit-exact with it: both sides compute in float32 with the same operations
+in the same order (``torch.round`` rounds half to even, as ``jnp.round``
+does).  The scalar quantizers and the binary / n-bit initialisers come
+with the slices that use them.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..qtensor import MPQTensor
+from . import packing
+
+
+def _group_index(qt: MPQTensor, k: int) -> torch.Tensor:
+    if qt.g_idx is not None:
+        return qt.g_idx.long()
+    return torch.arange(k, device=qt.packed.device) // qt.group_size
+
+
+def _unpermute(w: torch.Tensor, q_perm: torch.Tensor) -> torch.Tensor:
+    """Rows stored permuted: scatter row i back to ``q_perm[i]``."""
+    out = torch.zeros_like(w)
+    out[q_perm.long()] = w
+    return out
+
+
+def dequantize_mpq(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Reconstruct the fp weight ``(K, N)``; the three styles of the reference:
+
+    1. asym: ``w = s[g] * (q - z[g])`` with packed zeros carrying ``+1``;
+    2. sym with ``g_idx``: ``w = q * s[g] - z[g]``;
+    3. sym without ``g_idx``: contiguous groups, then the optional
+       ``q_perm`` scatter back to the logical row order.
+    """
+    k, _ = qt.logical_shape
+    q = packing.unpack_rows_layout(qt.packed, qt.w_bit, qt.group_size, qt.layout)
+    g = _group_index(qt, k)
+    if qt.asym:
+        zeros = packing.unpack_cols(qt.zeros, qt.w_bit)
+        w = qt.scales[g].float() * (q - zeros[g]).float()
+    else:
+        # One rounding, as the JAX package's jitted dequantize does (XLA
+        # contracts q * s - z into a fused multiply-add): the product of an
+        # integer code below 2^8 and an f32 scale is exact in f64, so the
+        # f64 difference rounded to f32 is the fused result.
+        w = (q.double() * qt.scales[g].double() - qt.zeros[g].double()).float()
+    if qt.g_idx is None and qt.q_perm is not None:
+        w = _unpermute(w, qt.q_perm)
+    return w.to(dtype)
+
+
+def slice_mpq_n(qt: MPQTensor, start: int, size: int) -> MPQTensor:
+    """Output columns ``[start, start + size)`` (the inverse of :func:`concat_mpq`);
+    asym zeros pack along N, so both must align to codes-per-word there."""
+    packed = qt.packed[:, start : start + size]
+    scales = qt.scales[:, start : start + size]
+    if qt.asym:
+        ppw = 32 // qt.w_bit
+        if start % ppw or size % ppw:
+            raise ValueError("asym slice must align to codes-per-word")
+        zeros = qt.zeros[:, start // ppw : (start + size) // ppw]
+    else:
+        zeros = qt.zeros[:, start : start + size]
+    return qt.replace(
+        packed=packed.contiguous(), scales=scales.contiguous(), zeros=zeros.contiguous()
+    )
+
+
+def concat_mpq(parts: Sequence[MPQTensor]) -> MPQTensor:
+    """Concatenate tensors sharing one K along N (fused q|k|v, gate|up).
+
+    Group quantization is per (K-group, N-column), so concatenation along N
+    commutes with quantization.  Act-order parts (``g_idx``/``q_perm``) are
+    refused: their row maps cannot share one launch.
+    """
+    first = parts[0]
+    for p in parts[1:]:
+        if (
+            p.w_bit != first.w_bit
+            or p.group_size != first.group_size
+            or p.asym != first.asym
+            or p.layout != first.layout
+            or p.code_bits != first.code_bits
+            or p.in_features != first.in_features
+        ):
+            raise ValueError("concat_mpq: parts disagree on quant structure")
+    if any(p.g_idx is not None or p.q_perm is not None for p in parts):
+        raise ValueError("concat_mpq: parts with g_idx/q_perm (act-order) cannot be fused")
+    return first.replace(
+        packed=torch.cat([p.packed for p in parts], dim=1),
+        scales=torch.cat([p.scales for p in parts], dim=1),
+        zeros=torch.cat([p.zeros for p in parts], dim=1),
+        grad_shadow=None,
+        zeros_mid=all(p.zeros_mid for p in parts),
+    )
+
+
+def _recip(c: float) -> float:
+    """float32 reciprocal of ``c``, as XLA folds ``x / c``."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def quantize_mpq(
+    weight: torch.Tensor,
+    w_bit: int = 4,
+    group_size: int = 128,
+    asym: bool = False,
+    code_bits: Optional[int] = None,
+    mid_sym: bool = False,
+) -> MPQTensor:
+    """Round-to-nearest group quantization of an fp weight ``(K, N)``.
+
+    sym (GBA): ``w = q * s - z`` with ``z = -min``; asym (GPTQ): packed
+    integer zeros; ``mid_sym``: ``z = 2**(bits-1) * s`` exactly (exl2
+    symmetric midpoint).  ``code_bits`` < ``w_bit`` quantizes at an odd
+    width inside the byte-aligned container.
+
+    The JAX package runs this under ``jit``, where XLA turns a division by
+    a constant into a multiplication by its float32 reciprocal; the port
+    multiplies by the same reciprocal (``_recip``) so that the two agree
+    bit for bit.
+    """
+    k, n = weight.shape
+    if w_bit not in packing.SUPPORTED_BITS:
+        raise ValueError(
+            f"w_bit={w_bit} is not a packable container width {packing.SUPPORTED_BITS}; "
+            f"for odd exl2 widths pass the container (e.g. w_bit=4, code_bits=3)"
+        )
+    if k % group_size != 0:
+        raise ValueError(f"K={k} not a multiple of group_size={group_size}")
+    if code_bits is not None and not 0 < code_bits <= w_bit:
+        raise ValueError(f"code_bits={code_bits} must be in (0, w_bit={w_bit}]")
+    w = weight.float().reshape(k // group_size, group_size, n)
+    maxq = float(2 ** (code_bits or w_bit) - 1)
+    wmin = w.amin(dim=1)
+    wmax = w.amax(dim=1)
+    if asym:
+        scales = torch.clamp_min((wmax - wmin) * _recip(maxq), 1e-8)
+        zeros_int = torch.clamp(torch.round(-wmin / scales), 1, maxq).to(torch.int32)
+        q = torch.clamp(torch.round(w / scales[:, None, :]) + zeros_int[:, None, :], 0, maxq)
+        return MPQTensor(
+            packed=packing.pack_rows(q.to(torch.int32).reshape(k, n), w_bit),
+            scales=scales,
+            zeros=packing.pack_cols(zeros_int, w_bit),
+            w_bit=w_bit,
+            group_size=group_size,
+            asym=True,
+            code_bits=code_bits,
+        )
+    if mid_sym:
+        mid = float(2 ** ((code_bits or w_bit) - 1))
+        scales = torch.clamp_min(
+            torch.maximum(wmax * _recip(maxq - mid), -wmin * _recip(mid)), 1e-8
+        )
+        zeros = mid * scales
+        q = torch.clamp(torch.round(w / scales[:, None, :]) + mid, 0, maxq)
+        return MPQTensor(
+            packed=packing.pack_rows(q.reshape(k, n).to(torch.int32), w_bit),
+            scales=scales,
+            zeros=zeros,
+            w_bit=w_bit,
+            group_size=group_size,
+            code_bits=code_bits,
+            zeros_mid=True,
+        )
+    scales = torch.clamp_min((wmax - wmin) * _recip(maxq), 1e-8)
+    zeros = -wmin
+    q = torch.clamp(torch.round((w + zeros[:, None, :]) / scales[:, None, :]), 0, maxq)
+    return MPQTensor(
+        packed=packing.pack_rows(q.reshape(k, n).to(torch.int32), w_bit),
+        scales=scales,
+        zeros=zeros,
+        w_bit=w_bit,
+        group_size=group_size,
+        code_bits=code_bits,
+    )

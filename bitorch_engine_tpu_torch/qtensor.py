@@ -1,0 +1,82 @@
+"""Quantized-weight records as dataclasses of tensors.
+
+The counterpart of ``bitorch_engine_tpu/qtensor.py``.  Only ``MPQTensor``
+is carried over so far (the serving path's weight); the binary, n-bit and
+mixed-bit records come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MPQTensor:
+    """Group-quantized (GPTQ/GBA-style) packed weight, logical shape (K, N).
+
+    * ``packed``: int32 ``(K // 32 * w_bit, N)``; each word holds
+      ``32 // w_bit`` K-rows, value ``j`` at bit offset ``j * w_bit``.  Row
+      order per ``layout``: ``"gptq"`` (value j of word r is row
+      ``r * ppw + j``) is the checkpoint order and the port's kernel
+      layout; ``"tpu_tiled"``, ``"tpu_pair"`` and ``"tpu_quad"`` are the
+      JAX package's TPU layouts, which the port reads (to load relayouted
+      parameters) and never writes.
+    * ``scales``: float ``(G, N)``, ``G = ceil(K / group_size)``.
+    * ``zeros``: asym → packed int32 ``(G, N // 32 * w_bit)`` holding
+      ``zero - 1`` (GPTQ convention); sym → float ``(G, N)`` subtractive
+      zeros, ``w = q * s - z``.
+    * ``g_idx``: optional int32 ``(K,)`` row → group map (act-order GPTQ).
+    * ``q_perm``: optional int32 ``(K,)`` row permutation restored at
+      dequantize time.
+    * ``code_bits``: true quantization width when below the ``w_bit``
+      container; ``act_bits``: 16 (8 is the A8 regime of a later slice);
+      ``zeros_mid``: zeros are exactly ``2**(bits-1) * scales``.
+    * ``grad_shadow``: the training slice's weight-gradient slot, kept
+      ``None`` here.
+    """
+
+    packed: torch.Tensor
+    scales: torch.Tensor
+    zeros: torch.Tensor
+    g_idx: Optional[torch.Tensor] = None
+    q_perm: Optional[torch.Tensor] = None
+    w_bit: int = 4
+    group_size: int = 128
+    asym: bool = False
+    grad_shadow: Optional[torch.Tensor] = None
+    code_bits: Optional[int] = None
+    layout: str = "gptq"
+    act_bits: int = 16
+    zeros_mid: bool = False
+
+    @property
+    def in_features(self) -> int:
+        return self.packed.shape[0] * 32 // self.w_bit
+
+    @property
+    def out_features(self) -> int:
+        return self.packed.shape[1]
+
+    @property
+    def logical_shape(self) -> Tuple[int, int]:
+        return (self.in_features, self.out_features)
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def replace(self, **changes) -> "MPQTensor":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "MPQTensor":
+        def mv(t):
+            return None if t is None else t.to(device)
+
+        return self.replace(
+            packed=mv(self.packed), scales=mv(self.scales), zeros=mv(self.zeros),
+            g_idx=mv(self.g_idx), q_perm=mv(self.q_perm),
+            grad_shadow=mv(self.grad_shadow),
+        )

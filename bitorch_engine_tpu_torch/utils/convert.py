@@ -1,0 +1,106 @@
+"""Prepare a model's quantized weights for the kernels, and load the JAX
+package's parameters into the port.
+
+``load_jax_params`` takes the flax parameter tree after
+``jax.tree_util.tree_map(np.asarray, params)``: nested dicts of numpy
+arrays, with each quantized weight still a record object whose fields are
+numpy arrays.  It recognises such a record by its attributes and never
+imports the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..layers.linear import MPQLinear
+from ..ops.cuda.dequant_matmul import prepare_for_kernel
+from ..qtensor import MPQTensor
+
+_MPQ_FIELDS = ("packed", "scales", "zeros", "w_bit", "group_size", "asym", "layout")
+
+
+@torch.no_grad()
+def prepare_params_for_cuda(model: nn.Module, meta_dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """Bring every :class:`MPQLinear` to the kernels' form once, at load
+    time: symmetric zeros, gptq row order, group metadata in
+    ``meta_dtype`` (``torch.bfloat16`` halves the metadata stream).  The
+    counterpart of ``relayout_params_for_tpu`` (its ``act_bits_map`` comes
+    with the A8 regime).  Works in place; returns the model."""
+    for mod in model.modules():
+        if isinstance(mod, MPQLinear):
+            mod.set_qweight(prepare_for_kernel(mod.qweight, meta_dtype))
+    return model
+
+
+def _tensor(a, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits over
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _is_mpq(leaf: Any) -> bool:
+    return all(hasattr(leaf, f) for f in _MPQ_FIELDS)
+
+
+def _mpq(leaf: Any, device) -> MPQTensor:
+    code_bits = getattr(leaf, "code_bits", None)
+    return MPQTensor(
+        packed=_tensor(leaf.packed, device),
+        scales=_tensor(leaf.scales, device),
+        zeros=_tensor(leaf.zeros, device),
+        g_idx=_tensor(getattr(leaf, "g_idx", None), device),
+        q_perm=_tensor(getattr(leaf, "q_perm", None), device),
+        w_bit=int(leaf.w_bit),
+        group_size=int(leaf.group_size),
+        asym=bool(leaf.asym),
+        code_bits=None if code_bits is None else int(code_bits),
+        layout=str(leaf.layout),
+        act_bits=int(getattr(leaf, "act_bits", 16)),
+        zeros_mid=bool(getattr(leaf, "zeros_mid", False)),
+    )
+
+
+def _load_into(module: nn.Module, tree: Mapping[str, Any], path: str, device) -> None:
+    for key, val in tree.items():
+        where = f"{path}/{key}" if path else key
+        if key == "qweight":
+            if not isinstance(module, MPQLinear) or not _is_mpq(val):
+                raise ValueError(f"{where}: a quantized weight needs an MPQLinear")
+            module.set_qweight(_mpq(val, device))
+            continue
+        target = getattr(module, key, None)
+        if isinstance(val, Mapping):
+            if not isinstance(target, nn.Module):
+                raise KeyError(f"{where}: no such submodule in {type(module).__name__}")
+            _load_into(target, val, where, device)
+            continue
+        if not isinstance(target, torch.Tensor):
+            raise KeyError(f"{where}: no such tensor in {type(module).__name__}")
+        src = _tensor(val, device)
+        if tuple(src.shape) != tuple(target.shape):
+            raise ValueError(f"{where}: shape {tuple(src.shape)} != {tuple(target.shape)}")
+        target.copy_(src)
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """Copy the JAX package's Llama parameters into the port's model.
+
+    Flax names map onto the port's modules one to one:
+    ``layer_{i}/attn/qkv_proj/qweight``, ``layer_{i}/input_norm/weight``,
+    ``embed`` (or ``embed/{data,scale}`` with ``quantize_embed``),
+    ``final_norm/weight``, ``lm_head/qweight``, ... .  A quantized weight
+    keeps its layout (TPU layouts included) until
+    :func:`prepare_params_for_cuda` converts it.  Returns the model."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    device = next(iter(model.buffers())).device
+    _load_into(model, tree, "", device)
+    return model

@@ -1,0 +1,80 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import bitorch_engine_tpu_torch
+from bitorch_engine_tpu_torch import device as tdevice
+from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+from bitorch_engine_tpu_torch.models import generate as tg
+from bitorch_engine_tpu_torch.models import llama as tl
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = pathlib.Path(bitorch_engine_tpu_torch.__file__).parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "bitorch_engine_tpu"}
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_port_imports_with_jax_blocked():
+    """Import every module of the port, and chip_smoke, with the JAX
+    packages made unimportable."""
+    code = f"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = {sorted(FORBIDDEN)!r}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {str(ROOT)!r})
+import bitorch_engine_tpu_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+import chip_smoke
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tl.tiny_llama(dtype=torch.float32, num_layers=1)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        tdevice.resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tl.LlamaModel(cfg)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        tl.init_kv_caches(cfg, 1)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        MPQLinear(128, 64)
+    layer = MPQLinear(128, 64, device="cpu")
+    assert layer.packed.device.type == "cpu"
+    fused = MPQLinear(128, 64, qweight=layer.qweight)  # lives where its tensor does
+    assert fused.packed.device.type == "cpu"
+    model = tl.LlamaModel(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    out = tg.generate(model, torch.tensor([[1, 2]]), max_new_tokens=2)
+    assert out.shape == (1, 4)

@@ -2,8 +2,8 @@
 
 The counterpart of ``bitorch_engine_tpu/models/llama.py`` for the serving
 path: MPQ projections, optionally fused q|k|v and gate|up, RoPE,
-RMSNorm and SwiGLU, dense bf16 or int8 KV caches, a bf16 / int8 / w4
-head.  Parameters live in the modules (``LlamaModel(cfg, device)`` builds
+RMSNorm and SwiGLU, dense or paged bf16 / int8 KV caches, a bf16 / int8 /
+w4 head.  Parameters live in the modules (``LlamaModel(cfg, device)`` builds
 random ones from a seeded ``torch.Generator``; ``utils.convert`` loads the
 JAX package's); the entry points are :func:`prefill`, :func:`decode_step`
 and ``models.generate.generate``.
@@ -15,10 +15,12 @@ covering the whole cache: attend over the updated cache), window 0
 through the flash kernel on the card) and the two-part window (a prefix
 of the cache before this step's write, plus this step's tokens as a causal
 block, under one softmax).  The caches are updated in place and returned;
-the window paths write after they have read.
+the window paths write after they have read.  A paged cache
+(``models/paged_kv.py``) takes the same paths over its gathered pages, or
+the paged-attention kernel's (see ``LlamaAttention._paged``).
 
-Outside this slice: fp (unquantized) and MBWQ projections, MoE, paged KV,
-sequence parallelism and remat raise ``NotImplementedError``.
+Outside this slice: fp (unquantized) and MBWQ projections, MoE, sequence
+parallelism and remat raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,14 @@ from torch import nn
 from ..device import resolve_device
 from ..layers.linear import MPQLinear
 from ..ops.cuda.flash_attention import HEAD_DIMS, flash_attention
+from ..ops.cuda.paged_attention import (
+    cache_len_tensor,
+    merge_attention_parts,
+    paged_prefix_attention,
+    paged_prefix_attention_update,
+)
 from ..ops.quant import concat_mpq
+from .paged_kv import PagedKV, paged_write_positions
 
 # a host-side cache length: one position for the batch, or one per row
 CacheLen = Union[None, int, List[int]]
@@ -235,6 +244,14 @@ def _context(probs: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return ctx.reshape(ctx.shape[0], ctx.shape[1], -1)
 
 
+def _violation(cache_len, prefix_len: int) -> float:
+    """NaN when a cache length exceeds the window read (the caller's
+    contract ``attn_window >= max(cache_len)``), else 0: added to the
+    scores so a violation shows in any finiteness check."""
+    lens = cache_len if isinstance(cache_len, list) else [cache_len]
+    return float("nan") if any(c > prefix_len for c in lens) else 0.0
+
+
 def _scale_keys(t: torch.Tensor) -> torch.Tensor:
     """Per-position scales (b, L, nkv) → (b, nkv, 1, 1, L), broadcast over
     (rep, query) in the score layout (b, nkv, rep, q, k)."""
@@ -282,7 +299,7 @@ class LlamaAttention(nn.Module):
         self,
         x: torch.Tensor,
         positions: torch.Tensor,
-        kv_cache: Optional[tuple] = None,
+        kv_cache: Union[None, tuple, PagedKV] = None,
         cache_len: CacheLen = None,
         attn_window: Optional[int] = None,
     ):
@@ -304,8 +321,8 @@ class LlamaAttention(nn.Module):
         v = v.reshape(b, s, nkv, hd)
         qg = q.reshape(b, s, nkv, rep, hd)
 
-        if kv_cache is not None and not isinstance(kv_cache, (tuple, list)):
-            raise NotImplementedError("paged KV caches arrive with the serving slice of the port")
+        if kv_cache is not None and not isinstance(kv_cache, (tuple, list, PagedKV)):
+            raise TypeError(f"kv_cache must be a dense tuple or a PagedKV, got {type(kv_cache)}")
         kv_quant = cfg.kv_cache_dtype == "int8" and kv_cache is not None
         cl_rows = None  # per-row cache lengths on the device, (b, 1, 1, 1, 1)
         if isinstance(cache_len, list):
@@ -316,17 +333,25 @@ class LlamaAttention(nn.Module):
                 return self.o_proj(self._flash(q, k, v)), None
             return self.o_proj(self._full_read(qg, positions, k, v)), None
 
+        if kv_quant:
+            k_new, ks_new = _quantize_kv(k)
+            v_new, vs_new = _quantize_kv(v)
+        else:
+            pool_dtype = kv_cache.k_pool.dtype if isinstance(kv_cache, PagedKV) else kv_cache[0].dtype
+            k_new, v_new = k.to(pool_dtype), v.to(pool_dtype)
+            ks_new = vs_new = None
+        new = (q, qg, k_new, v_new, ks_new, vs_new)
+        if isinstance(kv_cache, PagedKV):
+            ctx = self._paged(x, positions, kv_cache, cache_len, cl_rows, attn_window, new)
+            return self.o_proj(ctx), kv_cache
+
         total_len = kv_cache[0].shape[1]
         full_read = attn_window is None or attn_window >= total_len
         if kv_quant:
             ck0, cv0, ckvs0 = kv_cache
-            k_new, ks_new = _quantize_kv(k)
-            v_new, vs_new = _quantize_kv(v)
             writes = ((ck0, k_new), (cv0, v_new), (ckvs0, torch.cat([ks_new, vs_new], dim=-1)))
         else:
             ck0, cv0 = kv_cache
-            k_new, v_new = k.to(ck0.dtype), v.to(cv0.dtype)
-            ks_new = vs_new = None
             writes = ((ck0, k_new), (cv0, v_new))
 
         if full_read:
@@ -340,54 +365,172 @@ class LlamaAttention(nn.Module):
             return self.o_proj(ctx), kv_cache
 
         prefix_len = attn_window
-        lens = cache_len if isinstance(cache_len, list) else [cache_len]
-        viol = float("nan") if any(c > prefix_len for c in lens) else 0.0
-        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
-
+        viol = _violation(cache_len, prefix_len)
         if prefix_len == 0:
-            # prefill from an empty cache: causal attention over the new
-            # tokens, over their dequantized k/v (what a later read sees)
-            if self._use_flash(x, s):
-                if kv_quant:
-                    kd = (k_new.float() * ks_new[..., None]).to(cfg.dtype)
-                    vd = (v_new.float() * vs_new[..., None]).to(cfg.dtype)
-                else:
-                    kd, vd = k_new.to(cfg.dtype), v_new.to(cfg.dtype)
-                ctx = self._flash(q, kd, vd)
-            else:
-                # codes in the dot, scales factored out: the same math as
-                # the two-part window's new-token block
-                sc = _scores(qg, k_new)
-                if kv_quant:
-                    sc = sc * _scale_keys(ks_new)
-                sc = torch.where(causal, sc, _NEG)
-                probs = torch.softmax(sc, dim=-1).to(cfg.dtype)
-                if kv_quant:
-                    probs = probs * _scale_keys(vs_new).to(probs.dtype)
-                ctx = _context(probs, v_new)
-            ctx = (ctx.float() + viol).to(cfg.dtype)
+            ctx = self._window0(x, new, viol)
         else:
-            k_pre, v_pre = ck0[:, :prefix_len], cv0[:, :prefix_len]
-            sc_p = _scores(qg, k_pre)
+            pre = (ck0[:, :prefix_len], cv0[:, :prefix_len], None, None)
             if kv_quant:
-                sc_p = sc_p * _scale_keys(ckvs0[:, :prefix_len, :nkv])
-            kv_pos = torch.arange(prefix_len, device=x.device)
-            cl = cache_len if cl_rows is None else cl_rows
-            sc_p = torch.where(kv_pos < cl, sc_p, _NEG) + viol
-            sc_n = _scores(qg, k_new)
-            if kv_quant:
-                sc_n = sc_n * _scale_keys(ks_new)
-            sc_n = torch.where(causal, sc_n, _NEG)
-            probs = torch.softmax(torch.cat([sc_p, sc_n], dim=-1), dim=-1).to(cfg.dtype)
-            pp, pn = probs[..., :prefix_len], probs[..., prefix_len:]
-            if kv_quant:
-                pp = pp * _scale_keys(ckvs0[:, :prefix_len, nkv:]).to(pp.dtype)
-                pn = pn * _scale_keys(vs_new).to(pn.dtype)
-            ctx = _context(pp, v_pre) + _context(pn, v_new)
+                pre = pre[:2] + (ckvs0[:, :prefix_len, :nkv], ckvs0[:, :prefix_len, nkv:])
+            ctx = self._two_part(new, pre, cache_len, cl_rows, viol)
         # this step read the cache before its write (stream order keeps it so)
         for cache, update in writes:
             _write(cache, update, cache_len)
         return self.o_proj(ctx), kv_cache
+
+    def _window0(self, x, new, viol) -> torch.Tensor:
+        """Prefill from an empty cache: causal attention over the new
+        tokens, over their dequantized k/v (what a later read sees)."""
+        cfg = self.cfg
+        q, qg, k_new, v_new, ks_new, vs_new = new
+        s = q.shape[1]
+        if self._use_flash(x, s):
+            if ks_new is not None:
+                kd = (k_new.float() * ks_new[..., None]).to(cfg.dtype)
+                vd = (v_new.float() * vs_new[..., None]).to(cfg.dtype)
+            else:
+                kd, vd = k_new.to(cfg.dtype), v_new.to(cfg.dtype)
+            ctx = self._flash(q, kd, vd)
+        else:
+            # codes in the dot, scales factored out: the same math as the
+            # two-part window's new-token block
+            sc = _scores(qg, k_new)
+            if ks_new is not None:
+                sc = sc * _scale_keys(ks_new)
+            causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+            sc = torch.where(causal, sc, _NEG)
+            probs = torch.softmax(sc, dim=-1).to(cfg.dtype)
+            if vs_new is not None:
+                probs = probs * _scale_keys(vs_new).to(probs.dtype)
+            ctx = _context(probs, v_new)
+        return (ctx.float() + viol).to(cfg.dtype)
+
+    def _two_part(self, new, pre, cache_len, cl_rows, viol) -> torch.Tensor:
+        """One softmax over [the cached prefix (positions < cache_len)] ++
+        [this step's tokens, causal among themselves]."""
+        q, qg, k_new, v_new, ks_new, vs_new = new
+        k_pre, v_pre, ks_pre, vs_pre = pre
+        s, prefix_len = q.shape[1], k_pre.shape[1]
+        sc_p = _scores(qg, k_pre)
+        if ks_pre is not None:
+            sc_p = sc_p * _scale_keys(ks_pre)
+        kv_pos = torch.arange(prefix_len, device=q.device)
+        cl = cache_len if cl_rows is None else cl_rows
+        sc_p = torch.where(kv_pos < cl, sc_p, _NEG) + viol
+        sc_n = _scores(qg, k_new)
+        if ks_new is not None:
+            sc_n = sc_n * _scale_keys(ks_new)
+        causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        sc_n = torch.where(causal, sc_n, _NEG)
+        probs = torch.softmax(torch.cat([sc_p, sc_n], dim=-1), dim=-1).to(self.cfg.dtype)
+        pp, pn = probs[..., :prefix_len], probs[..., prefix_len:]
+        if vs_pre is not None:
+            pp = pp * _scale_keys(vs_pre).to(pp.dtype)
+            pn = pn * _scale_keys(vs_new).to(pn.dtype)
+        return _context(pp, v_pre) + _context(pn, v_new)
+
+    def _paged(self, x, positions, cache: PagedKV, cache_len, cl_rows, attn_window, new):
+        """Attention over a paged cache, with the JAX package's branch rule:
+        a one-token step with hd % 128 == 0 goes through the write-back
+        kernel (a window covering the whole allocation becomes the full
+        view); a windowed multi-token step (chunked prefill) with hd % 128
+        == 0 reads its prefix through the read-only kernel and merges it
+        with its own causal block; window 0 reads no cache; the rest
+        gathers the window's pages for the dense cache's math.  The pools
+        and scale caches are updated in place."""
+        cfg = self.cfg
+        q, qg, k_new, v_new, ks_new, vs_new = new
+        b, s = x.shape[:2]
+        hd, nkv = cfg.head_dim, cfg.num_kv_heads
+        ps = cache.page_size
+        want_full = attn_window is None or attn_window >= cache.view_len
+        kernel_ok = s == 1 and hd % 128 == 0
+        full_read = want_full and not kernel_ok
+        eff_window = cache.view_len if (want_full and kernel_ok) else attn_window
+        tbl = cache.page_table
+        if not full_read:
+            # read only the pages covering the window (writes use the table)
+            tbl = tbl[:, : max(0 if eff_window == 0 else 1, -(-eff_window // ps))]
+        prefix_len = tbl.shape[1] * ps
+        kernel_wb = kernel_ok and not full_read and prefix_len > 0
+        page, off = paged_write_positions(cache, cache_len, b, s)
+
+        def gather(pool):  # (pages, ps, nkv·hd) → (b, P·ps, nkv, hd)
+            return pool[tbl.long()].reshape(b, prefix_len, nkv, hd)
+
+        def write_pools():
+            cache.k_pool[page, off] = k_new.reshape(b, s, nkv * hd)
+            cache.v_pool[page, off] = v_new.reshape(b, s, nkv * hd)
+
+        if ks_new is not None:
+            # dense per-slot scale caches, written before any read: the
+            # write-back kernel reads the post-update caches (the new
+            # position is masked)
+            _write(cache.k_scale, ks_new, cache_len)
+            _write(cache.v_scale, vs_new, cache_len)
+        if full_read:
+            write_pools()
+            ks_all = vs_all = None
+            if ks_new is not None:
+                ks_all, vs_all = cache.k_scale[:, :prefix_len], cache.v_scale[:, :prefix_len]
+            valid = (cache_len + s) if cl_rows is None else (cl_rows + s)
+            return self._full_read(qg, positions, gather(cache.k_pool), gather(cache.v_pool),
+                                   ks_all, vs_all, valid)
+
+        viol = _violation(cache_len, prefix_len)
+        if prefix_len == 0:
+            ctx = self._window0(x, new, viol)
+        elif hd % 128 == 0:
+            ctx = self._paged_kernel(q, cache, tbl, cache_len, new, kernel_wb, viol)
+        else:
+            pre = (gather(cache.k_pool), gather(cache.v_pool), None, None)
+            if ks_new is not None:
+                pre = pre[:2] + (cache.k_scale[:, :prefix_len], cache.v_scale[:, :prefix_len])
+            ctx = self._two_part(new, pre, cache_len, cl_rows, viol)
+        if not kernel_wb:
+            write_pools()
+        return ctx
+
+    def _paged_kernel(self, q, cache: PagedKV, tbl, cache_len, new, writeback, viol):
+        """Kernel 6 over the window's pages (with the step's token written in
+        the same launch when ``writeback``), merged with this step's causal
+        block by the two-way softmax combine."""
+        cfg = self.cfg
+        _, _, k_new, v_new, ks_new, vs_new = new
+        b, s = q.shape[:2]
+        hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        rep = nh // nkv
+        rs = rep * s
+        qk2 = q.reshape(b, s, nkv, rep, hd).permute(0, 2, 3, 1, 4).reshape(b, nkv, rs, hd)
+        qk2 = qk2.contiguous()
+        clen = cache_len_tensor(cache_len, b, q.device)
+        sm_scale = 1.0 / math.sqrt(hd)
+        if writeback:
+            acc_p, m_p, l_p = paged_prefix_attention_update(
+                qk2, cache.k_pool, cache.v_pool, cache.k_scale, cache.v_scale, tbl, clen,
+                k_new.reshape(b, nkv * hd), v_new.reshape(b, nkv * hd), sm_scale=sm_scale,
+            )
+        else:
+            acc_p, m_p, l_p = paged_prefix_attention(
+                qk2, cache.k_pool, cache.v_pool, cache.k_scale, cache.v_scale, tbl, clen,
+                sm_scale=sm_scale,
+            )
+        if ks_new is not None:
+            kd2 = (k_new.float() * ks_new[..., None]).to(qk2.dtype)
+            vd2 = (v_new.float() * vs_new[..., None]).to(qk2.dtype)
+        else:
+            kd2, vd2 = k_new.to(qk2.dtype), v_new.to(qk2.dtype)
+        sc_n = torch.einsum("bgrd,bkgd->bgrk", qk2.float(), kd2.float()) / math.sqrt(hd)
+        iq = torch.arange(rs, device=q.device)[:, None] % s
+        ik = torch.arange(s, device=q.device)[None, :]
+        sc_n = torch.where(ik <= iq, sc_n, _NEG)
+        m_n = sc_n.amax(dim=-1, keepdim=True)
+        p_n = torch.exp(sc_n - m_n)
+        l_n = p_n.sum(dim=-1, keepdim=True)
+        acc_n = torch.einsum("bgrk,bkgd->bgrd", p_n, vd2.float())
+        ctx = merge_attention_parts(acc_p, m_p, l_p, acc_n, m_n, l_n)
+        ctx = (ctx + viol).to(cfg.dtype)
+        return ctx.reshape(b, nkv, rep, s, hd).permute(0, 3, 1, 2, 4).reshape(b, s, nh * hd)
 
     def _full_read(self, qg, positions, k_all, v_all, ks_all=None, vs_all=None, valid=None):
         """One softmax over all of ``k_all``/``v_all`` under the causal mask in

@@ -10,12 +10,15 @@ from typing import Dict
 
 from .dequant_matmul import dequant_mpq, mpq_matmul
 from .flash_attention import flash_attention
+from .paged_attention import paged_prefix_attention, paged_prefix_attention_update
 
 # every kernel wrapper of the port, by name
 KERNELS = {
     "mpq_matmul": mpq_matmul,
     "dequant_mpq": dequant_mpq,
     "flash_attention": flash_attention,
+    "paged_prefix_attention": paged_prefix_attention,
+    "paged_prefix_attention_update": paged_prefix_attention_update,
 }
 
 

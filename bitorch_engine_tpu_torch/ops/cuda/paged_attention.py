@@ -1,0 +1,271 @@
+"""Kernel 6: paged prefix attention, read-only and with the in-place token
+write.
+
+The counterpart of ``bitorch_engine_tpu/ops/pallas/paged_attention.py``.
+The kernel lives in ``csrc/paged_attention.cu``; each wrapper launches it
+for CUDA tensors, raises on what it does not take, and runs the plain
+version beside it only for CPU tensors.  ``paged_prefix_attention.launches``
+and ``paged_prefix_attention_update.launches`` count launches.
+
+Both return the unnormalised streaming-softmax state ``(acc, m, l)`` of
+``q`` over each slot's cached prefix: ``acc`` (b, nkv, rs, hd) f32 and the
+row max ``m`` and sum ``l`` as (b, nkv, rs, 1) f32 (the TPU kernel's
+128-lane broadcast is not kept; :func:`merge_attention_parts` takes either).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from . import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# the reference's finite mask value: a slot with no valid position gives
+# m = -1e30, l = 0, which the two-way merge zeroes out
+MASK = -1e30
+HEAD_DIMS = (128,)
+_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+_WARPS = 8  # warps per block in the kernel
+
+CacheLen = Union[int, Sequence[int], torch.Tensor]
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    return _build.function(
+        "paged_attention", "bte_paged_attention",
+        [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    )
+
+
+def cache_len_tensor(cache_len: CacheLen, b: int, device) -> torch.Tensor:
+    """A cache length (int, per-slot sequence or tensor) as int32 (b,)."""
+    t = torch.as_tensor(cache_len, device=device).to(torch.int32)
+    return t.expand(b).contiguous() if t.dim() == 0 else t
+
+
+def _gather(pool: torch.Tensor, table: torch.Tensor, nkv: int) -> torch.Tensor:
+    """(pages, ps, nkv·hd) pool → (b, P·ps, nkv, hd) window view."""
+    b, P = table.shape
+    g = pool[table.long()]  # (b, P, ps, nkv·hd)
+    return g.reshape(b, P * pool.shape[1], nkv, -1)
+
+
+def _window_scale(cache: torch.Tensor, W: int) -> torch.Tensor:
+    """Dense (slots, L, nkv) scales → (b, nkv, 1, W)."""
+    return cache[:, :W].permute(0, 2, 1)[:, :, None, :]
+
+
+def paged_prefix_attention_ref(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+    page_table: torch.Tensor, cache_len: CacheLen, sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version: gather the window's pages and compute the reference's
+    math in f32 (codes cast to ``q.dtype`` in the dots, scales factored out,
+    ``p`` rounded to ``q.dtype`` before the PV product)."""
+    b, nkv, rs, hd = q.shape
+    W = page_table.shape[1] * k_pool.shape[1]
+    dt = q.dtype
+    kg = _gather(k_pool, page_table, nkv)
+    vg = _gather(v_pool, page_table, nkv)
+    s = torch.einsum("bgrd,bkgd->bgrk", q.float(), kg.to(dt).float()) * sm_scale
+    if k_scale is not None:
+        s = s * _window_scale(k_scale, W)
+    clen = cache_len_tensor(cache_len, b, q.device)
+    valid = torch.arange(W, device=q.device) < clen[:, None, None, None]
+    s = torch.where(valid, s, MASK)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    l = p.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        p = p * _window_scale(v_scale, W)
+    acc = torch.einsum("bgrk,bkgd->bgrd", p.to(dt).float(), vg.to(dt).float())
+    return acc, m, l
+
+
+def _write_token_ref(pool, table, clen, new) -> None:
+    ps, P = pool.shape[1], table.shape[1]
+    wp = torch.clamp(clen.long() // ps, max=P - 1)
+    pages = table.long()[torch.arange(table.shape[0], device=table.device), wp]
+    pool[pages, clen.long() % ps] = new.to(pool.dtype)
+
+
+def paged_prefix_attention_update_ref(
+    q, k_pool, v_pool, k_scale, v_scale, page_table, cache_len, k_new, v_new, sm_scale,
+):
+    """Plain version of the write-back variant: the attention of
+    :func:`paged_prefix_attention_ref` (the new position is masked), then
+    ``k_new`` / ``v_new`` (b, nkv·hd) written in place at row
+    ``cache_len % ps`` of page ``table[t, min(cache_len // ps, P - 1)]``."""
+    out = paged_prefix_attention_ref(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                     cache_len, sm_scale)
+    clen = cache_len_tensor(cache_len, q.shape[0], q.device)
+    _write_token_ref(k_pool, page_table, clen, k_new)
+    _write_token_ref(v_pool, page_table, clen, v_new)
+    return out
+
+
+def _smem_bytes(r: int, hd: int, P: int, ps: int) -> int:
+    """Shared memory of a block with row tile ``r`` (``smem_bytes`` in the
+    source): the q tile, 8 × min(r, 8) rows of acc parts, the r × W scores
+    and the window's table row."""
+    return (r * hd + _WARPS * min(r, _WARPS) * hd + r * P * ps + P) * 4
+
+
+def _rows_per_tile(rs: int, hd: int, P: int, ps: int) -> int:
+    """The largest power-of-2 row tile <= 32 (and <= rs rounded up) whose
+    shared memory fits."""
+    r = 1
+    while r < min(rs, 32):
+        r *= 2
+    while r > 1 and _smem_bytes(r, hd, P, ps) > _SMEM_LIMIT:
+        r //= 2
+    if _smem_bytes(r, hd, P, ps) > _SMEM_LIMIT:
+        raise ValueError(
+            f"paged attention: window {P * ps} does not fit the kernel's shared memory")
+    return r
+
+
+def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, cache_len, k_new, v_new,
+            sm_scale, what):
+    dev = q.device
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q is (b, nkv, rs, hd)")
+    b, nkv, rs, hd = q.shape
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError(f"{what}: q must be a contiguous bfloat16 tensor")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {hd} not in {HEAD_DIMS}")
+    if k_pool.dtype not in (torch.int8, torch.bfloat16) or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"{what}: pools must both be int8 or both bfloat16")
+    if k_pool.dim() != 3 or v_pool.shape != k_pool.shape or k_pool.shape[2] != nkv * hd:
+        raise ValueError(f"{what}: pools are (pages, page_size, {nkv * hd})")
+    quant = k_pool.dtype == torch.int8
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: int8 pools need k_scale and v_scale, bf16 pools neither")
+    ps = k_pool.shape[1]
+    if page_table.dtype != torch.int32 or page_table.dim() != 2 or page_table.shape[0] != b \
+            or page_table.stride(1) != 1:
+        raise ValueError(f"{what}: page_table is int32 (b, P) with unit column stride")
+    P = page_table.shape[1]
+    W = P * ps
+    scale_len = 0
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or not t.is_contiguous() or t.dim() != 3 \
+                    or t.shape[0] != b or t.shape[1] < W or t.shape[2] != nkv:
+                raise ValueError(f"{what}: {name} is contiguous f32 (b, L >= {W}, {nkv})")
+        if k_scale.shape != v_scale.shape:
+            raise ValueError(f"{what}: k_scale and v_scale differ in shape")
+        scale_len = k_scale.shape[1]
+    clen = cache_len_tensor(cache_len, b, dev)
+    if clen.shape != (b,):
+        raise ValueError(f"{what}: cache_len is an int or (b,)")
+    if k_new is not None:
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            if t.dtype != k_pool.dtype or not t.is_contiguous() or t.shape != (b, nkv * hd):
+                raise ValueError(f"{what}: {name} is contiguous {k_pool.dtype} (b, {nkv * hd})")
+    tensors = [q, k_pool, v_pool, page_table, clen] + [
+        t for t in (k_scale, v_scale, k_new, v_new) if t is not None]
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: every tensor must be on {dev}")
+    for t in (q, k_pool, v_pool, k_new, v_new):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: q, pools and new rows must be 16-byte aligned")
+    if not k_pool.is_contiguous() or not v_pool.is_contiguous():
+        raise ValueError(f"{what}: pools must be contiguous")
+
+    acc = torch.empty((b, nkv, rs, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((b, nkv, rs, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((b, nkv, rs, 1), dtype=torch.float32, device=dev)
+    if q.numel() == 0:
+        return acc, m, l
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _fn()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
+        page_table.data_ptr(), page_table.stride(0), clen.data_ptr(), ptr(k_new), ptr(v_new),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, nkv, rs, hd, ps, P, scale_len, int(quant), _rows_per_tile(rs, hd, P, ps),
+        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check("paged_attention", err, f"{what} launch")
+    return acc, m, l
+
+
+def paged_prefix_attention(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+    page_table: torch.Tensor, cache_len: CacheLen, *, sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Streaming-softmax state of ``q`` (b, nkv, rs, hd) over the paged
+    cached prefix.  ``k_pool`` / ``v_pool``: (pages, ps, nkv·hd), int8 with
+    dense per-slot ``k_scale`` / ``v_scale`` (b, L >= W, nkv) f32, or bf16
+    with no scales.  ``page_table``: (b, P) int32, the pages of the window
+    ``W = P·ps`` (a column slice of the full table is fine).
+    ``cache_len``: valid prefix per slot.  The kernel takes bf16 ``q`` with
+    hd 128."""
+    if q.device.type == "cpu":
+        return paged_prefix_attention_ref(q, k_pool, v_pool, k_scale, v_scale, page_table,
+                                          cache_len, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefix_attention: unsupported device {q.device}")
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, cache_len, None, None,
+                  sm_scale, "paged_prefix_attention")
+    paged_prefix_attention.launches += 1
+    return out
+
+
+def paged_prefix_attention_update(
+    q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+    k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+    page_table: torch.Tensor, cache_len: CacheLen, k_new: torch.Tensor, v_new: torch.Tensor,
+    *, sm_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`paged_prefix_attention` plus the decode step's pool write, in
+    the same launch: ``k_new`` / ``v_new`` (b, nkv·hd, pool dtype) land in
+    place at position ``cache_len`` of each slot (the caller's contract
+    ``cache_len < W`` puts that page inside the window's table slice).  In
+    the int8 mode the caller writes the new scales into the dense scale
+    caches first; the new position is masked either way.  Returns
+    ``(acc, m, l)``; the pools are updated in place."""
+    if q.device.type == "cpu":
+        return paged_prefix_attention_update_ref(q, k_pool, v_pool, k_scale, v_scale,
+                                                 page_table, cache_len, k_new, v_new, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefix_attention_update: unsupported device {q.device}")
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, cache_len, k_new, v_new,
+                  sm_scale, "paged_prefix_attention_update")
+    paged_prefix_attention_update.launches += 1
+    return out
+
+
+paged_prefix_attention.launches = 0
+paged_prefix_attention_update.launches = 0
+
+
+def merge_attention_parts(acc_pre, m_pre, l_pre, acc_new, m_new, l_new) -> torch.Tensor:
+    """Two-way streaming-softmax combine of the prefix state (from the
+    kernel) with this step's new-token state, both f32; stats are (..., 1)
+    or lane-broadcast (..., hd).  Returns the normalised context in f32."""
+    hd = acc_pre.shape[-1]
+    if m_pre.shape[-1] != hd:
+        m_pre, l_pre = m_pre[..., :1], l_pre[..., :1]
+    if m_new.shape[-1] not in (1, hd):
+        m_new, l_new = m_new[..., :1], l_new[..., :1]
+    m_tot = torch.maximum(m_pre, m_new)
+    a_pre = torch.exp(m_pre - m_tot)
+    a_new = torch.exp(m_new - m_tot)
+    denom = l_pre * a_pre + l_new * a_new
+    return (acc_pre * a_pre + acc_new * a_new) / denom

@@ -1,5 +1,5 @@
 """Prepare a model's quantized weights for the kernels, and load the JAX
-package's parameters into the port.
+package's parameters and paged KV caches into the port.
 
 ``load_jax_params`` takes the flax parameter tree after
 ``jax.tree_util.tree_map(np.asarray, params)``: nested dicts of numpy
@@ -10,13 +10,15 @@ imports the JAX package.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..layers.linear import MPQLinear
+from ..models.paged_kv import PagedKV
 from ..ops.cuda.dequant_matmul import prepare_for_kernel
 from ..qtensor import MPQTensor
 
@@ -104,3 +106,22 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     device = next(iter(model.buffers())).device
     _load_into(model, tree, "", device)
     return model
+
+
+def paged_kv_from_jax(caches: Sequence[Any], device=None) -> List[PagedKV]:
+    """The JAX package's per-layer ``PagedKV`` caches (after
+    ``jax.tree_util.tree_map(np.asarray, caches)``: records with numpy
+    fields) as the port's, on ``device`` (``None`` means ``cuda``).  Each
+    layer keeps its own copy of the page table, as in the JAX caches."""
+    device = resolve_device(device)
+    return [
+        PagedKV(
+            k_pool=_tensor(c.k_pool, device),
+            v_pool=_tensor(c.v_pool, device),
+            k_scale=_tensor(c.k_scale, device),
+            v_scale=_tensor(c.v_scale, device),
+            page_table=_tensor(c.page_table, device),
+            kv_heads=int(c.kv_heads),
+        )
+        for c in caches
+    ]

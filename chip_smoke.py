@@ -22,8 +22,20 @@ then, failing on the first check that does not hold:
    then runs a prefill and 8 decode steps once more under ``torch.profiler``
    and prints, per phase, the device's busy time, its idle share, the
    launches and the kernels with the most device time;
-5. compares prefill + 4 decode steps of a 2-layer full-width model between
-   the kernel path and the plain path on the card.
+5. the serving slice: holds both paged-attention entry points against their
+   plain versions (shuffled page tables, per-slot cache lengths with 0 and
+   W - 1, inactive slots on the null page 0; pools bit-equal after the
+   write) and times them beside their bound and a gathered-window
+   ``scaled_dot_product_attention`` yardstick; serves a mixed queue of 16
+   requests through ``ContinuousBatcher`` (8 slots, a paged pool of 16
+   pages of 64 per slot, 256-token prefill chunks) on the same 32-layer
+   model and checks every request, the freed pool and the paged kernels'
+   launch counts; times a decode step paged and dense at batch 8 and 64;
+6. compares prefill + 4 decode steps of a 2-layer full-width model between
+   the kernel path and the plain path on the card, over dense and over
+   paged caches;
+7. runs the paged logits gate of ``tools/paged_gate.py`` (4 layers, hidden
+   2048, 64 forced decode steps, dense against paged).
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -33,6 +45,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -65,12 +78,33 @@ TPU_KERNELS = {
     "mpq_matmul": "bitorch_engine_tpu/ops/pallas/dequant_matmul.py:365",
     "dequant_mpq": "bitorch_engine_tpu/ops/pallas/dequant_matmul.py:789",
     "flash_attention": "bitorch_engine_tpu/ops/pallas/flash_attention.py:75",
+    "paged_prefix_attention": "bitorch_engine_tpu/ops/pallas/paged_attention.py:65",
+    "paged_prefix_attention_update": "bitorch_engine_tpu/ops/pallas/paged_attention.py:65",
 }
 SOURCES = {
     "mpq_matmul": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "dequant_mpq": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "flash_attention": "bitorch_engine_tpu_torch/csrc/flash_attention.cu",
+    "paged_prefix_attention": "bitorch_engine_tpu_torch/csrc/paged_attention.cu",
+    "paged_prefix_attention_update": "bitorch_engine_tpu_torch/csrc/paged_attention.cu",
 }
+
+# the serving slice: Llama-3-8B's KV layout (8 KV heads of 128, rep 4), pages of 64
+NKV, HD, REP, PAGE = 8, 128, 4, 64
+PAGES_PER_SLOT = CACHE // PAGE
+# (name, batch, window W, query rows rs, pool dtype, write-back); the first
+# rows of each variant are the ones the main path's pass is reckoned from
+PAGED_SHAPES = (
+    ("decode_b8_w512", 8, 512, REP, "int8", True),
+    ("decode_b8_w256", 8, 256, REP, "int8", True),
+    ("decode_b8_w1024", 8, 1024, REP, "int8", True),
+    ("decode_b64_w256", 64, 256, REP, "int8", True),
+    ("decode_b8_w512_bf16", 8, 512, REP, "bf16", True),
+    ("chunk_b8_w256_rs1024", 8, 256, REP * 256, "int8", False),
+)
+SERVE = dict(num_slots=8, max_len=CACHE, kv_pages=8 * PAGES_PER_SLOT + 1, kv_page_size=PAGE,
+             prefill_chunk=256, eos_id=-1)
+N_REQUESTS = 16
 
 
 class CheckFailed(RuntimeError):
@@ -103,6 +137,9 @@ def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        # keep the device busy (~1 ms) while the host enqueues the timed
+        # launch, so a wrapper's host time is not read as device time
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -212,6 +249,128 @@ def phase_kernels(torch, gen, flush):
     return results
 
 
+def paged_inputs(torch, gen, b, W, rs, pool):
+    """Inputs of one paged-attention shape: a shuffled page table read as a
+    column slice of the full per-slot table, per-slot cache lengths with 0
+    and W - 1, slot 1 inactive (its row all null page 0, length 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(b * 7919 + W + rs)
+    P = W // PAGE
+    pages = b * PAGES_PER_SLOT + 1
+    shape = (pages, PAGE, NKV * HD)
+    dev = dict(device="cuda")
+    q = torch.randn(b, NKV, rs, HD, generator=gen, **dev).to(torch.bfloat16)
+    if pool == "int8":
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, **dev)
+                  for _ in range(2))
+        ks, vs = (torch.rand(b, CACHE, NKV, generator=gen, **dev) * 0.02 + 0.01 for _ in range(2))
+        kn, vn = (torch.randint(-127, 128, (b, NKV * HD), generator=gen, dtype=torch.int8, **dev)
+                  for _ in range(2))
+    else:
+        kp, vp = (torch.randn(shape, generator=gen, **dev).to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+        kn, vn = (torch.randn(b, NKV * HD, generator=gen, **dev).to(torch.bfloat16)
+                  for _ in range(2))
+    full = (rng.permutation(pages - 1) + 1).reshape(b, PAGES_PER_SLOT).astype(np.int32)
+    clen = rng.integers(1, W, b).astype(np.int32)
+    clen[0], clen[-1] = 0, W - 1
+    full[1], clen[1] = 0, 0
+    table = torch.from_numpy(full).cuda()[:, :P]
+    return dict(q=q, kp=kp, vp=vp, ks=ks, vs=vs, table=table, kn=kn, vn=vn,
+                clen=torch.from_numpy(clen).cuda(), clen_np=clen)
+
+
+def phase_paged_kernels(torch, gen, flush):
+    """Phase 5a: both paged-attention entry points against their plain
+    versions, then timed, at the serving slice's shapes."""
+    from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
+
+    F = torch.nn.functional
+    sm = 1.0 / math.sqrt(HD)
+    results = {"paged_prefix_attention": [], "paged_prefix_attention_update": []}
+    for name, b, W, rs, pool, update in PAGED_SHAPES:
+        a = paged_inputs(torch, gen, b, W, rs, pool)
+        args = (a["q"], a["kp"], a["vp"], a["ks"], a["vs"], a["table"], a["clen"])
+        kp0, vp0 = a["kp"].clone(), a["vp"].clone()
+        if update:
+            got = pa.paged_prefix_attention_update(*args, a["kn"], a["vn"], sm_scale=sm)
+            kp_got, vp_got = a["kp"].clone(), a["vp"].clone()
+            a["kp"].copy_(kp0)
+            a["vp"].copy_(vp0)
+            want = pa.paged_prefix_attention_update_ref(*args, a["kn"], a["vn"], sm)
+            pools_equal = (torch.equal(kp_got[1:], a["kp"][1:])
+                           and torch.equal(vp_got[1:], a["vp"][1:])
+                           and not torch.equal(kp_got[1:], kp0[1:]))
+        else:
+            got = pa.paged_prefix_attention(*args, sm_scale=sm)
+            want = pa.paged_prefix_attention_ref(*args, sm)
+            pools_equal = torch.equal(a["kp"], kp0) and torch.equal(a["vp"], vp0)
+        torch.cuda.synchronize()
+        live = a["clen"] > 0
+        acc_err = (got[0] - want[0]).abs().max().item()
+        acc_rel = acc_err / want[0].abs().max().item()
+
+        def rel(i):
+            return ((got[i][live] - want[i][live]).abs().max() / want[i][live].abs().max()).item()
+
+        m_rel, l_rel = rel(1), rel(2)
+        empty_ok = bool((got[1][~live] == pa.MASK).all() and (got[2][~live] == 0).all()
+                        and (got[0][~live] == 0).all())
+        log(f"kernel paged {name:22s} acc max|d|/max|ref|={acc_rel:.3e} m rel={m_rel:.3e} "
+            f"l rel={l_rel:.3e} empty slots exact={empty_ok} pools bit-equal={pools_equal}")
+        check(acc_rel <= 5e-3 and m_rel <= 1e-4 and l_rel <= 1e-4 and empty_ok and pools_equal,
+              f"paged attention {name}: acc {acc_rel}, m {m_rel}, l {l_rel}, "
+              f"empty {empty_ok}, pools {pools_equal}")
+
+        # bound: q, the valid K / V rows and their scales, the table, the
+        # outputs, and the new rows read and written; dots at the bf16 rate
+        elt = 1 if pool == "int8" else 2
+        nv = int(sum(min(int(c), W) for c in a["clen_np"]))
+        nbytes = (a["q"].nbytes + 2 * nv * NKV * HD * elt + (2 * nv * NKV * 4 if pool == "int8" else 0)
+                  + b * (W // PAGE) * 4 + b * 4 + got[0].nbytes + got[1].nbytes + got[2].nbytes
+                  + (4 * b * NKV * HD * elt if update else 0))
+        bms, bby = bound(nbytes, 4 * nv * NKV * rs * HD)
+        # yardstick: SDPA over the window already gathered and dequantized to
+        # bf16 (no page walk, no dequantisation, no write)
+        P = W // PAGE
+
+        def window(pool_, scale):
+            g = pool_[a["table"].long()].reshape(b, W, NKV, HD).float()
+            if scale is not None:
+                g = g * scale[:, :W, :, None]
+            return g.to(torch.bfloat16).transpose(1, 2).contiguous()
+
+        kd, vd = window(a["kp"], a["ks"]), window(a["vp"], a["vs"])
+        s = rs // REP
+        qs = a["q"].reshape(b, NKV, REP, s, HD).reshape(b, NKV * REP, s, HD)
+        mask = (torch.arange(W, device="cuda") < a["clen"][:, None])[:, None, None, :]
+        if update:
+            kernel = lambda: pa.paged_prefix_attention_update(*args, a["kn"], a["vn"], sm_scale=sm)
+            plain = lambda: pa.paged_prefix_attention_update_ref(*args, a["kn"], a["vn"], sm)
+        else:
+            kernel = lambda: pa.paged_prefix_attention(*args, sm_scale=sm)
+            plain = lambda: pa.paged_prefix_attention_ref(*args, sm)
+        key = "paged_prefix_attention_update" if update else "paged_prefix_attention"
+        results[key].append(dict(
+            shape=name, b=b, W=W, rs=rs, pool=pool, max_abs_err=acc_err, rel_err=acc_rel,
+            m_rel=m_rel, l_rel=l_rel, pools_bit_equal=pools_equal, pages=P,
+            ms=time_ms(torch, kernel, flush=flush),
+            plain_ms=time_ms(torch, plain, flush=flush),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask, enable_gqa=True), flush=flush),
+            bound_ms=bms, bound_by=bby,
+        ))
+        del a, kp0, vp0, kd, vd
+    for name, rows in results.items():
+        for r in rows:
+            log(f"time {name:30s} {r['shape']:22s} kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  sdpa-on-gathered-window {r['library_ms']:.4f} ms  "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return results
+
+
 def build_model(torch, num_layers, seed):
     from bitorch_engine_tpu_torch.models.llama import LlamaModel, llama3_8b_serving
     from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
@@ -221,12 +380,29 @@ def build_model(torch, num_layers, seed):
     return prepare_params_for_cuda(model, meta_dtype=torch.bfloat16)
 
 
-def serve(torch, model, prompt, steps, on_prefill=None, forced=None):
-    """prefill (window 0) + greedy decode steps with the bucketed window;
-    returns (last logits, generated tokens (b, steps + 1))."""
+def paged_caches(torch, cfg, batch, cache=CACHE):
+    """Paged caches with every slot's pages allocated for ``cache`` positions."""
+    from bitorch_engine_tpu_torch.models.paged_kv import PageAllocator, init_paged_kv_caches
+
+    per_slot = cache // PAGE
+    alloc = PageAllocator(batch * per_slot + 1, PAGE, batch, per_slot)
+    for slot in range(batch):
+        check(alloc.alloc(slot, cache), "page allocation")
+    caches = init_paged_kv_caches(cfg, batch * per_slot + 1, PAGE, batch, per_slot, device="cuda")
+    caches[0].page_table.copy_(torch.from_numpy(alloc.table))
+    return caches
+
+
+def serve(torch, model, prompt, steps, on_prefill=None, forced=None, paged=False):
+    """prefill (window 0) + greedy decode steps with the bucketed window,
+    over dense or paged caches; returns (last logits, generated tokens
+    (b, steps + 1))."""
     from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
 
-    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda")
+    if paged:
+        caches = paged_caches(torch, model.cfg, BATCH)
+    else:
+        caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda")
     logits, caches = prefill(model, prompt, caches)
     last = logits[:, -1]
     if on_prefill is not None:
@@ -294,15 +470,10 @@ def profile_serve(torch, model, prompt, steps):
     return out
 
 
-def phase_e2e(torch, gen):
+def phase_e2e(torch, gen, model):
     """Phase 4: the full-width serving path, with the launch counts."""
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    t0 = time.perf_counter()
-    model = build_model(torch, LAYERS, SEED)
-    torch.cuda.synchronize()
-    log(f"e2e model: Llama-3-8B w4 g128, {LAYERS} layers, built in "
-        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
     serve(torch, model, prompt, 2)  # warm-up (cuBLAS heuristics, allocator)
     torch.cuda.synchronize()
@@ -326,10 +497,11 @@ def phase_e2e(torch, gen):
     proj = 4 * LAYERS + 1
     pre = marks["counts_prefill"]
     log(f"e2e launches at prefill {pre}; over the run {counts}")
-    check(pre == {"mpq_matmul": 0, "dequant_mpq": proj, "flash_attention": LAYERS},
+    paged_none = {"paged_prefix_attention": 0, "paged_prefix_attention_update": 0}
+    check(pre == {"mpq_matmul": 0, "dequant_mpq": proj, "flash_attention": LAYERS, **paged_none},
           f"prefill launches {pre}")
     check(counts == {"mpq_matmul": proj * DECODE_STEPS, "dequant_mpq": proj,
-                     "flash_attention": LAYERS}, f"run launches {counts}")
+                     "flash_attention": LAYERS, **paged_none}, f"run launches {counts}")
     check(bool(torch.isfinite(last).all()), "decode logits are not finite")
     check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()), "token ids out of range")
     e2e = dict(
@@ -346,44 +518,264 @@ def phase_e2e(torch, gen):
     profiled["decode"]["idle_share_estimate_unprofiled"] = (
         1.0 - profiled["decode"]["device_busy_ms_per_call"] / step_ms)
     e2e["profile"] = profiled
-    del model
     torch.cuda.empty_cache()
     return counts, e2e
 
 
+def phase_serving(torch, model):
+    """Phase 5b: the serving slice's main path: a mixed queue through
+    ContinuousBatcher over the paged cache, on the full-width model."""
+    import numpy as np
+
+    from bitorch_engine_tpu_torch.models.generate import ContinuousBatcher
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(SEED)
+    queue = [(rng.integers(0, vocab, int(rng.integers(32, 513))).tolist(), int(rng.integers(16, 65)))
+             for _ in range(N_REQUESTS)]
+    # warm-up (allocator, cuBLAS heuristics): one chunked wave, a few steps
+    warm = ContinuousBatcher(model, **SERVE)
+    for prompt, _ in queue[:8]:
+        warm.submit(prompt, max_new_tokens=4)
+    warm.run()
+    del warm
+
+    finite = []
+    hook = model.register_forward_hook(lambda mod, inp, out: finite.append(torch.isfinite(out[0]).all()))
+    b = ContinuousBatcher(model, **SERVE)
+    reqs = []
+    for prompt, n_new in queue:
+        b.submit(prompt, max_new_tokens=n_new)
+        reqs.append(b.queue[-1])
+    tally = {"decode_steps": 0, "chunks_after_first": 0, "waves": 0}
+    first_token_s = {}
+    inner = dict(decode=b._decode, chunked=b._prefill_chunked, slots=b._prefill_slots,
+                 admit=b._admit)
+
+    def decode(*a):
+        tally["decode_steps"] += 1
+        return inner["decode"](*a)
+
+    def chunked(padded, *a):
+        tally["waves"] += 1
+        tally["chunks_after_first"] += padded.shape[1] // SERVE["prefill_chunk"] - 1
+        return inner["chunked"](padded, *a)
+
+    def slots(*a):
+        tally["waves"] += 1
+        return inner["slots"](*a)
+
+    def admit():
+        inner["admit"]()  # ends in a host read of the first tokens
+        now = time.perf_counter()
+        for r in reqs:
+            if r.generated and r.uid not in first_token_s:
+                first_token_s[r.uid] = now - t0
+
+    b._decode, b._prefill_chunked, b._prefill_slots, b._admit = decode, chunked, slots, admit
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    hook.remove()
+
+    check(len(done) == N_REQUESTS, f"serving: {len(done)} of {N_REQUESTS} requests returned")
+    for r, (_, n_new) in zip(done, queue):
+        check(len(r.generated) == n_new and all(0 <= t < vocab for t in r.generated),
+              f"serving: request {r.uid} returned {len(r.generated)} ids, wanted {n_new} in range")
+    check(bool(torch.stack(finite).all()), "serving: non-finite logits")
+    check(len(b.allocator.free) == SERVE["kv_pages"] - 1 and not b.allocator.table.any(),
+          "serving: pages not all returned after run()")
+    want_wb = LAYERS * tally["decode_steps"]
+    want_ro = LAYERS * tally["chunks_after_first"]
+    log(f"serving launches {counts}; decode steps {tally['decode_steps']}, prefill chunks "
+        f"after the first {tally['chunks_after_first']}")
+    check(counts["paged_prefix_attention_update"] == want_wb,
+          f"serving: write-back kernel launched {counts['paged_prefix_attention_update']} != {want_wb}")
+    check(counts["paged_prefix_attention"] == want_ro and want_ro > 0,
+          f"serving: read-only kernel launched {counts['paged_prefix_attention']} != {want_ro}")
+    generated = sum(n for _, n in queue)
+    ttft = sorted(first_token_s.values())
+    out = dict(
+        requests=N_REQUESTS, wall_s=wall, requests_per_s=N_REQUESTS / wall,
+        generated_tokens=generated, generated_tok_s=generated / wall,
+        prompt_tokens=sum(len(p) for p, _ in queue),
+        ttft_median_ms=statistics.median(ttft) * 1e3, ttft_max_ms=ttft[-1] * 1e3,
+        admission_waves=tally["waves"], decode_steps=tally["decode_steps"],
+        decode_ms_per_step_incl_admission=wall * 1e3 / max(1, tally["decode_steps"]),
+        chunks_after_first=tally["chunks_after_first"], launches=counts, config=SERVE,
+    )
+    log(f"serving: {N_REQUESTS} requests in {wall:.3f} s ({out['requests_per_s']:.3f} req/s, "
+        f"{out['generated_tok_s']:.1f} generated tok/s), median time to first token "
+        f"{out['ttft_median_ms']:.1f} ms, {tally['decode_steps']} decode steps, "
+        f"{tally['waves']} admission waves")
+    return counts, out
+
+
+def phase_paged_vs_dense(torch, model):
+    """Phase 5c: one decode step with dense and with paged caches at batch 8
+    (window 512) and 64 (window 256), in turns dense, paged, paged, dense."""
+    from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches
+
+    cfg = model.cfg
+    out = {}
+    for batch, window, clen in ((8, 512, 300), (64, 256, 200)):
+        arms = {"dense": init_kv_caches(cfg, batch, CACHE, device="cuda"),
+                "paged": paged_caches(torch, cfg, batch)}
+        tok = torch.ones((batch, 1), dtype=torch.long, device="cuda")
+
+        def timed(caches, steps=8):
+            for _ in range(2):
+                decode_step(model, tok, caches, clen, attn_window=window)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                decode_step(model, tok, caches, clen, attn_window=window)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / steps
+
+        def busy(caches, steps=4):
+            """Device busy ms per step and the largest kernels, profiled."""
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    decode_step(model, tok, caches, clen, attn_window=window)
+                torch.cuda.synchronize()
+            return _device_summary(torch, prof, time.perf_counter() - t0, steps, top=4)
+
+        ms = {"dense": [], "paged": []}
+        for arm in ("dense", "paged", "paged", "dense"):
+            ms[arm].append(timed(arms[arm]))
+        prof = {arm: busy(arms[arm]) for arm in ("dense", "paged")}
+        r = dict(window=window, cache_len=clen, dense_ms=statistics.mean(ms["dense"]),
+                 paged_ms=statistics.mean(ms["paged"]), runs=ms,
+                 dense_busy_ms=prof["dense"]["device_busy_ms_per_call"],
+                 paged_busy_ms=prof["paged"]["device_busy_ms_per_call"],
+                 dense_launches=prof["dense"]["launches_per_call"],
+                 paged_launches=prof["paged"]["launches_per_call"], profile=prof)
+        r["paged_over_dense"] = r["paged_ms"] / r["dense_ms"]
+        r["paged_over_dense_busy"] = r["paged_busy_ms"] / r["dense_busy_ms"]
+        out[f"b{batch}"] = r
+        log(f"paged vs dense decode b{batch} window {window}: dense {r['dense_ms']:.3f} ms/step, "
+            f"paged {r['paged_ms']:.3f} ms/step, ratio {r['paged_over_dense']:.4f} (runs {ms}); "
+            f"device busy dense {r['dense_busy_ms']:.3f} / paged {r['paged_busy_ms']:.3f} ms/step "
+            f"(ratio {r['paged_over_dense_busy']:.4f}), launches/step dense "
+            f"{r['dense_launches']:.0f} / paged {r['paged_launches']:.0f}")
+        for arm in ("dense", "paged"):
+            for kern in prof[arm]["top_kernels"]:
+                log(f"  {arm} {kern['ms_per_call']:8.3f} ms  {kern['launches_per_call']:6.1f}x  "
+                    f"{kern['name']}")
+        del arms
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextmanager
 def plain_kernels():
-    """Route the model's three kernel calls to their plain versions."""
+    """Route the model's five kernel calls to their plain versions."""
     from bitorch_engine_tpu_torch.models import llama
     from bitorch_engine_tpu_torch.ops import mpq_linear
+    from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, mpq_matmul_ref
     from bitorch_engine_tpu_torch.ops.cuda.flash_attention import flash_attention_ref
 
     with mock.patch.object(mpq_linear, "mpq_matmul", mpq_matmul_ref), \
             mock.patch.object(mpq_linear, "dequant_mpq", dequant_mpq_ref), \
-            mock.patch.object(llama, "flash_attention", flash_attention_ref):
+            mock.patch.object(llama, "flash_attention", flash_attention_ref), \
+            mock.patch.object(llama, "paged_prefix_attention", pa.paged_prefix_attention_ref), \
+            mock.patch.object(llama, "paged_prefix_attention_update",
+                              pa.paged_prefix_attention_update_ref):
         yield
 
 
 def phase_path_check(torch, gen):
-    """Phase 5: 2 layers at full width, kernel path against plain path,
-    both fed the kernel path's tokens."""
+    """Phase 6: 2 layers at full width, kernel path against plain path,
+    both fed the kernel path's tokens, over dense and over paged caches."""
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     model = build_model(torch, 2, SEED + 1)
     prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
-    got, toks = serve(torch, model, prompt, 4)
-    reset_launch_counts()
-    with plain_kernels():
-        want, _ = serve(torch, model, prompt, 4, forced=toks)
-    torch.cuda.synchronize()
-    check(all(n == 0 for n in launch_counts().values()), "the plain path launched a kernel")
-    rel = ((got - want).abs().max() / want.abs().max()).item()
-    log(f"path check (2 layers, prefill + 4 decode steps): max|d logits|/max|logits| = {rel:.3e}")
-    check(rel <= 2e-2, f"path check: {rel} > 2e-2")
+    rels = {}
+    for cache in ("dense", "paged"):
+        reset_launch_counts()
+        got, toks = serve(torch, model, prompt, 4, paged=cache == "paged")
+        launched = launch_counts()
+        reset_launch_counts()
+        with plain_kernels():
+            want, _ = serve(torch, model, prompt, 4, forced=toks, paged=cache == "paged")
+        torch.cuda.synchronize()
+        check(all(n == 0 for n in launch_counts().values()), "the plain path launched a kernel")
+        if cache == "paged":
+            check(launched["paged_prefix_attention_update"] == 2 * 4,
+                  f"paged path check: write-back launches {launched}")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"path check ({cache} caches, 2 layers, prefill + 4 decode steps): "
+            f"max|d logits|/max|logits| = {rel:.3e}")
+        check(rel <= 2e-2, f"path check {cache}: {rel} > 2e-2")
+        rels[cache] = rel
     del model
     torch.cuda.empty_cache()
-    return rel
+    return rels
+
+
+def phase_paged_gate(torch, gen):
+    """Phase 7: tools/paged_gate.py on the card: 64 decode steps of one
+    forced token stream through dense and paged caches (window 256 < the
+    512 allocation, so the paged steps take the write-back kernel); the
+    largest max|d logits| / max|dense logits| of a step must stay under
+    the JAX gate's 2.5e-2."""
+    from bitorch_engine_tpu_torch.models.llama import (
+        LlamaConfig, LlamaModel, decode_step, init_kv_caches,
+    )
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
+
+    steps, batch, cache, window, tol = 64, 8, 512, 256, 2.5e-2
+    cfg = LlamaConfig(vocab_size=1024, hidden_size=2048, intermediate_size=4096, num_layers=4,
+                      num_heads=16, num_kv_heads=4, max_seq_len=cache, w_bit=4, group_size=128,
+                      kv_cache_dtype="int8", dtype=torch.bfloat16)
+    model = prepare_params_for_cuda(LlamaModel(cfg, device="cuda", seed=SEED + 2), torch.bfloat16)
+    dense = init_kv_caches(cfg, batch, cache, device="cuda")
+    paged = paged_caches(torch, cfg, batch, cache)
+    toks = torch.randint(0, cfg.vocab_size, (steps, batch, 1), device="cuda", generator=gen)
+    reset_launch_counts()
+    rels = []
+    for i in range(steps):
+        ld, _ = decode_step(model, toks[i], dense, i, attn_window=window)
+        lp, _ = decode_step(model, toks[i], paged, i, attn_window=window)
+        rels.append((ld - lp).abs().max() / (ld.abs().max() + 1e-9))
+    max_rel = torch.stack(rels).max().item()
+    launched = launch_counts()["paged_prefix_attention_update"]
+    log(f"paged logits gate: max rel {max_rel:.4e} over {steps} steps (tol {tol}); "
+        f"write-back launches {launched}")
+    check(launched == cfg.num_layers * steps, f"paged gate: {launched} write-back launches")
+    check(max_rel < tol, f"paged logits gate: {max_rel} >= {tol}")
+    del model, dense, paged
+    torch.cuda.empty_cache()
+    return dict(max_rel=max_rel, steps=steps, tol=tol)
+
+
+def kernel_line(name, rows, launches, weights, per, check_text):
+    """One entry of the kernels JSON: the per-pass sums of ``rows`` (each
+    row's times ``weight`` launches per pass)."""
+    def total(key):
+        vals = [r[key] for r in rows[: len(weights)]]
+        return None if None in vals else sum(w * v for w, v in zip(weights, vals))
+
+    return dict(
+        name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],
+        tpu_counterpart=TPU_KERNELS[name], launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        check=check_text, max_err=max(r["rel_err"] for r in rows), per=per,
+        ms=total("ms"), plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+        bound_ms=total("bound_ms"), bound_by=rows[0]["bound_by"], shapes=rows,
+    )
 
 
 def main() -> int:
@@ -417,38 +809,55 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MiB > L2
     per_shape = phase_kernels(torch, gen, flush)
+    per_shape.update(phase_paged_kernels(torch, gen, flush))
     del flush
-    counts, e2e = phase_e2e(torch, gen)
+    t0 = time.perf_counter()
+    model = build_model(torch, LAYERS, SEED)
+    torch.cuda.synchronize()
+    log(f"e2e model: Llama-3-8B w4 g128, {LAYERS} layers, built in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    counts, e2e = phase_e2e(torch, gen, model)
+    serve_counts, serving = phase_serving(torch, model)
+    paged_vs_dense = phase_paged_vs_dense(torch, model)
+    del model
+    torch.cuda.empty_cache()
     path_rel = phase_path_check(torch, gen)
+    gate = phase_paged_gate(torch, gen)
 
     checks = {
         "mpq_matmul": "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape",
         "dequant_mpq": "bit-equal (bf16)",
         "flash_attention": "out atol 1e-2 rtol 1e-2 (bf16 out); lse rtol 1e-4",
+        "paged_prefix_attention": "acc max|d|/max|ref| <= 5e-3 (p rounds to bf16 in both; a p on "
+                                  "a rounding boundary may round the other way); m, l max|d|/max|ref| "
+                                  "<= 1e-4 (f32 sums in another order); empty slots exact",
     }
-    per_pass = {"mpq_matmul": "decode step", "dequant_mpq": "prefill",
-                "flash_attention": "prefill"}
+    checks["paged_prefix_attention_update"] = checks["paged_prefix_attention"] + \
+        "; pools bit-equal after the write (but the null page 0)"
     kernels = []
-    for name, rows in per_shape.items():
+    for name in ("mpq_matmul", "dequant_mpq", "flash_attention"):
+        rows = per_shape[name]
         if name == "flash_attention":
-            main_rows, weights = rows[:1], [LAYERS]
+            weights, per = [LAYERS], "one prefill of the main path"
         else:
-            main_rows, weights = rows, [PER_PASS[r["shape"]] for r in rows]
-
-        def total(key):
-            vals = [r[key] for r in main_rows]
-            return None if None in vals else sum(w * v for w, v in zip(weights, vals))
-
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],
-            tpu_counterpart=TPU_KERNELS[name], launches=counts[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows),
-            check=checks[name], max_err=max(r["rel_err"] for r in rows),
-            per=f"one {per_pass[name]} of the main path",
-            ms=total("ms"), plain_ms=total("plain_ms"), library_ms=total("library_ms"),
-            bound_ms=total("bound_ms"), bound_by=main_rows[0]["bound_by"], shapes=rows,
-        ))
-    log(json.dumps({"e2e": e2e, "path_check_rel": path_rel,
+            weights = [PER_PASS[r["shape"]] for r in rows]
+            per = f"one {'decode step' if name == 'mpq_matmul' else 'prefill'} of the main path"
+        kernels.append(kernel_line(name, rows, counts[name], weights, per, checks[name]))
+    # the serving slice's path (phase 5b): 32 write-back launches per decode
+    # step, reckoned at batch 8 and window 512; 32 read-only launches per
+    # prefill chunk after the first, at a wave of 8 and window 256
+    kernels.append(kernel_line(
+        "paged_prefix_attention_update", per_shape["paged_prefix_attention_update"],
+        serve_counts["paged_prefix_attention_update"], [LAYERS],
+        "one decode step of the serving path (b8, window 512)",
+        checks["paged_prefix_attention_update"]))
+    kernels.append(kernel_line(
+        "paged_prefix_attention", per_shape["paged_prefix_attention"],
+        serve_counts["paged_prefix_attention"], [LAYERS],
+        "one prefill chunk after the first of the serving path (8 x 256 rows, window 256)",
+        checks["paged_prefix_attention"]))
+    log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
+                    "path_check_rel": path_rel, "paged_gate": gate,
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

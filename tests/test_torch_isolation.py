@@ -78,3 +78,25 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     assert model.device.type == "cpu"
     out = tg.generate(model, torch.tensor([[1, 2]]), max_new_tokens=2)
     assert out.shape == (1, 4)
+
+
+def test_serving_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    """The paged caches and the batcher resolve a default device to cuda
+    and raise without a GPU; a CPU model serves on the CPU."""
+    from bitorch_engine_tpu_torch.models import paged_kv as tpk
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tl.tiny_llama(dtype=torch.float32, num_layers=1)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        tpk.init_paged_kv_caches(cfg, 5, 8, 2, 2)
+    model = tl.LlamaModel(cfg, device="cpu")
+    model.device = torch.device("cuda")  # as a default-device model has it
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        tg.ContinuousBatcher(model, num_slots=2, max_len=32, kv_pages=5, kv_page_size=8)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        tg.ContinuousBatcher(model, num_slots=2, max_len=32)
+    model.device = torch.device("cpu")
+    b = tg.ContinuousBatcher(model, num_slots=2, max_len=32, kv_pages=5, kv_page_size=8)
+    assert b.caches[0].k_pool.device.type == "cpu"
+    b.submit([1, 2, 3], max_new_tokens=2)
+    assert len(b.run()[0].generated) == 2

@@ -207,10 +207,21 @@ def test_reference_only_config_fields_are_refused(field):
 
 
 def test_paged_cache_is_a_later_slice():
-    model = tl.LlamaModel(tl.tiny_llama(dtype=torch.float32, num_layers=1), device="cpu")
+    """The serving slice brought paged caches: a PagedKV is taken (its
+    parity with the JAX package is in test_torch_paged_kv.py); a cache of
+    any other type is refused."""
+    from bitorch_engine_tpu_torch.models.paged_kv import init_paged_kv_caches
+
+    cfg = tl.tiny_llama(dtype=torch.float32, num_layers=1)
+    model = tl.LlamaModel(cfg, device="cpu")
+    paged = init_paged_kv_caches(cfg, 3, 8, 1, 2, device="cpu")
+    paged[0].page_table[0] = torch.tensor([1, 2], dtype=torch.int32)
+    logits, _ = model(torch.zeros((1, 3), dtype=torch.long), kv_caches=paged, cache_len=0)
+    assert torch.isfinite(logits).all()
+    assert paged[0].k_pool[1, :3].abs().sum() > 0  # the prompt was written
 
     class Paged:
         pass
 
-    with pytest.raises(NotImplementedError, match="serving"):
+    with pytest.raises(TypeError, match="PagedKV"):
         model(torch.zeros((1, 1), dtype=torch.long), kv_caches=[Paged()], cache_len=0)

@@ -3,8 +3,12 @@
 ``MPQLinear`` holds its :class:`MPQTensor` as buffers (``packed``,
 ``scales``, ``zeros`` and the optional ``g_idx`` / ``q_perm``) so that
 ``.to()``, ``state_dict()`` and ``named_buffers()`` see them; the static
-fields (bit width, group size, layout, ...) are plain attributes.  The
-binary and n-bit QAT layers and fp projections come with their slices.
+fields (bit width, group size, layout, ...) are plain attributes.
+``MBWQLinear`` holds each segment of its :class:`MBWQTensor` in an
+``MPQLinear`` of ``segments`` (so whatever walks the model's ``MPQLinear``
+modules, such as ``utils.convert.prepare_params_for_cuda``, reaches the
+segments too) and the permutation and channel scale as buffers.  The binary
+and n-bit QAT layers and fp projections come with their slices.
 """
 
 from __future__ import annotations
@@ -16,9 +20,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.mbwq_linear import mbwq_linear, quantize_mbwq
 from ..ops.mpq_linear import mpq_linear
 from ..ops.quant import quantize_mpq
-from ..qtensor import MPQTensor
+from ..qtensor import MBWQTensor, MPQTensor
 
 _TENSOR_FIELDS = ("packed", "scales", "zeros", "g_idx", "q_perm")
 _STATIC_FIELDS = ("w_bit", "group_size", "asym", "code_bits", "layout", "act_bits", "zeros_mid")
@@ -98,3 +103,67 @@ class MPQLinear(nn.Module):
             out = out[..., : self.out_slice]
         return out
 
+
+# the JAX package's MBWQLinear default: 75% of the rows at w4, 25% at w2, g64
+DEFAULT_MBWQ_STRATEGY = {"bits": [4, 2], "bits_prop": [0.75, 0.25], "group_size": {"4": 64, "2": 64}}
+
+
+class MBWQLinear(nn.Module):
+    """Channel-mixed-bit-width linear: ``(x · channel_scale) @ dequant(qweight)``.
+
+    ``strategy`` is the reference's per-projection dict (``ops.mbwq_linear
+    .strategy_dict`` builds it from ``LlamaConfig.mbwq_strategy``).  Without
+    ``qweight`` the constructor quantizes a random Kaiming-uniform weight on
+    ``device`` (default ``cuda``, which raises without a GPU; pass
+    ``device="cpu"`` for the plain path), with an all-ones ``channel_scale``
+    when ``use_channel_scale``; with ``qweight`` the layer lives where that
+    tensor does.  ``out_slice`` keeps only the first outputs of a padded
+    projection (``LlamaConfig.proj_pad_to``).  No bias, as in the JAX
+    package."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        strategy: Optional[dict] = None,
+        use_channel_scale: bool = False,
+        dtype: torch.dtype = torch.bfloat16,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+        out_slice: Optional[int] = None,
+        qweight: Optional[MBWQTensor] = None,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.out_slice = out_slice
+        if qweight is not None and device is None:
+            device = qweight.device
+        device = resolve_device(device)
+        if qweight is None:
+            w = kaiming_uniform((out_features, in_features), generator, device).T
+            cs = torch.ones(in_features, device=device) if use_channel_scale else None
+            qweight = quantize_mbwq(w, strategy or DEFAULT_MBWQ_STRATEGY, channel_scale=cs)
+        self.set_qweight(qweight)
+
+    @property
+    def qweight(self) -> MBWQTensor:
+        return MBWQTensor(
+            segments=tuple(seg.qweight for seg in self.segments), q_perm=self.q_perm,
+            channel_scale=self.channel_scale, block_perm=self.block_perm,
+            perm_block=self._perm_block,
+        )
+
+    def set_qweight(self, qt: MBWQTensor) -> None:
+        self.segments = nn.ModuleList(
+            MPQLinear(s.in_features, s.out_features, dtype=self.dtype, qweight=s)
+            for s in qt.segments
+        )
+        for f in ("q_perm", "channel_scale", "block_perm"):
+            self.register_buffer(f, getattr(qt, f))
+        self._perm_block = qt.perm_block
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = mbwq_linear(x.to(self.dtype), self.qweight)
+        if self.out_slice is not None:
+            out = out[..., : self.out_slice]
+        return out

@@ -1,7 +1,9 @@
 """Llama family with weight-only quantized projections, in PyTorch.
 
 The counterpart of ``bitorch_engine_tpu/models/llama.py`` for the serving
-path: MPQ projections, optionally fused q|k|v and gate|up, RoPE,
+path: MPQ or mixed-bit MBWQ projections (``mbwq_strategy``), in the A16
+or the A8 regime (``utils.convert.prepare_params_for_cuda``'s
+``act_bits_map``), optionally fused q|k|v and gate|up, RoPE,
 RMSNorm and SwiGLU, dense or paged bf16 / int8 KV caches, a bf16 / int8 /
 w4 head.  Parameters live in the modules (``LlamaModel(cfg, device)`` builds
 random ones from a seeded ``torch.Generator``; ``utils.convert`` loads the
@@ -19,8 +21,8 @@ the window paths write after they have read.  A paged cache
 (``models/paged_kv.py``) takes the same paths over its gathered pages, or
 the paged-attention kernel's (see ``LlamaAttention._paged``).
 
-Outside this slice: fp (unquantized) and MBWQ projections, MoE, sequence
-parallelism and remat raise ``NotImplementedError``.
+Outside the slices ported so far: fp (unquantized) projections, MoE,
+sequence parallelism and remat raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..layers.linear import MPQLinear
+from ..layers.linear import MBWQLinear, MPQLinear
 from ..ops.cuda.flash_attention import HEAD_DIMS, flash_attention
 from ..ops.cuda.paged_attention import (
     cache_len_tensor,
@@ -41,6 +43,7 @@ from ..ops.cuda.paged_attention import (
     paged_prefix_attention,
     paged_prefix_attention_update,
 )
+from ..ops.mbwq_linear import strategy_dict
 from ..ops.quant import concat_mpq
 from .paged_kv import PagedKV, paged_write_positions
 
@@ -64,7 +67,11 @@ class LlamaConfig:
     group_size: int = 128
     asym: bool = False
     quantized: bool = True
-    mbwq_strategy: Any = None  # sub-4-bit slice
+    # channel-mixed bits: (bits, proportion[, group_size]) entries, e.g.
+    # ((4, 0.25), (2, 0.75, 128)) → MBWQLinear projections
+    mbwq_strategy: Any = None
+    # per-bit storage container of the MBWQ segments, e.g. {2: 4}
+    mbwq_container_bits: Any = None
     quant_mid_sym: bool = False
     remat: bool = False  # training slice
     sequence_parallel: Optional[str] = None  # parallel-layouts slice
@@ -133,6 +140,22 @@ def llama3_8b_serving(**overrides) -> LlamaConfig:
     return LlamaConfig(**defaults)
 
 
+def llama2_7b_mbwq_serving(**overrides) -> LlamaConfig:
+    """Llama-2-7B in the MBWQ-2.5 serving form of the JAX package's bench
+    (``bench.py:474-497``): 25% of each projection's rows at w4 g64, 75% at
+    w2 g128, fused q|k|v and gate|up with out-features padded to 2048, int8
+    KV cache, int8 embedding, w4 head padded to 2048, bf16, a 1024-position
+    cache.  The bench's A8 regime is ``prepare_params_for_cuda(model,
+    torch.bfloat16, act_bits_map={2: 8})``."""
+    defaults = dict(
+        dtype=torch.bfloat16, mbwq_strategy=((4, 0.25), (2, 0.75, 128)), group_size=64,
+        max_seq_len=1024, kv_cache_dtype="int8", quantize_embed=True, head_w_bit=4,
+        head_pad_to=2048, fuse_qkv=True, fuse_gate_up=True, proj_pad_to=2048,
+    )
+    defaults.update(overrides)
+    return llama2_7b(**defaults)
+
+
 def tiny_llama(**overrides) -> LlamaConfig:
     """Small config for tests and CPU dry runs."""
     defaults = dict(
@@ -145,7 +168,6 @@ def tiny_llama(**overrides) -> LlamaConfig:
 
 def _check_slice(cfg: LlamaConfig) -> None:
     later = {
-        "mbwq_strategy": (cfg.mbwq_strategy is not None, "the sub-4-bit slice (MBWQ)"),
         "moe_num_experts": (cfg.moe_num_experts > 0, "the MoE slice"),
         "sequence_parallel": (cfg.sequence_parallel is not None, "the parallel-layouts slice"),
         "remat": (cfg.remat, "the training slice"),
@@ -191,18 +213,24 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
 
 
 def _proj(cfg: LlamaConfig, in_features: int, out_features: int, device, generator,
-          use_bias: bool = False) -> MPQLinear:
+          use_bias: bool = False) -> Union[MPQLinear, MBWQLinear]:
+    out_slice = None
     if cfg.proj_pad_to and out_features % cfg.proj_pad_to and not use_bias:
-        n_pad = -(-out_features // cfg.proj_pad_to) * cfg.proj_pad_to
-        return MPQLinear(
-            in_features, n_pad, w_bit=cfg.w_bit, group_size=cfg.group_size, asym=cfg.asym,
-            mid_sym=cfg.quant_mid_sym, dtype=cfg.dtype, device=device, generator=generator,
-            out_slice=out_features,
+        out_slice = out_features
+        out_features = -(-out_features // cfg.proj_pad_to) * cfg.proj_pad_to
+    if cfg.mbwq_strategy is not None:
+        if use_bias:
+            raise NotImplementedError("MBWQ projections do not support bias")
+        strategy = strategy_dict(cfg.mbwq_strategy, cfg.group_size, cfg.mbwq_container_bits,
+                                 mid_sym=cfg.quant_mid_sym)
+        return MBWQLinear(
+            in_features, out_features, strategy=strategy, dtype=cfg.dtype, device=device,
+            generator=generator, out_slice=out_slice,
         )
     return MPQLinear(
         in_features, out_features, w_bit=cfg.w_bit, group_size=cfg.group_size,
         asym=cfg.asym, use_bias=use_bias, mid_sym=cfg.quant_mid_sym, dtype=cfg.dtype,
-        device=device, generator=generator,
+        device=device, generator=generator, out_slice=out_slice,
     )
 
 
@@ -733,6 +761,11 @@ def prefill(model: LlamaModel, tokens, kv_caches):
 
 def _fuse_group(parent: nn.Module, names: Sequence[str], fused_name: str) -> None:
     parts = [getattr(parent, n) for n in names]
+    if any(isinstance(p, MBWQLinear) for p in parts):
+        raise ValueError(
+            f"cannot fuse {names}: MBWQ projections permute their rows per projection; "
+            "build the model with fuse_qkv / fuse_gate_up instead"
+        )
     if any(p.out_slice is not None for p in parts):
         raise ValueError(f"cannot fuse {names}: padded projections")
     qt = concat_mpq([p.qweight for p in parts])
@@ -749,7 +782,8 @@ def fuse_llama_params(model: LlamaModel, fuse_qkv: bool = True, fuse_gate_up: bo
     """Rewrite an unfused model in place into the ``fuse_qkv`` /
     ``fuse_gate_up`` form: q|k|v and gate|up concatenate along the output
     features (``concat_mpq``), which leaves the logits unchanged.  Returns
-    the model."""
+    the model.  MBWQ projections raise (the JAX package's ``concat_mpq``
+    cannot take them either): build such a model fused."""
     cfg = model.cfg.replace(
         fuse_qkv=model.cfg.fuse_qkv or fuse_qkv,
         fuse_gate_up=model.cfg.fuse_gate_up or fuse_gate_up,

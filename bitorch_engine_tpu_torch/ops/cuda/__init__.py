@@ -10,7 +10,9 @@ from typing import Dict
 
 from .dequant_matmul import dequant_mpq, mpq_matmul
 from .flash_attention import flash_attention
+from .mbwq_matmul import mbwq_matmul
 from .paged_attention import paged_prefix_attention, paged_prefix_attention_update
+from .quad_matmul import mpq_matmul_a8
 
 # every kernel wrapper of the port, by name
 KERNELS = {
@@ -19,6 +21,8 @@ KERNELS = {
     "flash_attention": flash_attention,
     "paged_prefix_attention": paged_prefix_attention,
     "paged_prefix_attention_update": paged_prefix_attention_update,
+    "mpq_matmul_a8": mpq_matmul_a8,
+    "mbwq_matmul": mbwq_matmul,
 }
 
 

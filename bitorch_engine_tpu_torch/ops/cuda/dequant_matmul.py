@@ -28,19 +28,44 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def prepare_for_kernel(qt: MPQTensor, meta_dtype: Optional[torch.dtype] = None) -> MPQTensor:
+def _regime(qt: MPQTensor, act_bits: Optional[int]) -> MPQTensor:
+    """The decode regime's activation width, by ``relayout_tpu``'s rules: A8
+    only for ``w_bit`` in :data:`packing.QUAD_BITS` and a group count that
+    is a multiple of ``8 / w_bit`` (else A16, so the port computes the JAX
+    package's numbers); an A8 tensor whose zeros are exactly ``mid *
+    scales`` is marked ``zeros_mid``."""
+    if act_bits is not None:
+        qt = qt.replace(act_bits=act_bits)
+    if qt.act_bits not in (8, 16):
+        raise ValueError(f"act_bits must be 8 or 16, got {qt.act_bits}")
+    if qt.act_bits == 8 and (
+        qt.w_bit not in packing.QUAD_BITS
+        or (qt.in_features // qt.group_size) % packing.quad_superblock_groups(qt.w_bit)
+    ):
+        qt = qt.replace(act_bits=16)
+    if qt.act_bits == 8 and not qt.asym and not qt.zeros_mid:
+        mid = 2 ** ((qt.code_bits or qt.w_bit) - 1)
+        if torch.equal(qt.zeros.float(), mid * qt.scales.float()):
+            qt = qt.replace(zeros_mid=True)
+    return qt
+
+
+def prepare_for_kernel(
+    qt: MPQTensor, meta_dtype: Optional[torch.dtype] = None, act_bits: Optional[int] = None
+) -> MPQTensor:
     """Canonical kernel form: symmetric zeros, "gptq" row order, metadata in
-    ``meta_dtype`` (float32 or bfloat16; ``None`` keeps it).
+    ``meta_dtype`` (float32 or bfloat16; ``None`` keeps it), and the decode
+    regime ``act_bits`` (8 or 16; ``None`` keeps the tensor's).
 
     The asym→sym rewrite ``w = s(q - z) = q s - s z`` stores
     ``zeros = (s · z_int in f32).astype(scales.dtype)`` before the metadata
-    cast, as ``relayout_tpu`` does; a TPU row layout is unpacked and
-    repacked in gptq order.
+    cast, as ``relayout_tpu`` does; a TPU row layout (``tpu_quad``
+    included) is unpacked and repacked in gptq order, which the A8 kernel
+    reads as well.  The A8 regime falls back to A16 where ``relayout_tpu``
+    does; unlike it, an 8-bit tensor asked for A8 is marked A16, the
+    regime its TPU kernel runs.
     """
-    if qt.act_bits != 16:
-        raise NotImplementedError(
-            "act_bits=8 (the A8 decode regime) arrives with the sub-4-bit slice"
-        )
+    qt = _regime(qt, act_bits)
     if qt.group_size % (32 // qt.w_bit) != 0:
         raise ValueError("group_size must be a multiple of 32 / w_bit")
     zeros = qt.zeros
@@ -61,12 +86,16 @@ def prepare_for_kernel(qt: MPQTensor, meta_dtype: Optional[torch.dtype] = None) 
     )
 
 
-def _check_weight(qt: MPQTensor, device: torch.device) -> None:
-    if qt.layout != "gptq" or qt.asym or qt.act_bits != 16:
+def _check_weight(qt: MPQTensor, device: torch.device, act_bits=(16,)) -> None:
+    """Raise unless ``qt`` is in kernel form, in one of the regimes
+    ``act_bits``, on ``device``, at shapes and alignments the kernels take."""
+    if qt.layout != "gptq" or qt.asym:
         raise ValueError(
-            "the CUDA kernels take gptq-order symmetric A16 tensors: "
+            "the CUDA kernels take gptq-order symmetric tensors: "
             "call prepare_for_kernel (or utils.convert.prepare_params_for_cuda) first"
         )
+    if qt.act_bits not in act_bits:
+        raise ValueError(f"this kernel takes act_bits in {act_bits}, the tensor has {qt.act_bits}")
     if qt.g_idx is not None or qt.q_perm is not None:
         raise NotImplementedError("act-order g_idx/q_perm tensors arrive with the checkpoint slice")
     if qt.w_bit not in packing.SUPPORTED_BITS:
@@ -169,13 +198,14 @@ def dequant_mpq_ref(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch
 
 def dequant_mpq(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Kernel 2: the logical weight ``(K, N)`` in ``dtype``, bit-exact with
-    :func:`dequant_mpq_ref`."""
+    :func:`dequant_mpq_ref`.  It takes A16 and A8 tensors: prefill
+    reconstructs the weight in either regime."""
     dev = qt.packed.device
     if dev.type == "cpu":
         return dequant_mpq_ref(qt, dtype)
     if dev.type != "cuda":
         raise ValueError(f"dequant_mpq: unsupported device {dev}")
-    _check_weight(qt, dev)
+    _check_weight(qt, dev, act_bits=(16, 8))
     if dtype not in _DTYPE_CODE:
         raise ValueError("dequant_mpq writes float32 or bfloat16")
     k, n = qt.logical_shape

@@ -16,6 +16,9 @@ import torch
 
 SUPPORTED_BITS = (1, 2, 4, 8)
 
+# container widths whose codes fit an int8 byte unbiased: the A8 regime's
+QUAD_BITS = (1, 2, 4)
+
 # storage container per quantization width: odd exl2 widths ride in the
 # next byte-aligned container; MPQTensor.code_bits records the true width
 CONTAINER_BITS = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 6: 8, 8: 8}

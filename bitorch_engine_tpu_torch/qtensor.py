@@ -1,8 +1,9 @@
 """Quantized-weight records as dataclasses of tensors.
 
-The counterpart of ``bitorch_engine_tpu/qtensor.py``.  Only ``MPQTensor``
-is carried over so far (the serving path's weight); the binary, n-bit and
-mixed-bit records come with the slices that use them.
+The counterpart of ``bitorch_engine_tpu/qtensor.py``: ``MPQTensor`` (the
+group-quantized weight) and ``MBWQTensor`` (the mixed-bit weight, a tuple of
+per-bit-width ``MPQTensor`` segments).  The binary and n-bit QAT records
+come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ class MPQTensor:
     * ``q_perm``: optional int32 ``(K,)`` row permutation restored at
       dequantize time.
     * ``code_bits``: true quantization width when below the ``w_bit``
-      container; ``act_bits``: 16 (8 is the A8 regime of a later slice);
-      ``zeros_mid``: zeros are exactly ``2**(bits-1) * scales``.
+      container; ``act_bits``: the decode regime's activation width, 16
+      (bf16 activations) or 8 (per-token int8 activations against the
+      codes, for ``w_bit`` in 1/2/4); ``zeros_mid``: zeros are exactly
+      ``2**(bits-1) * scales``.
     * ``grad_shadow``: the training slice's weight-gradient slot, kept
       ``None`` here.
     """
@@ -65,6 +68,11 @@ class MPQTensor:
         return (self.in_features, self.out_features)
 
     @property
+    def quant_bits(self) -> int:
+        """True quantization width (at most the container ``w_bit``)."""
+        return self.code_bits if self.code_bits is not None else self.w_bit
+
+    @property
     def device(self) -> torch.device:
         return self.packed.device
 
@@ -80,3 +88,54 @@ class MPQTensor:
             g_idx=mv(self.g_idx), q_perm=mv(self.q_perm),
             grad_shadow=mv(self.grad_shadow),
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MBWQTensor:
+    """Mixed-bit-width (channel-mix) weight, logical shape (K, N).
+
+    Rows of the weight are quantized at different bit widths and sorted
+    into contiguous per-bit segments (descending width); each segment is a
+    uniform :class:`MPQTensor` over its rows.
+
+    * ``q_perm``: int32 ``(K,)``, logical input channel of each
+      segment-sorted row; the forward gathers the activations by it.
+    * ``channel_scale``: optional f32 ``(K,)`` per-input-channel pre-scale
+      of the activations.
+    * ``block_perm``: int32 ``(K / perm_block,)``, ``q_perm[::perm_block] //
+      perm_block``; with ``perm_block > 0`` the permutation moves whole
+      blocks of that many rows and the forward gathers blocks.
+    * ``grad_shadow``: the training slice's weight-gradient slot, kept
+      ``None`` here.
+    """
+
+    segments: Tuple[MPQTensor, ...]
+    q_perm: Optional[torch.Tensor] = None
+    channel_scale: Optional[torch.Tensor] = None
+    grad_shadow: Optional[torch.Tensor] = None
+    block_perm: Optional[torch.Tensor] = None
+    perm_block: int = 0
+
+    @property
+    def in_features(self) -> int:
+        return sum(seg.in_features for seg in self.segments)
+
+    @property
+    def out_features(self) -> int:
+        return self.segments[0].out_features
+
+    @property
+    def logical_shape(self) -> Tuple[int, int]:
+        return (self.in_features, self.out_features)
+
+    @property
+    def bit_widths(self) -> Tuple[int, ...]:
+        """True quantization width of each segment."""
+        return tuple(seg.quant_bits for seg in self.segments)
+
+    @property
+    def device(self) -> torch.device:
+        return self.segments[0].device
+
+    def replace(self, **changes) -> "MBWQTensor":
+        return dataclasses.replace(self, **changes)

@@ -17,24 +17,37 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..layers.linear import MPQLinear
+from ..layers.linear import MBWQLinear, MPQLinear
 from ..models.paged_kv import PagedKV
 from ..ops.cuda.dequant_matmul import prepare_for_kernel
-from ..qtensor import MPQTensor
+from ..qtensor import MBWQTensor, MPQTensor
 
 _MPQ_FIELDS = ("packed", "scales", "zeros", "w_bit", "group_size", "asym", "layout")
+_MBWQ_FIELDS = ("segments", "q_perm", "channel_scale", "block_perm", "perm_block")
 
 
 @torch.no_grad()
-def prepare_params_for_cuda(model: nn.Module, meta_dtype: Optional[torch.dtype] = None) -> nn.Module:
-    """Bring every :class:`MPQLinear` to the kernels' form once, at load
-    time: symmetric zeros, gptq row order, group metadata in
-    ``meta_dtype`` (``torch.bfloat16`` halves the metadata stream).  The
-    counterpart of ``relayout_params_for_tpu`` (its ``act_bits_map`` comes
-    with the A8 regime).  Works in place; returns the model."""
+def prepare_params_for_cuda(
+    model: nn.Module, meta_dtype: Optional[torch.dtype] = None,
+    act_bits_map: Optional[Mapping[int, int]] = None,
+) -> nn.Module:
+    """Bring every quantized weight to the kernels' form once, at load time:
+    symmetric zeros, gptq row order, group metadata in ``meta_dtype``
+    (``torch.bfloat16`` halves the metadata stream).  The counterpart of
+    ``relayout_params_for_tpu``: it covers ``MPQLinear`` layers and the
+    segments of ``MBWQLinear`` layers (each held in an ``MPQLinear``).
+
+    ``act_bits_map``: ``{container w_bit: act_bits}``, the decode regime per
+    stored width, e.g. ``{2: 8}`` runs every 2-bit tensor or segment in the
+    A8 regime (kernel 5) where ``prepare_for_kernel``'s rules allow it;
+    widths not named keep their regime.  A second call with ``{2: 16}``
+    flips the model back to A16 without requantizing.  Works in place;
+    returns the model."""
+    abm = dict(act_bits_map or {})
     for mod in model.modules():
         if isinstance(mod, MPQLinear):
-            mod.set_qweight(prepare_for_kernel(mod.qweight, meta_dtype))
+            qt = mod.qweight
+            mod.set_qweight(prepare_for_kernel(qt, meta_dtype, abm.get(qt.w_bit)))
     return model
 
 
@@ -69,13 +82,33 @@ def _mpq(leaf: Any, device) -> MPQTensor:
     )
 
 
+def _is_mbwq(leaf: Any) -> bool:
+    return all(hasattr(leaf, f) for f in _MBWQ_FIELDS)
+
+
+def _mbwq(leaf: Any, device) -> MBWQTensor:
+    return MBWQTensor(
+        segments=tuple(_mpq(seg, device) for seg in leaf.segments),
+        q_perm=_tensor(leaf.q_perm, device),
+        channel_scale=_tensor(leaf.channel_scale, device),
+        block_perm=_tensor(leaf.block_perm, device),
+        perm_block=int(leaf.perm_block),
+    )
+
+
 def _load_into(module: nn.Module, tree: Mapping[str, Any], path: str, device) -> None:
     for key, val in tree.items():
         where = f"{path}/{key}" if path else key
         if key == "qweight":
-            if not isinstance(module, MPQLinear) or not _is_mpq(val):
-                raise ValueError(f"{where}: a quantized weight needs an MPQLinear")
-            module.set_qweight(_mpq(val, device))
+            if isinstance(module, MPQLinear) and _is_mpq(val):
+                module.set_qweight(_mpq(val, device))
+            elif isinstance(module, MBWQLinear) and _is_mbwq(val):
+                module.set_qweight(_mbwq(val, device))
+            else:
+                raise ValueError(
+                    f"{where}: a quantized weight needs an MPQLinear (MPQ record) or an "
+                    "MBWQLinear (MBWQ record)"
+                )
             continue
         target = getattr(module, key, None)
         if isinstance(val, Mapping):
@@ -99,8 +132,10 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     ``layer_{i}/attn/qkv_proj/qweight``, ``layer_{i}/input_norm/weight``,
     ``embed`` (or ``embed/{data,scale}`` with ``quantize_embed``),
     ``final_norm/weight``, ``lm_head/qweight``, ... .  A quantized weight
-    keeps its layout (TPU layouts included) until
-    :func:`prepare_params_for_cuda` converts it.  Returns the model."""
+    (an MPQ record, or an MBWQ record with its segments, ``q_perm``,
+    ``block_perm``, ``perm_block`` and ``channel_scale``) keeps its layout
+    and regime (TPU layouts included) until :func:`prepare_params_for_cuda`
+    converts it.  Returns the model."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     device = next(iter(model.buffers())).device

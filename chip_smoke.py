@@ -35,7 +35,22 @@ then, failing on the first check that does not hold:
    the kernel path and the plain path on the card, over dense and over
    paged caches;
 7. runs the paged logits gate of ``tools/paged_gate.py`` (4 layers, hidden
-   2048, 64 forced decode steps, dense against paged).
+   2048, 64 forced decode steps, dense against paged);
+8. the sub-4-bit slice: holds kernel 5 (the A8 int8 kernel) against its
+   plain version in f32 before ``sx`` and the cast (and its activation
+   quantization bit-equal) at the MBWQ-2.5 w2 segments and the uniform-w2
+   Llama-3-8B shapes, affine and mid_sym, and at w1 and w4; holds kernel 7
+   (the fused mixed-bit kernel) against its plain version at the MBWQ-2.5
+   A16 projections; times both beside their bounds, their plain versions, a
+   bf16 ``torch.matmul`` and (kernel 7) the per-segment launches it
+   replaces;
+9. runs Llama-2-7B MBWQ-2.5 (25% w4 g64, 75% w2 g128) at full width: a
+   256-token prefill of 8 prompts, 32 greedy decode steps in the A8 regime,
+   then 32 more after ``prepare_params_for_cuda(..., act_bits_map={2: 16})``
+   in the A16 regime, checks the launch counts per step and profiles a few
+   steps of each regime;
+10. compares prefill + 4 decode steps of a 2-layer MBWQ-2.5 model between
+    the kernel path and the plain path on the card, in both regimes.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -59,6 +74,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bounds' rates
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 SEED = 0
 BATCH, PROMPT, CACHE, DECODE_STEPS = 8, 256, 1024, 32
@@ -75,6 +91,8 @@ PROJ_SHAPES = {  # (K, N) of the Llama-3-8B serving projections and padded head
 # prefill (kernel 2): once per layer, the head once
 PER_PASS = {"qkv": LAYERS, "o": LAYERS, "gate_up": LAYERS, "down": LAYERS, "head": 1}
 TPU_KERNELS = {
+    "mpq_matmul_a8": "bitorch_engine_tpu/ops/pallas/dequant_matmul.py:365",
+    "mbwq_matmul": "bitorch_engine_tpu/ops/pallas/mbwq_matmul.py:52",
     "mpq_matmul": "bitorch_engine_tpu/ops/pallas/dequant_matmul.py:365",
     "dequant_mpq": "bitorch_engine_tpu/ops/pallas/dequant_matmul.py:789",
     "flash_attention": "bitorch_engine_tpu/ops/pallas/flash_attention.py:75",
@@ -82,6 +100,8 @@ TPU_KERNELS = {
     "paged_prefix_attention_update": "bitorch_engine_tpu/ops/pallas/paged_attention.py:65",
 }
 SOURCES = {
+    "mpq_matmul_a8": "bitorch_engine_tpu_torch/csrc/quad_matmul.cu",
+    "mbwq_matmul": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "mpq_matmul": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "dequant_mpq": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "flash_attention": "bitorch_engine_tpu_torch/csrc/flash_attention.cu",
@@ -106,6 +126,27 @@ SERVE = dict(num_slots=8, max_len=CACHE, kv_pages=8 * PAGES_PER_SLOT + 1, kv_pag
              prefill_chunk=256, eos_id=-1)
 N_REQUESTS = 16
 
+# the sub-4-bit slice: Llama-2-7B MBWQ-2.5 (bench.py:474-497).  Its
+# projections (K, N) with their (w4 g64, w2 g128) segment rows, N padded
+# to 2048 (gate|up 22016 → 22528)
+MBWQ_PROJ = {
+    "qkv": (4096, 12288, 1024, 3072),
+    "o": (4096, 4096, 1024, 3072),
+    "gate_up": (4096, 22528, 1024, 3072),
+    "down": (11008, 4096, 2816, 8192),
+}
+MBWQ_WINDOW_FLOOR = 128  # the bench's MHA window floor (bench.py:500-506)
+MBWQ_PROFILE_STEPS = 4
+# kernel 5's shapes (K, N, w_bit, group size): the MBWQ-2.5 w2 segments
+# first (the rows the main path is reckoned from), then the uniform-w2
+# Llama-3-8B shapes of tools/quad_gate.py, then w1 and w4 at one shape
+QUAD_SHAPES = (
+    [(f"mbwq_{name}_w2", k2, n, 2, 128) for name, (_, n, _, k2) in MBWQ_PROJ.items()]
+    + [(f"w2_{k}x{n}", k, n, 2, 128) for k, n in
+       ((4096, 4096), (4096, 6144), (4096, 28672), (14336, 4096), (2048, 512))]
+    + [("w1_4096x4096", 4096, 4096, 1, 128), ("w4_4096x4096", 4096, 4096, 4, 128)]
+)
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -120,12 +161,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bucket(n: int) -> int:
-    """The bench's attention window: smallest power of 2 >= n, floor 256."""
-    w = 256
+def bucket(n: int, floor: int = 256) -> int:
+    """The bench's attention window: smallest power of 2 >= n, at least
+    ``floor`` (256 for the GQA models, 128 for Llama-2-7B's MHA)."""
+    w = floor
     while w < n:
         w *= 2
     return min(w, CACHE)
+
+
+def counts_with(**nonzero) -> dict:
+    """Every kernel's launch count 0 but those named."""
+    from bitorch_engine_tpu_torch.ops.cuda import KERNELS
+
+    return {name: nonzero.get(name, 0) for name in KERNELS}
 
 
 def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
@@ -150,8 +199,8 @@ def time_ms(torch, fn, reps: int = 20, flush=None) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -393,7 +442,7 @@ def paged_caches(torch, cfg, batch, cache=CACHE):
     return caches
 
 
-def serve(torch, model, prompt, steps, on_prefill=None, forced=None, paged=False):
+def serve(torch, model, prompt, steps, on_prefill=None, forced=None, paged=False, floor=256):
     """prefill (window 0) + greedy decode steps with the bucketed window,
     over dense or paged caches; returns (last logits, generated tokens
     (b, steps + 1))."""
@@ -411,7 +460,7 @@ def serve(torch, model, prompt, steps, on_prefill=None, forced=None, paged=False
     toks = [tok]
     for i in range(steps):
         pos = PROMPT + i
-        last, caches = decode_step(model, tok[:, None], caches, pos, attn_window=bucket(pos + 1))
+        last, caches = decode_step(model, tok[:, None], caches, pos, attn_window=bucket(pos + 1, floor))
         tok = torch.argmax(last, dim=-1) if forced is None else forced[:, i + 1]
         toks.append(tok)
     return last, torch.stack(toks, dim=1)
@@ -497,11 +546,9 @@ def phase_e2e(torch, gen, model):
     proj = 4 * LAYERS + 1
     pre = marks["counts_prefill"]
     log(f"e2e launches at prefill {pre}; over the run {counts}")
-    paged_none = {"paged_prefix_attention": 0, "paged_prefix_attention_update": 0}
-    check(pre == {"mpq_matmul": 0, "dequant_mpq": proj, "flash_attention": LAYERS, **paged_none},
-          f"prefill launches {pre}")
-    check(counts == {"mpq_matmul": proj * DECODE_STEPS, "dequant_mpq": proj,
-                     "flash_attention": LAYERS, **paged_none}, f"run launches {counts}")
+    check(pre == counts_with(dequant_mpq=proj, flash_attention=LAYERS), f"prefill launches {pre}")
+    check(counts == counts_with(mpq_matmul=proj * DECODE_STEPS, dequant_mpq=proj,
+                                flash_attention=LAYERS), f"run launches {counts}")
     check(bool(torch.isfinite(last).all()), "decode logits are not finite")
     check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()), "token ids out of range")
     e2e = dict(
@@ -678,14 +725,18 @@ def phase_paged_vs_dense(torch, model):
 
 @contextmanager
 def plain_kernels():
-    """Route the model's five kernel calls to their plain versions."""
+    """Route the model's seven kernel calls to their plain versions."""
     from bitorch_engine_tpu_torch.models import llama
-    from bitorch_engine_tpu_torch.ops import mpq_linear
+    from bitorch_engine_tpu_torch.ops import mbwq_linear, mpq_linear
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, mpq_matmul_ref
     from bitorch_engine_tpu_torch.ops.cuda.flash_attention import flash_attention_ref
+    from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul_ref
+    from bitorch_engine_tpu_torch.ops.cuda.quad_matmul import mpq_matmul_a8_ref
 
     with mock.patch.object(mpq_linear, "mpq_matmul", mpq_matmul_ref), \
+            mock.patch.object(mpq_linear, "mpq_matmul_a8", mpq_matmul_a8_ref), \
+            mock.patch.object(mbwq_linear, "mbwq_matmul", mbwq_matmul_ref), \
             mock.patch.object(mpq_linear, "dequant_mpq", dequant_mpq_ref), \
             mock.patch.object(llama, "flash_attention", flash_attention_ref), \
             mock.patch.object(llama, "paged_prefix_attention", pa.paged_prefix_attention_ref), \
@@ -760,6 +811,259 @@ def phase_paged_gate(torch, gen):
     torch.cuda.empty_cache()
     return dict(max_rel=max_rel, steps=steps, tol=tol)
 
+def phase_quad_kernels(torch, gen, flush):
+    """Phase 8a: kernel 5 against its plain version in f32 before ``sx``
+    and the cast (max|d|/max|ref| <= 1e-4, tools/quad_gate.py's bar) with
+    its activation quantization bit-equal, affine and mid_sym, then timed
+    (the affine weights, which the MBWQ quantizer makes)."""
+    from bitorch_engine_tpu_torch.ops.cuda import quad_matmul as qm
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, prepare_for_kernel
+    from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
+
+    rows = []
+    for name, k, n, w_bit, gs in QUAD_SHAPES:
+        w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        qx, sx = qm.quantize_activations(x, w_bit)
+        rqx, rsx = qm.quantize_activations_ref(x)
+        q_equal = (torch.equal(qx, qm.kernel_order(rqx, w_bit).to(torch.int8))
+                   and torch.equal(sx, rsx[:, 0]))
+        errs = {}
+        # mid_sym needs codes on both sides of the midpoint: not at 1 bit;
+        # affine last, the tensor that is timed
+        for mid in (True, False) if w_bit > 1 else (False,):
+            qt = prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs, mid_sym=mid),
+                                    torch.bfloat16, act_bits=8)
+            check(qt.act_bits == 8 and qt.zeros_mid == mid, f"kernel 5 {name}: regime {qt}")
+            got = qm.mpq_matmul_a8(x, qt, accumulator=True)
+            want = qm.mpq_matmul_a8_ref(x, qt, accumulator=True)
+            err = (got - want).abs().max().item()
+            errs[mid] = (err, err / want.abs().max().item())
+        log(f"kernel mpq_matmul_a8 {name:18s} K={k} N={n} w{w_bit} g{gs} m=8  qx/sx bit-equal="
+            f"{q_equal}  " + "  ".join(f"{'mid_sym' if mid else 'affine'} max|d|={e:.3e} rel={r:.3e}"
+                                       for mid, (e, r) in sorted(errs.items())))
+        check(q_equal and all(r <= 1e-4 for _, r in errs.values()),
+              f"kernel 5 {name}: quantization equal {q_equal}, rel {errs}")
+        w_bf16 = dequant_mpq_ref(qt, torch.bfloat16)
+        meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
+        bms, bby = bound(meta + x.nbytes + 8 * n * 2, 2 * 8 * k * n, INT8_OPS_PER_S)
+        rows.append(dict(
+            shape=name, K=k, N=n, w_bit=w_bit, group_size=gs, m=8, qx_bit_equal=q_equal,
+            max_abs_err=max(e for e, _ in errs.values()), rel_err=max(r for _, r in errs.values()),
+            rel_err_affine=errs[False][1], rel_err_mid_sym=errs.get(True, (None, None))[1],
+            ms=time_ms(torch, lambda: qm.mpq_matmul_a8(x, qt), flush=flush),
+            plain_ms=time_ms(torch, lambda: qm.mpq_matmul_a8_ref(x, qt), flush=flush),
+            library_ms=None,
+            yardstick_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
+            bound_ms=bms, bound_by=bby,
+        ))
+        del w, qt, w_bf16
+    for r in rows:
+        log(f"time mpq_matmul_a8 {r['shape']:18s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"yardstick torch.matmul(bf16 weight) {r['yardstick_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mbwq_weight(torch, gen, k, n):
+    """A random MBWQ-2.5 weight (K, N) in the kernel form, bf16 metadata."""
+    from bitorch_engine_tpu_torch.models.llama import llama2_7b_mbwq_serving
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import prepare_for_kernel
+    from bitorch_engine_tpu_torch.ops.mbwq_linear import quantize_mbwq, strategy_dict
+
+    cfg = llama2_7b_mbwq_serving()
+    strategy = strategy_dict(cfg.mbwq_strategy, cfg.group_size)
+    qt = quantize_mbwq(torch.randn(k, n, device="cuda", generator=gen) * 0.02, strategy)
+    return qt.replace(segments=tuple(prepare_for_kernel(s, torch.bfloat16) for s in qt.segments))
+
+
+def phase_mbwq_kernels(torch, gen, flush):
+    """Phase 8b: kernel 7 against its plain version (f32 out, max|d|/max|ref|
+    <= 1e-3, kernel 1's bar) at the MBWQ-2.5 A16 projections, m = 8; timed
+    beside its bound, its plain version, the per-segment path it replaces
+    (kernel 1 per segment on the sliced activations, and the add) and a bf16
+    ``torch.matmul`` on the stacked weight."""
+    from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul, mbwq_matmul_ref
+    from bitorch_engine_tpu_torch.ops.mbwq_linear import dequantize_mbwq
+    from bitorch_engine_tpu_torch.ops.mpq_linear import mpq_linear
+
+    rows = []
+    for name, (k, n, k4, k2) in MBWQ_PROJ.items():
+        qt = mbwq_weight(torch, gen, k, n)
+        segs = [(s.w_bit, s.group_size, s.in_features) for s in qt.segments]
+        check(segs == [(4, 64, k4), (2, 128, k2)], f"kernel 7 {name}: segments {segs}")
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        got = mbwq_matmul(x, qt, torch.float32)
+        want = mbwq_matmul_ref(x, qt, torch.float32)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        log(f"kernel mbwq_matmul {name:8s} K={k} ({k4} w4 g64 + {k2} w2 g128) N={n} m=8  "
+            f"max|d|={err:.3e} rel={rel:.3e}")
+        check(rel <= 1e-3, f"kernel 7 {name}: rel {rel} > 1e-3")
+        # the stacked weight in segment order, bf16 (the yardstick's operand)
+        w_bf16 = dequantize_mbwq(qt.replace(q_perm=None), torch.bfloat16)
+
+        def per_segment():
+            out, off = None, 0
+            for seg in qt.segments:
+                part = mpq_linear(x[:, off : off + seg.in_features], seg)
+                out = part if out is None else out + part
+                off += seg.in_features
+            return out
+
+        meta = sum(s.packed.nbytes + s.scales.nbytes + s.zeros.nbytes for s in qt.segments)
+        bms, bby = bound(meta + x.nbytes + 8 * n * 2, 2 * 8 * k * n)
+        rows.append(dict(
+            shape=name, K=k, N=n, m=8, segments=segs, max_abs_err=err, rel_err=rel,
+            ms=time_ms(torch, lambda: mbwq_matmul(x, qt), flush=flush),
+            plain_ms=time_ms(torch, lambda: mbwq_matmul_ref(x, qt), flush=flush),
+            per_segment_ms=time_ms(torch, per_segment, flush=flush),
+            library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
+            bound_ms=bms, bound_by=bby,
+        ))
+        del qt, w_bf16
+    for r in rows:
+        log(f"time mbwq_matmul {r['shape']:8s} kernel {r['ms']:.4f} ms  per-segment kernel 1 + add "
+            f"{r['per_segment_ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  torch.matmul(bf16 weight) "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def build_mbwq_model(torch, num_layers, seed):
+    """Llama-2-7B MBWQ-2.5 in the bench's serving form, random weights from
+    ``seed``, prepared for the A8 regime (w2 segments → kernel 5)."""
+    from bitorch_engine_tpu_torch.models.llama import LlamaModel, llama2_7b_mbwq_serving
+    from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
+
+    cfg = llama2_7b_mbwq_serving(max_seq_len=CACHE, num_layers=num_layers)
+    model = LlamaModel(cfg, device="cuda", seed=seed)
+    return prepare_params_for_cuda(model, meta_dtype=torch.bfloat16, act_bits_map={2: 8})
+
+
+def set_regime(torch, model, act_bits: int):
+    from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
+
+    prepare_params_for_cuda(model, meta_dtype=torch.bfloat16, act_bits_map={2: act_bits})
+
+
+def profile_steps(torch, model, tok, caches, pos, steps):
+    """``steps`` decode steps from ``pos`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitorch_engine_tpu_torch.models.llama import decode_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            decode_step(model, tok, caches, pos + i, attn_window=bucket(pos + i + 1, MBWQ_WINDOW_FLOOR))
+        torch.cuda.synchronize()
+    return _device_summary(torch, prof, time.perf_counter() - t0, steps)
+
+
+def phase_mbwq_e2e(torch, gen, model):
+    """Phase 9: the MBWQ-2.5 model at full width: prefill, 32 A8 decode
+    steps, the flip to A16, 32 A16 decode steps on the same cache; launch
+    counts per step; a few profiled steps of each regime."""
+    from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = model.cfg
+    proj = 4 * LAYERS
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
+    serve(torch, model, prompt, 2, floor=MBWQ_WINDOW_FLOOR)  # warm-up
+    set_regime(torch, model, 16)
+    serve(torch, model, prompt, 2, floor=MBWQ_WINDOW_FLOOR)
+    set_regime(torch, model, 8)
+    torch.cuda.synchronize()
+
+    caches = init_kv_caches(cfg, BATCH, CACHE, device="cuda")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, prompt, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre = launch_counts()
+    check(bool(torch.isfinite(logits).all()), "MBWQ prefill logits are not finite")
+    check(pre == counts_with(dequant_mpq=2 * proj + 1, flash_attention=LAYERS),
+          f"MBWQ prefill launches {pre}")
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    toks, pos, out = [tok], PROMPT, {}
+    for regime, act_bits in (("a8", 8), ("a16", 16)):
+        set_regime(torch, model, act_bits)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_STEPS):
+            last, caches = decode_step(model, tok[:, None], caches, pos,
+                                       attn_window=bucket(pos + 1, MBWQ_WINDOW_FLOOR))
+            tok = torch.argmax(last, dim=-1)
+            toks.append(tok)
+            pos += 1
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+        counts = launch_counts()
+        if regime == "a8":
+            want = counts_with(mpq_matmul_a8=proj * DECODE_STEPS, mpq_matmul=(proj + 1) * DECODE_STEPS)
+        else:
+            want = counts_with(mbwq_matmul=proj * DECODE_STEPS, mpq_matmul=DECODE_STEPS)
+        log(f"MBWQ {regime} launches over {DECODE_STEPS} steps {counts}")
+        check(counts == want, f"MBWQ {regime} launches {counts} != {want}")
+        check(bool(torch.isfinite(last).all()), f"MBWQ {regime} decode logits are not finite")
+        prof = profile_steps(torch, model, tok[:, None], caches, pos, MBWQ_PROFILE_STEPS)
+        prof["idle_share_estimate_unprofiled"] = 1.0 - prof["device_busy_ms_per_call"] / step_ms
+        out[regime] = dict(decode_ms_per_step=step_ms, decode_tok_s=BATCH / step_ms * 1e3,
+                           launches=counts, profile=prof)
+        log(f"MBWQ {regime}: decode {step_ms:.3f} ms/step ({BATCH / step_ms * 1e3:.1f} tok/s), "
+            f"profiled: device busy {prof['device_busy_ms_per_call']:.3f} ms/step, idle share "
+            f"{prof['idle_share']:.3f} (unprofiled estimate "
+            f"{prof['idle_share_estimate_unprofiled']:.3f}), {prof['launches_per_call']:.0f} "
+            f"launches/step")
+        for kern in prof["top_kernels"]:
+            log(f"  {kern['ms_per_call']:8.3f} ms  {kern['launches_per_call']:6.1f}x  {kern['name']}")
+    toks = torch.stack(toks, dim=1)
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "MBWQ token ids out of range")
+    out.update(prefill_ms=prefill_ms, prefill_tok_s=BATCH * PROMPT / prefill_ms * 1e3,
+               prefill_launches=pre, batch=BATCH, prompt=PROMPT, decode_steps=DECODE_STEPS,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"MBWQ prefill {prefill_ms:.2f} ms ({out['prefill_tok_s']:.0f} tok/s); peak "
+        f"{out['peak_gib']:.2f} GiB")
+    del caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mbwq_path_check(torch, gen):
+    """Phase 10: 2 layers at MBWQ-2.5 width, kernel path against plain path
+    on the card, both regimes, the plain path fed the kernel path's tokens."""
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model = build_mbwq_model(torch, 2, SEED + 3)
+    prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
+    rels = {}
+    for regime, act_bits in (("a8", 8), ("a16", 16)):
+        set_regime(torch, model, act_bits)
+        reset_launch_counts()
+        got, toks = serve(torch, model, prompt, 4, floor=MBWQ_WINDOW_FLOOR)
+        launched = launch_counts()
+        reset_launch_counts()
+        with plain_kernels():
+            want, _ = serve(torch, model, prompt, 4, forced=toks, floor=MBWQ_WINDOW_FLOOR)
+        torch.cuda.synchronize()
+        check(all(n == 0 for n in launch_counts().values()), "the plain path launched a kernel")
+        key = "mpq_matmul_a8" if regime == "a8" else "mbwq_matmul"
+        check(launched[key] == 2 * 4 * 4, f"MBWQ path check {regime}: launches {launched}")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"MBWQ path check ({regime}, 2 layers, prefill + 4 decode steps): "
+            f"max|d logits|/max|logits| = {rel:.3e}")
+        check(rel <= 2e-2, f"MBWQ path check {regime}: {rel} > 2e-2")
+        rels[regime] = rel
+    del model
+    torch.cuda.empty_cache()
+    return rels
+
 
 def kernel_line(name, rows, launches, weights, per, check_text):
     """One entry of the kernels JSON: the per-pass sums of ``rows`` (each
@@ -824,6 +1128,23 @@ def main() -> int:
     path_rel = phase_path_check(torch, gen)
     gate = phase_paged_gate(torch, gen)
 
+    # the sub-4-bit slice
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    per_shape["mpq_matmul_a8"] = phase_quad_kernels(torch, gen, flush)
+    per_shape["mbwq_matmul"] = phase_mbwq_kernels(torch, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_mbwq_model(torch, LAYERS, SEED)
+    torch.cuda.synchronize()
+    log(f"MBWQ model: Llama-2-7B MBWQ-2.5 (w4 g64 / w2 g128), {LAYERS} layers, built in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    mbwq = phase_mbwq_e2e(torch, gen, model)
+    del model
+    torch.cuda.empty_cache()
+    mbwq["path_check_rel"] = phase_mbwq_path_check(torch, gen)
+
     checks = {
         "mpq_matmul": "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape",
         "dequant_mpq": "bit-equal (bf16)",
@@ -834,6 +1155,9 @@ def main() -> int:
     }
     checks["paged_prefix_attention_update"] = checks["paged_prefix_attention"] + \
         "; pools bit-equal after the write (but the null page 0)"
+    checks["mpq_matmul_a8"] = ("f32 accumulator before sx and the cast, max|d|/max|ref| <= 1e-4 "
+                               "per shape, affine and mid_sym; activation codes and sx bit-equal")
+    checks["mbwq_matmul"] = "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape"
     kernels = []
     for name in ("mpq_matmul", "dequant_mpq", "flash_attention"):
         rows = per_shape[name]
@@ -856,8 +1180,25 @@ def main() -> int:
         serve_counts["paged_prefix_attention"], [LAYERS],
         "one prefill chunk after the first of the serving path (8 x 256 rows, window 256)",
         checks["paged_prefix_attention"]))
+    # the sub-4-bit path (phase 9): per decode step, one launch per
+    # projection of each of the 32 layers; kernel 5 in the A8 regime (its
+    # w2 segments), kernel 7 in the A16 regime
+    mbwq_weights = [LAYERS] * len(MBWQ_PROJ)
+    line = kernel_line("mpq_matmul_a8", per_shape["mpq_matmul_a8"],
+                       mbwq["a8"]["launches"]["mpq_matmul_a8"], mbwq_weights,
+                       "one A8 decode step of the MBWQ-2.5 path (the w2 segments)",
+                       checks["mpq_matmul_a8"])
+    line["yardstick_ms"] = sum(LAYERS * r["yardstick_ms"] for r in per_shape["mpq_matmul_a8"][:4])
+    line["yardstick"] = "torch.matmul on the bf16 dequantized weight (no PyTorch call computes A8)"
+    kernels.append(line)
+    line = kernel_line("mbwq_matmul", per_shape["mbwq_matmul"],
+                       mbwq["a16"]["launches"]["mbwq_matmul"], mbwq_weights,
+                       "one A16 decode step of the MBWQ-2.5 path (every projection)",
+                       checks["mbwq_matmul"])
+    line["per_segment_ms"] = sum(LAYERS * r["per_segment_ms"] for r in per_shape["mbwq_matmul"])
+    kernels.append(line)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
-                    "path_check_rel": path_rel, "paged_gate": gate,
+                    "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq,
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -119,9 +119,16 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_act_bits_8_is_a_later_slice():
-    _, jqt = _mk(1, 256, 64, 64, 4)
+    """The sub-4-bit slice brought the A8 regime: an ``act_bits=8`` tensor
+    is prepared in that regime and its linear runs the JAX package's A8
+    simulation on the CPU (its parity is in test_torch_quad_matmul.py)."""
+    from bitorch_engine_tpu_torch.ops.cuda.quad_matmul import mpq_matmul_a8_ref
+
+    x, jqt = _mk(2, 256, 64, 64, 4)
     qt = _port(jqt).replace(act_bits=8)
-    with pytest.raises(NotImplementedError, match="sub-4-bit"):
-        tlin.mpq_linear(torch.zeros(1, 256), qt)
-    with pytest.raises(NotImplementedError, match="sub-4-bit"):
-        tdm.prepare_for_kernel(qt)
+    prepared = tdm.prepare_for_kernel(qt)
+    assert prepared.act_bits == 8 and prepared.layout == "gptq"
+    xt = torch.from_numpy(x)
+    torch.testing.assert_close(tlin.mpq_linear(xt, qt), mpq_matmul_a8_ref(xt, qt), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="act_bits must be 8 or 16"):
+        tdm.prepare_for_kernel(qt, act_bits=4)

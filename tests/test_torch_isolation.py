@@ -11,7 +11,7 @@ import torch
 
 import bitorch_engine_tpu_torch
 from bitorch_engine_tpu_torch import device as tdevice
-from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+from bitorch_engine_tpu_torch.layers.linear import MBWQLinear, MPQLinear
 from bitorch_engine_tpu_torch.models import generate as tg
 from bitorch_engine_tpu_torch.models import llama as tl
 
@@ -100,3 +100,26 @@ def test_serving_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
     assert b.caches[0].k_pool.device.type == "cpu"
     b.submit([1, 2, 3], max_new_tokens=2)
     assert len(b.run()[0].generated) == 2
+
+
+def test_mbwq_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    """The sub-4-bit slice's entry points: an MBWQ layer or model with the
+    default device raises without a GPU; asked for the CPU it runs there,
+    in both regimes."""
+    from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        MBWQLinear(256, 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tl.LlamaModel(tl.llama2_7b_mbwq_serving())
+    layer = MBWQLinear(256, 64, device="cpu")
+    assert all(s.packed.device.type == "cpu" for s in layer.qweight.segments)
+    assert MBWQLinear(256, 64, qweight=layer.qweight).q_perm.device.type == "cpu"
+    cfg = tl.tiny_llama(dtype=torch.float32, num_layers=1, mbwq_strategy=((4, 0.5), (2, 0.5)),
+                        group_size=32)
+    model = tl.LlamaModel(cfg, device="cpu")
+    for act_bits_map in (None, {2: 8}):
+        prepare_params_for_cuda(model, act_bits_map=act_bits_map)
+        out = tg.generate(model, torch.tensor([[1, 2]]), max_new_tokens=2)
+        assert out.shape == (1, 4)

@@ -189,8 +189,16 @@ def test_config_factories_match(name):
     ],
 )
 def test_out_of_slice_configs_raise(field, value, slice_):
+    """Configurations of a slice still to port raise, naming it; those of a
+    slice that has landed build (the sub-4-bit slice: MBWQ projections,
+    whose parity is in test_torch_llama_mbwq.py)."""
+    cfg = tl.tiny_llama(dtype=torch.float32, **{field: value})
+    if slice_ == "sub-4-bit":
+        model = tl.LlamaModel(cfg, device="cpu")
+        assert model.layer_0.attn.q_proj.qweight.bit_widths == (4, 2)
+        return
     with pytest.raises(NotImplementedError, match=slice_):
-        tl.LlamaModel(tl.tiny_llama(dtype=torch.float32, **{field: value}), device="cpu")
+        tl.LlamaModel(cfg, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -199,9 +207,15 @@ def test_out_of_slice_configs_raise(field, value, slice_):
      "moe_capacity_factor", "moe_renormalize"],
 )
 def test_reference_only_config_fields_are_refused(field):
-    """Fields of the JAX config that no code of this slice reads are not
-    accepted (and so never silently ignored)."""
+    """Fields of the JAX config that no code of the port reads yet are not
+    accepted (and so never silently ignored); a field that a landed slice
+    reads (``mbwq_container_bits``, the sub-4-bit slice) is accepted with the
+    JAX default."""
     assert field in {f.name for f in dataclasses.fields(jl.tiny_llama())}
+    if field == "mbwq_container_bits":
+        assert tl.tiny_llama(**{field: {2: 4}}).mbwq_container_bits == {2: 4}
+        assert tl.tiny_llama().mbwq_container_bits == jl.tiny_llama().mbwq_container_bits
+        return
     with pytest.raises(TypeError, match=field):
         tl.tiny_llama(**{field: getattr(jl.tiny_llama(), field)})
 

@@ -7,8 +7,14 @@ fields (bit width, group size, layout, ...) are plain attributes.
 ``MBWQLinear`` holds each segment of its :class:`MBWQTensor` in an
 ``MPQLinear`` of ``segments`` (so whatever walks the model's ``MPQLinear``
 modules, such as ``utils.convert.prepare_params_for_cuda``, reaches the
-segments too) and the permutation and channel scale as buffers.  The binary
-and n-bit QAT layers and fp projections come with their slices.
+segments too) and the permutation and channel scale as buffers.
+
+In training mode (``utils.convert.prepare_for_training``) a layer carries
+its weight's f32 ``grad_shadow`` as an ``nn.Parameter`` of the logical
+``(K, N)`` shape: the quantized linear's autograd Function takes it as an
+input, so its ``.grad`` is the JAX package's ``grad_shadow`` cotangent,
+``xᵀ g``.  The binary and n-bit QAT layers and fp projections come with
+their slices.
 """
 
 from __future__ import annotations
@@ -27,6 +33,13 @@ from ..qtensor import MBWQTensor, MPQTensor
 
 _TENSOR_FIELDS = ("packed", "scales", "zeros", "g_idx", "q_perm")
 _STATIC_FIELDS = ("w_bit", "group_size", "asym", "code_bits", "layout", "act_bits", "zeros_mid")
+
+
+def _set_shadow(module: nn.Module, shadow: Optional[torch.Tensor]) -> None:
+    """Hold ``shadow`` as the module's ``grad_shadow`` parameter (or none)."""
+    if shadow is not None and not isinstance(shadow, nn.Parameter):
+        shadow = nn.Parameter(shadow)
+    module.grad_shadow = shadow
 
 
 def kaiming_uniform(
@@ -68,6 +81,7 @@ class MPQLinear(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.out_slice = out_slice
+        self.register_parameter("grad_shadow", None)
         if qweight is not None and device is None:
             device = qweight.device
         device = resolve_device(device)
@@ -87,6 +101,7 @@ class MPQLinear(nn.Module):
         return MPQTensor(
             **{f: getattr(self, f) for f in _TENSOR_FIELDS},
             **{f: getattr(self, "_" + f) for f in _STATIC_FIELDS},
+            grad_shadow=self.grad_shadow,
         )
 
     def set_qweight(self, qt: MPQTensor) -> None:
@@ -94,6 +109,7 @@ class MPQLinear(nn.Module):
             self.register_buffer(f, getattr(qt, f))
         for f in _STATIC_FIELDS:
             setattr(self, "_" + f, getattr(qt, f))
+        _set_shadow(self, qt.grad_shadow)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = mpq_linear(x.to(self.dtype), self.qweight)
@@ -136,6 +152,7 @@ class MBWQLinear(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.out_slice = out_slice
+        self.register_parameter("grad_shadow", None)
         if qweight is not None and device is None:
             device = qweight.device
         device = resolve_device(device)
@@ -150,7 +167,7 @@ class MBWQLinear(nn.Module):
         return MBWQTensor(
             segments=tuple(seg.qweight for seg in self.segments), q_perm=self.q_perm,
             channel_scale=self.channel_scale, block_perm=self.block_perm,
-            perm_block=self._perm_block,
+            perm_block=self._perm_block, grad_shadow=self.grad_shadow,
         )
 
     def set_qweight(self, qt: MBWQTensor) -> None:
@@ -161,6 +178,7 @@ class MBWQLinear(nn.Module):
         for f in ("q_perm", "channel_scale", "block_perm"):
             self.register_buffer(f, getattr(qt, f))
         self._perm_block = qt.perm_block
+        _set_shadow(self, qt.grad_shadow)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = mbwq_linear(x.to(self.dtype), self.qweight)

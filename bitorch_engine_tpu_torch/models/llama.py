@@ -8,7 +8,8 @@ RMSNorm and SwiGLU, dense or paged bf16 / int8 KV caches, a bf16 / int8 /
 w4 head.  Parameters live in the modules (``LlamaModel(cfg, device)`` builds
 random ones from a seeded ``torch.Generator``; ``utils.convert`` loads the
 JAX package's); the entry points are :func:`prefill`, :func:`decode_step`
-and ``models.generate.generate``.
+and ``models.generate.generate`` for serving, and a plain call under
+autograd for training (``training.make_train_step``).
 
 Attention reads the dense cache in one of four ways, as the reference does:
 no cache (full causal attention over the tokens), full read (window None or
@@ -21,8 +22,15 @@ the window paths write after they have read.  A paged cache
 (``models/paged_kv.py``) takes the same paths over its gathered pages, or
 the paged-attention kernel's (see ``LlamaAttention._paged``).
 
-Outside the slices ported so far: fp (unquantized) projections, MoE,
-sequence parallelism and remat raise ``NotImplementedError``.
+Training: after ``utils.convert.prepare_for_training`` the embedding (when
+not quantized), the norms and the biases are trainable parameters and
+every quantized projection carries a grad shadow.  The cache-less path on
+the card runs the differentiable flash attention (kernel 3 forward, kernel
+4 backward); ``cfg.remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``), as the JAX package's ``nn.remat``.
+
+Outside the slices ported so far: fp (unquantized) projections, MoE and
+sequence parallelism raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,10 +41,11 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..layers.linear import MBWQLinear, MPQLinear
-from ..ops.cuda.flash_attention import HEAD_DIMS, flash_attention
+from ..ops.cuda.flash_attention import HEAD_DIMS, flash_attention_diff
 from ..ops.cuda.paged_attention import (
     cache_len_tensor,
     merge_attention_parts,
@@ -73,7 +82,7 @@ class LlamaConfig:
     # per-bit storage container of the MBWQ segments, e.g. {2: 4}
     mbwq_container_bits: Any = None
     quant_mid_sym: bool = False
-    remat: bool = False  # training slice
+    remat: bool = False  # recompute each block in the backward pass
     sequence_parallel: Optional[str] = None  # parallel-layouts slice
     moe_num_experts: int = 0  # MoE slice
     kv_cache_dtype: str = "bf16"
@@ -156,6 +165,20 @@ def llama2_7b_mbwq_serving(**overrides) -> LlamaConfig:
     return llama2_7b(**defaults)
 
 
+def llama_370m_train(**overrides) -> LlamaConfig:
+    """The JAX package's training configuration (``bench.py:627-642``): a
+    ~370M-parameter Llama (hidden 1024, intermediate 2816, 24 layers, 16 MHA
+    heads of 64, vocab 32000), w4 g128 projections, bf16, 2048 positions,
+    block remat, tied bf16 embedding."""
+    defaults = dict(
+        vocab_size=32000, hidden_size=1024, intermediate_size=2816, num_layers=24,
+        num_heads=16, num_kv_heads=16, max_seq_len=2048, w_bit=4, group_size=128,
+        remat=True, dtype=torch.bfloat16,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
 def tiny_llama(**overrides) -> LlamaConfig:
     """Small config for tests and CPU dry runs."""
     defaults = dict(
@@ -170,8 +193,10 @@ def _check_slice(cfg: LlamaConfig) -> None:
     later = {
         "moe_num_experts": (cfg.moe_num_experts > 0, "the MoE slice"),
         "sequence_parallel": (cfg.sequence_parallel is not None, "the parallel-layouts slice"),
-        "remat": (cfg.remat, "the training slice"),
-        "quantized": (not cfg.quantized, "the training slice (fp projections)"),
+        "quantized": (
+            not cfg.quantized,
+            "the checkpoint slice (fp projections; the training slice trains quantized ones)",
+        ),
     }
     for field, (set_, slice_) in later.items():
         if set_:
@@ -311,13 +336,14 @@ class LlamaAttention(nn.Module):
         )
 
     def _flash(self, q, k, v) -> torch.Tensor:
-        """Kernel 3 on (b, s, h, d) operands → ctx (b, s, nh * hd)."""
+        """Kernel 3 on (b, s, h, d) operands → ctx (b, s, nh * hd); under
+        autograd its backward is kernel 4."""
         b, s = q.shape[:2]
 
         def heads_first(t):
             return t.transpose(1, 2).to(self.cfg.dtype).contiguous()
 
-        ctx, _ = flash_attention(
+        ctx = flash_attention_diff(
             heads_first(q), heads_first(k), heads_first(v),
             causal=True, sm_scale=1.0 / math.sqrt(self.cfg.head_dim),
         )
@@ -655,7 +681,7 @@ class LlamaModel(nn.Module):
         if cfg.quantize_embed:
             self.embed = Int8Embedding(table)
         else:
-            self.register_buffer("embed", table.to(cfg.dtype))
+            self.embed = nn.Parameter(table.to(cfg.dtype), requires_grad=False)
         del table
         self.layers = []
         for i in range(cfg.num_layers):
@@ -694,8 +720,14 @@ class LlamaModel(nn.Module):
         if cfg.quantize_embed:
             x = self.embed.data[tokens].to(cfg.dtype) * self.embed.scale[tokens][..., None].to(cfg.dtype)
         else:
-            x = self.embed[tokens].to(cfg.dtype)
+            x = nn.functional.embedding(tokens, self.embed).to(cfg.dtype)
+        # remat: each block's activations are recomputed in the backward pass
+        remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
+            if remat:
+                x, _ = checkpoint(layer, x, positions, None, cache_len, attn_window,
+                                  use_reentrant=False)
+                continue
             cache_i = kv_caches[i] if kv_caches is not None else None
             x, _ = layer(x, positions, cache_i, cache_len, attn_window)
         x = self.final_norm(x)

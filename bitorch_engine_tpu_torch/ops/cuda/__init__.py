@@ -9,7 +9,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .dequant_matmul import dequant_mpq, mpq_matmul
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .mbwq_matmul import mbwq_matmul
 from .paged_attention import paged_prefix_attention, paged_prefix_attention_update
 from .quad_matmul import mpq_matmul_a8
@@ -23,6 +23,7 @@ KERNELS = {
     "paged_prefix_attention_update": paged_prefix_attention_update,
     "mpq_matmul_a8": mpq_matmul_a8,
     "mbwq_matmul": mbwq_matmul,
+    "flash_attention_bwd": flash_attention_bwd,
 }
 
 

@@ -1,11 +1,14 @@
-"""Kernel 3: causal, GQA-native flash attention forward.
+"""Kernels 3 and 4: GQA-native flash attention, forward and backward.
 
-The counterpart of ``bitorch_engine_tpu/ops/pallas/flash_attention.py``
-(forward only; the backward kernels come with the training slice).  The
-kernel lives in ``csrc/flash_attention.cu``; the wrapper launches it for
-CUDA tensors, raises on what it does not take, and runs the plain version
-beside it only for CPU tensors.  ``flash_attention.launches`` counts
-launches.
+The counterpart of ``bitorch_engine_tpu/ops/pallas/flash_attention.py``.
+The kernels live in ``csrc/flash_attention.cu``: kernel 3 (the forward,
+``flash_attention``) and kernel 4 (the backward, ``flash_attention_bwd``:
+one launch for dq, one for dk / dv).  Each wrapper launches its kernels for
+CUDA tensors, raises on what they do not take, and runs the plain version
+beside them only for CPU tensors; ``<wrapper>.launches`` counts launches
+(two per backward).  :class:`FlashAttention` is the differentiable
+attention of training: its forward runs kernel 3 and saves the lse rows,
+its backward runs kernel 4.
 """
 
 from __future__ import annotations
@@ -35,6 +38,22 @@ def _fwd_fn():
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _dq_fn():
+    return _build.function(
+        "flash_attention", "bte_flash_bwd_dq",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _dkv_fn():
+    return _build.function(
+        "flash_attention", "bte_flash_bwd_dkv",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    )
+
+
 def _check_shapes(q, k, v) -> Tuple[int, int, int, int, int]:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("q is (b, nh, s, d); k and v are (b, nkv, s, d)")
@@ -47,6 +66,27 @@ def _check_shapes(q, k, v) -> Tuple[int, int, int, int, int]:
     return b, nh, nkv, s, d
 
 
+def _scale(d: int, sm_scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
+def _check_kernel_operands(named, device) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned bf16
+    tensor on ``device``."""
+    for name, t in named:
+        if t.device != device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bfloat16 tensor on {device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_kernel_shape(s: int, d: int) -> None:
+    if s % SEQ_MULTIPLE or d not in HEAD_DIMS:
+        raise ValueError(
+            f"the flash kernels take s % {SEQ_MULTIPLE} == 0 and d in {HEAD_DIMS}, got s={s}, d={d}"
+        )
+
+
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, sm_scale: Optional[float] = None,
@@ -56,7 +96,7 @@ def flash_attention_ref(
     Returns ``(out in q.dtype, lse f32 (b, nh, s))``."""
     b, nh, nkv, s, d = _check_shapes(q, k, v)
     rep = nh // nkv
-    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    scale = _scale(d, sm_scale)
     qg = q.float().reshape(b, nkv, rep, s, d)
     sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
     if causal:
@@ -82,16 +122,9 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, nh, nkv, s, d = _check_shapes(q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous bfloat16 tensor on {q.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if s % SEQ_MULTIPLE or d not in HEAD_DIMS:
-        raise ValueError(
-            f"the flash kernel takes s % {SEQ_MULTIPLE} == 0 and d in {HEAD_DIMS}, got s={s}, d={d}"
-        )
-    scale = 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+    _check_kernel_operands((("q", q), ("k", k), ("v", v)), q.device)
+    _check_kernel_shape(s, d)
+    scale = _scale(d, sm_scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -107,3 +140,118 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel 4: the reference's backward arithmetic as f32
+    tensor math, with its casts (``p`` to ``do.dtype`` before the dv
+    product, ``ds`` to ``q.dtype`` / ``k.dtype`` before the dk / dq
+    products).  Returns ``(dq, dk, dv)`` in the operands' dtypes."""
+    b, nh, nkv, s, d = _check_shapes(q, k, v)
+    rep = nh // nkv
+    scale = _scale(d, sm_scale)
+    qg = q.float().reshape(b, nkv, rep, s, d)
+    dog = do.float().reshape(b, nkv, rep, s, d)
+    kf, vf = k.float(), v.float()
+    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, kf) * scale
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~mask, float("-inf"))
+    p = torch.exp(sc - lse.float().reshape(b, nkv, rep, s, 1))
+    del sc
+    delta = (do.float() * out.float()).sum(-1).reshape(b, nkv, rep, s, 1)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dog, vf)
+    ds = p * (dp - delta) * scale
+    del dp
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p.to(do.dtype).float(), dog)
+    del p
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds.to(q.dtype).float(), qg)
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds.to(k.dtype).float(), kf)
+    return dq.reshape(b, nh, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+    sm_scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 4: ``(dq, dk, dv)`` of :func:`flash_attention` from its
+    operands, its output, its lse rows and the output's cotangent ``do``.
+
+    ``delta = sum_d do * out`` is one tensor expression here (the reference
+    computes it outside its kernels too); then one launch writes dq and one
+    writes dk and dv, each GQA group's query heads summed in the kernel.
+    The kernels take what kernel 3 takes, with ``out`` and ``do`` shaped as
+    ``q`` and ``lse`` as kernel 3 writes it."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    b, nh, nkv, s, d = _check_shapes(q, k, v)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError("out and do must be shaped as q")
+    _check_kernel_operands(
+        (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)), q.device
+    )
+    if lse.shape != (b, nh, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {nh}, {s}) tensor")
+    _check_kernel_shape(s, d)
+    scale = _scale(d, sm_scale)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rep = nh // nkv
+    err = _dq_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b * nh, s, d, rep, scale, int(causal), stream,
+    )
+    _build.check("flash_attention", err, "flash_attention_bwd dq launch")
+    flash_attention_bwd.launches += 1
+    err = _dkv_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * nkv, s, d, rep, scale,
+        int(causal), stream,
+    )
+    _build.check("flash_attention", err, "flash_attention_bwd dkv launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: kernel 3 forward (its lse rows saved),
+    kernel 4 backward; on CPU tensors both plain versions.  Use
+    :func:`flash_attention_diff`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float]):
+        out, lse = flash_attention(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        # autograd hands the cotangent of a transposed view; the kernel
+        # reads rows
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.sm_scale
+        )
+        return dq, dk, dv, None, None
+
+
+def flash_attention_diff(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = True, sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention`'s output, differentiable in q, k and v."""
+    return FlashAttention.apply(q, k, v, causal, sm_scale)

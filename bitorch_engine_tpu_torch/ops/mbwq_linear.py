@@ -17,7 +17,11 @@ Dispatch of the forward (``m`` rows after flattening):
   summed in ``x.dtype``; on the CPU always this form, as the JAX package
   runs off the TPU.
 
-The backward comes with the training slice.
+The backward (``_mbwq_bwd`` of the JAX package) runs when the input or the
+tensor's grad shadow needs a gradient: the logical weight is rebuilt
+(kernel 2 per segment on the card, rows scattered back by ``q_perm``) and
+scaled by ``channel_scale`` for ``grad_input``; the weight cotangent is
+``(x · channel_scale)ᵀ g`` in f32, in the logical row order.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from ..qtensor import MBWQTensor
 from . import packing
 from .cuda.mbwq_matmul import mbwq_matmul
-from .mpq_linear import MAX_FUSED_ROWS, mpq_linear
+from .mpq_linear import MAX_FUSED_ROWS, mpq_linear, needs_grad, reconstruct_weight, weight_grad
 from .quant import dequantize_mpq, quantize_mpq
 
 
@@ -190,14 +194,55 @@ def _fused_ok(x2d: torch.Tensor, qt: MBWQTensor) -> bool:
     )
 
 
+def reconstruct_mbwq(qt: MBWQTensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`dequantize_mbwq` with each segment rebuilt by kernel 2 on the
+    card (bit-exact with the plain dequantize), the plain version on the
+    CPU."""
+    stored = torch.cat([reconstruct_weight(seg, torch.float32) for seg in qt.segments], dim=0)
+    if qt.q_perm is None:
+        return stored.to(dtype)
+    w = torch.zeros_like(stored)
+    w[qt.q_perm.long()] = stored
+    return w.to(dtype)
+
+
+class _MBWQLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shadow, qt):
+        ctx.save_for_backward(x)
+        ctx.qt = qt
+        return _mbwq_forward(x, qt)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        qt = ctx.qt
+        k = x.shape[-1]
+        g2d = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        cs = None if qt.channel_scale is None else qt.channel_scale.to(x.dtype)
+        grad_x = gw = None
+        if ctx.needs_input_grad[0]:
+            w = reconstruct_mbwq(qt, x.dtype)
+            if cs is not None:
+                w = w * cs[:, None]
+            grad_x = torch.matmul(g2d, w.T).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            x2d = x.reshape(-1, k)
+            if cs is not None:
+                x2d = x2d * cs
+            gw = weight_grad(x2d, g2d)
+        return grad_x, gw, None
+
+
 def mbwq_linear(x: torch.Tensor, qt: MBWQTensor) -> torch.Tensor:
-    """``(x · channel_scale) @ dequant(qt)`` → ``(..., N)`` in ``x.dtype``.
-    Forward only: an input that needs a gradient raises."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "mbwq_linear is forward only: its backward (the input gradient and the "
-            "weight's grad_shadow) arrives with the training slice of the port"
-        )
+    """``(x · channel_scale) @ dequant(qt)`` → ``(..., N)`` in ``x.dtype``,
+    differentiable in ``x`` and in ``qt.grad_shadow``."""
+    if needs_grad(x, qt.grad_shadow):
+        return _MBWQLinear.apply(x, qt.grad_shadow, qt)
+    return _mbwq_forward(x, qt)
+
+
+def _mbwq_forward(x: torch.Tensor, qt: MBWQTensor) -> torch.Tensor:
     xp = gather_activations(x, qt)
     lead = xp.shape[:-1]
     x2d = xp.reshape(-1, xp.shape[-1])

@@ -14,8 +14,13 @@ Two regimes, as in the JAX package:
   XLA).
 
 The regime is chosen from the tensor, the device and the shape up front;
-nothing catches a kernel's error to fall back.  The backward comes with the
-training slice.
+nothing catches a kernel's error to fall back.
+
+The backward (``_mpq_bwd`` of the JAX package) runs when the input or the
+tensor's grad shadow needs a gradient: ``grad_input = g @ Wᵀ`` with the
+weight reconstructed again (kernel 2 on the card), and the full-rank
+weight cotangent ``xᵀ g`` in f32 delivered to the grad shadow.  No
+gradient goes to the scales or zeros: DiodeMix refreshes the zeros itself.
 """
 
 from __future__ import annotations
@@ -41,8 +46,54 @@ def reconstruct_weight(qt: MPQTensor, dtype: torch.dtype) -> torch.Tensor:
     return dequant_mpq(qt, dtype)
 
 
+def weight_grad(x2d: torch.Tensor, g2d: torch.Tensor) -> torch.Tensor:
+    """``x2dᵀ @ g2d`` accumulated and returned in f32, as the JAX package's
+    ``preferred_element_type=f32`` dot: bf16 operands on the card go to
+    cuBLAS's f32-output GEMM; other operands are upcast (products of bf16
+    values are exact in f32)."""
+    if x2d.is_cuda and x2d.dtype == torch.bfloat16 and g2d.dtype == torch.bfloat16:
+        return torch.mm(x2d.T, g2d, out_dtype=torch.float32)
+    return torch.matmul(x2d.T.float(), g2d.float())
+
+
+def needs_grad(x: torch.Tensor, shadow) -> bool:
+    """Whether a quantized linear must record its backward."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or (shadow is not None and shadow.requires_grad)
+    )
+
+
+class _MPQLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shadow, qt):
+        ctx.save_for_backward(x)
+        ctx.qt = qt
+        return _mpq_forward(x, qt)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        qt = ctx.qt
+        k = x.shape[-1]
+        g2d = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        grad_x = gw = None
+        if ctx.needs_input_grad[0]:
+            w = reconstruct_weight(qt, x.dtype)
+            grad_x = torch.matmul(g2d, w.T).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = weight_grad(x.reshape(-1, k), g2d)
+        return grad_x, gw, None
+
+
 def mpq_linear(x: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
-    """``x (..., K) @ dequant(qt)`` → ``(..., N)`` in ``x.dtype``."""
+    """``x (..., K) @ dequant(qt)`` → ``(..., N)`` in ``x.dtype``,
+    differentiable in ``x`` and in ``qt.grad_shadow``."""
+    if needs_grad(x, qt.grad_shadow):
+        return _MPQLinear.apply(x, qt.grad_shadow, qt)
+    return _mpq_forward(x, qt)
+
+
+def _mpq_forward(x: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2d = x.reshape(-1, k)

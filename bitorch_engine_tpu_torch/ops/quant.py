@@ -3,8 +3,9 @@
 The counterpart of the MPQ half of ``bitorch_engine_tpu/ops/quant.py``,
 bit-exact with it: both sides compute in float32 with the same operations
 in the same order (``torch.round`` rounds half to even, as ``jnp.round``
-does).  The scalar quantizers and the binary / n-bit initialisers come
-with the slices that use them.
+does).  :func:`repack_mpq` is the training step's requantization.  The
+scalar quantizers and the binary / n-bit initialisers come with the slices
+that use them.
 """
 
 from __future__ import annotations
@@ -181,3 +182,33 @@ def quantize_mpq(
         group_size=group_size,
         code_bits=code_bits,
     )
+
+
+def repack_mpq(
+    weight: torch.Tensor, qt: MPQTensor, unpacked_zeros: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """fp weight ``(K, N)`` → packed int32 in the gptq row order, reusing
+    ``qt``'s scales, zeros and ``g_idx`` (DiodeMix's requantization after
+    its AdamW step).  Bit-exact with the JAX package's ``repack_mpq``: the
+    division by the scales is a true division (the scales are no constant
+    XLA could fold), ``torch.round`` rounds half to even.  A ``q_perm``
+    tensor gathers the logical rows into its stored order; asym tensors
+    take ``unpacked_zeros`` ``(G, N)`` in place of their packed zeros."""
+    if qt.layout != "gptq":
+        raise ValueError(
+            f"repack_mpq writes the gptq layout; this tensor is {qt.layout!r} "
+            "(prepare_for_kernel converts it)"
+        )
+    k, _ = qt.logical_shape
+    maxq = 2 ** qt.quant_bits - 1
+    g = _group_index(qt, k)
+    scales = qt.scales[g].float()
+    w = weight.float()
+    if qt.g_idx is None and qt.q_perm is not None:
+        w = w[qt.q_perm.long()]
+    if qt.asym:
+        zeros = packing.unpack_cols(qt.zeros, qt.w_bit) if unpacked_zeros is None else unpacked_zeros
+        q = torch.round(w / scales + zeros[g].float())
+    else:
+        q = torch.round((w + qt.zeros[g].float()) / scales)
+    return packing.pack_rows(torch.clamp(q, 0, maxq).to(torch.int32), qt.w_bit)

@@ -1,0 +1,245 @@
+"""DiodeMix: the engine's optimizer for quantized and fp parameters.
+
+The counterpart of ``bitorch_engine_tpu/optim/diode.py``, as an object in
+the shape of a ``torch.optim.Optimizer`` (``step()``, ``zero_grad()``,
+``state_dict()``) built over a model's modules.  Regimes, by layer:
+
+* **fp parameters** (embedding, norms, biases): AdamW (betas (0.99,
+  0.9999), decoupled weight decay, bias correction), no f32 master: a bf16
+  parameter is updated in f32 and cast back each step, as the JAX package
+  does;
+* **MPQLinear**: the gradient is its grad shadow's ``.grad``; optional
+  GaLore projection; AdamW on the dequantized f32 weight; the zeros
+  refreshed every ``zeros_update_interval`` steps from the group means of
+  the update (asym: of the updated integer zeros); the weight repacked
+  into its codes in place;
+* **MBWQLinear**: AdamW on the dequantized logical weight, then each
+  segment repacked with its own scales (and zeros refreshed on schedule).
+
+GaLore applies to MPQ layers and to fp matrices larger than the rank
+(``_galore_eligible``).  The binary, IntQ and binary-embedding regimes
+arrive with the binary/QAT slice; a model holding integer weights outside
+the MPQ / MBWQ layers (``Int8Embedding``) raises.  The JAX package draws
+random numbers only for the binary regimes' state, so nothing here needs a
+generator yet.
+
+The step counter starts at 1, the bias corrections compute ``beta ** step``
+in f32 as the JAX package does; every update works in place under
+``torch.no_grad``.  On the card the dequantization is kernel 2 (bit-exact
+with the plain version), which takes only symmetric gptq tensors: an asym
+MPQ layer raises there, and trains on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..layers.linear import MBWQLinear, MPQLinear
+from ..ops import packing
+from ..ops.mbwq_linear import reconstruct_mbwq
+from ..ops.mpq_linear import reconstruct_weight
+from ..ops.quant import repack_mpq
+from ..utils.convert import quantized_layers
+from .galore import (
+    GaLoreConfig,
+    GaLoreState,
+    galore_init,
+    galore_project,
+    galore_project_back,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiodeHyperParams:
+    lr: float = 1e-4
+    beta1: float = 0.99
+    beta2: float = 0.9999
+    eps: float = 1e-6
+    weight_decay: float = 0.0
+    correct_bias: bool = True
+    zeros_update_interval: int = 5
+    galore: Optional[GaLoreConfig] = None
+
+
+def _galore_eligible(shape: Tuple[int, ...], kind: str, rank: int) -> bool:
+    """MPQ layers always, MBWQ layers never; fp matrices whose smaller side
+    exceeds the rank."""
+    if kind != "fp":
+        return kind == "mpq"
+    return len(shape) == 2 and min(shape) > rank
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _step_size(hp: DiodeHyperParams, step: int) -> float:
+    """``lr · sqrt(1 − β2^t) / (1 − β1^t)`` in f32 (the JAX package's order
+    of operations), as an exact Python float."""
+    if not hp.correct_bias:
+        return float(_f32(hp.lr))
+    t = _f32(float(step))
+    bc1 = 1.0 - _f32(hp.beta1) ** t
+    bc2 = 1.0 - _f32(hp.beta2) ** t
+    return float(_f32(hp.lr) * torch.sqrt(bc2) / bc1)
+
+
+def _group_mean(x: torch.Tensor, group_size: int) -> torch.Tensor:
+    k, n = x.shape
+    return x.reshape(k // group_size, group_size, n).mean(dim=1)
+
+
+class DiodeMix:
+    """DiodeMix over ``model``'s trainable parameters (call
+    ``utils.convert.prepare_for_training`` first: the quantized layers need
+    their grad shadows)."""
+
+    def __init__(self, model: nn.Module, hp: Optional[DiodeHyperParams] = None):
+        self.hp = hp or DiodeHyperParams()
+        self.step_count = 0
+        names = {id(m): n for n, m in model.named_modules()}
+        self.mpq, self.mbwq = [], []
+        owned = set()
+        for mod in quantized_layers(model):
+            if mod.grad_shadow is None:
+                raise ValueError(
+                    f"{names[id(mod)]}: a quantized layer without a grad shadow "
+                    "(call utils.convert.prepare_for_training first)"
+                )
+            (self.mbwq if isinstance(mod, MBWQLinear) else self.mpq).append((names[id(mod)], mod))
+            owned.update(id(t) for t in mod.buffers())
+            owned.add(id(mod.grad_shadow))
+        for name, buf in model.named_buffers():
+            if id(buf) not in owned and not buf.is_floating_point():
+                raise NotImplementedError(
+                    f"{name}: DiodeMix updates MPQ / MBWQ layers and fp parameters; "
+                    "integer weights (the binary, IntQ and binary-embedding regimes) "
+                    "arrive with the binary/QAT slice of the port"
+                )
+        self.fp = [(n, p) for n, p in model.named_parameters()
+                   if p.requires_grad and id(p) not in owned]
+        self.state: Dict[str, Dict[str, Any]] = {}
+        for name, mod in self.mpq + self.mbwq:
+            kind = "mpq" if isinstance(mod, MPQLinear) else "mbwq"
+            self.state[name] = self._init_state(tuple(mod.grad_shadow.shape), kind,
+                                                mod.grad_shadow.device)
+        for name, p in self.fp:
+            self.state[name] = self._init_state(tuple(p.shape), "fp", p.device)
+
+    def _init_state(self, shape, kind: str, device) -> Dict[str, Any]:
+        st: Dict[str, Any] = {}
+        galore = self.hp.galore
+        if galore is not None and _galore_eligible(shape, kind, galore.rank):
+            st["galore"] = galore_init(shape, galore.rank)
+            shape = st["galore"].projected_shape(shape)
+        st["exp_avg_l"] = torch.zeros(shape, dtype=torch.float32, device=device)
+        st["exp_avg_s"] = torch.zeros(shape, dtype=torch.float32, device=device)
+        return st
+
+    def zero_grad(self) -> None:
+        for _, mod in self.mpq + self.mbwq:
+            mod.grad_shadow.grad = None
+        for _, p in self.fp:
+            p.grad = None
+
+    # the shared AdamW moments: the normalized gradient, in place on ``st``
+    def _adamw(self, grad: torch.Tensor, st: Dict[str, Any]) -> torch.Tensor:
+        hp = self.hp
+        st["exp_avg_l"].mul_(hp.beta1).add_(grad * (1.0 - hp.beta1))
+        st["exp_avg_s"].mul_(hp.beta2).add_(grad * grad * (1.0 - hp.beta2))
+        return st["exp_avg_l"] / (torch.sqrt(st["exp_avg_s"]) + hp.eps)
+
+    def _direction(self, grad: torch.Tensor, st: Dict[str, Any], step: int) -> torch.Tensor:
+        """AdamW's normalized gradient, through GaLore's projection where
+        the state has one."""
+        galore: Optional[GaLoreState] = st.get("galore")
+        if galore is None:
+            return self._adamw(grad, st)
+        low = galore_project(galore, grad, step, self.hp.galore)
+        return galore_project_back(galore, self._adamw(low, st), self.hp.galore)
+
+    @staticmethod
+    def _shadow_grad(mod: nn.Module) -> torch.Tensor:
+        g = mod.grad_shadow.grad
+        return torch.zeros_like(mod.grad_shadow) if g is None else g.float()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.step_count += 1
+        step = self.step_count
+        size = _step_size(self.hp, step)
+        refresh = step % self.hp.zeros_update_interval == 0
+        for name, mod in self.mpq:
+            self._update_mpq(mod, self.state[name], step, size, refresh)
+        for name, mod in self.mbwq:
+            self._update_mbwq(mod, self.state[name], step, size, refresh)
+        for name, p in self.fp:
+            self._update_fp(p, self.state[name], step, size)
+
+    def _update_fp(self, p: nn.Parameter, st, step: int, size: float) -> None:
+        g = torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
+        w = p.float() - size * self._direction(g, st, step)
+        if self.hp.weight_decay > 0.0:
+            w = w - self.hp.lr * self.hp.weight_decay * w
+        p.copy_(w.to(p.dtype))
+
+    def _update_mpq(self, mod: MPQLinear, st, step: int, size: float, refresh: bool) -> None:
+        qt = mod.qweight
+        update = size * self._direction(self._shadow_grad(mod), st, step)
+        w = reconstruct_weight(qt, torch.float32) - update
+        if qt.asym:
+            k, _ = qt.logical_shape
+            z_int = packing.unpack_cols(qt.zeros, qt.w_bit)
+            if refresh:
+                g = qt.g_idx.long() if qt.g_idx is not None else (
+                    torch.arange(k, device=w.device) // qt.group_size)
+                full_z = z_int.float()[g] + update
+                grouped = _group_mean(full_z[torch.argsort(g, stable=True)], qt.group_size)
+                z_int = torch.clamp(torch.round(grouped), 1, 2 ** qt.w_bit).to(torch.int32)
+                mod.zeros.copy_(packing.pack_cols(z_int, qt.w_bit))
+            packed = repack_mpq(w, qt.replace(zeros=mod.zeros), unpacked_zeros=z_int.float())
+        else:
+            if refresh:
+                mod.zeros.add_(_group_mean(update, qt.group_size).to(mod.zeros.dtype))
+                mod._zeros_mid = False  # the zeros are no longer mid * scales
+            packed = repack_mpq(w, qt.replace(zeros=mod.zeros))
+        mod.packed.copy_(packed)
+
+    def _update_mbwq(self, mod: MBWQLinear, st, step: int, size: float, refresh: bool) -> None:
+        qt = mod.qweight
+        update = size * self._direction(self._shadow_grad(mod), st, step)
+        w = reconstruct_mbwq(qt, torch.float32) - update
+        if qt.q_perm is not None:
+            perm = qt.q_perm.long()
+            w, update = w[perm], update[perm]
+        off = 0
+        for seg_mod, seg in zip(mod.segments, qt.segments):
+            rows = slice(off, off + seg.in_features)
+            if refresh:
+                seg_mod.zeros.add_(_group_mean(update[rows], seg.group_size).to(seg_mod.zeros.dtype))
+                seg_mod._zeros_mid = False
+            seg_mod.packed.copy_(repack_mpq(w[rows], seg.replace(zeros=seg_mod.zeros)))
+            off += seg.in_features
+
+    def state_dict(self) -> Dict[str, Any]:
+        def leaf(st):
+            out = {k: v for k, v in st.items() if k != "galore"}
+            if "galore" in st:
+                out["galore"] = dataclasses.asdict(st["galore"])
+            return out
+
+        return {"step": self.step_count, "hp": dataclasses.asdict(self.hp),
+                "state": {name: leaf(st) for name, st in self.state.items()}}
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        self.step_count = int(state_dict["step"])
+        for name, st in state_dict["state"].items():
+            mine = self.state[name]
+            for key in ("exp_avg_l", "exp_avg_s"):
+                mine[key].copy_(st[key])
+            if "galore" in st:
+                mine["galore"] = GaLoreState(**st["galore"])

@@ -2,8 +2,9 @@
 
 The counterpart of ``bitorch_engine_tpu/qtensor.py``: ``MPQTensor`` (the
 group-quantized weight) and ``MBWQTensor`` (the mixed-bit weight, a tuple of
-per-bit-width ``MPQTensor`` segments).  The binary and n-bit QAT records
-come with the slices that use them.
+per-bit-width ``MPQTensor`` segments), and the training-mode helpers
+:func:`with_grad_shadow` / :func:`without_grad_shadow`.  The binary and
+n-bit QAT records come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ class MPQTensor:
       (bf16 activations) or 8 (per-token int8 activations against the
       codes, for ``w_bit`` in 1/2/4); ``zeros_mid``: zeros are exactly
       ``2**(bits-1) * scales``.
-    * ``grad_shadow``: the training slice's weight-gradient slot, kept
-      ``None`` here.
+    * ``grad_shadow``: training mode's f32 ``(K, N)`` weight-gradient slot
+      (the layer's ``nn.Parameter``, whose ``.grad`` receives ``xᵀ g``), or
+      ``None`` for inference.
     """
 
     packed: torch.Tensor
@@ -105,8 +107,8 @@ class MBWQTensor:
     * ``block_perm``: int32 ``(K / perm_block,)``, ``q_perm[::perm_block] //
       perm_block``; with ``perm_block > 0`` the permutation moves whole
       blocks of that many rows and the forward gathers blocks.
-    * ``grad_shadow``: the training slice's weight-gradient slot, kept
-      ``None`` here.
+    * ``grad_shadow``: training mode's f32 ``(K, N)`` weight-gradient slot
+      of the logical weight (the segments carry none), or ``None``.
     """
 
     segments: Tuple[MPQTensor, ...]
@@ -139,3 +141,15 @@ class MBWQTensor:
 
     def replace(self, **changes) -> "MBWQTensor":
         return dataclasses.replace(self, **changes)
+
+
+def with_grad_shadow(qt):
+    """Attach a zero f32 grad shadow of the logical weight shape (training
+    mode), on the tensor's device."""
+    return qt.replace(grad_shadow=torch.zeros(qt.logical_shape, dtype=torch.float32,
+                                              device=qt.device))
+
+
+def without_grad_shadow(qt):
+    """Drop the grad shadow (inference mode: no memory overhead)."""
+    return qt.replace(grad_shadow=None)

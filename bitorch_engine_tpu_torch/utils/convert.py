@@ -1,5 +1,5 @@
-"""Prepare a model's quantized weights for the kernels, and load the JAX
-package's parameters and paged KV caches into the port.
+"""Prepare a model for training, for inference or for the kernels, and load
+the JAX package's parameters and paged KV caches into the port.
 
 ``load_jax_params`` takes the flax parameter tree after
 ``jax.tree_util.tree_map(np.asarray, params)``: nested dicts of numpy
@@ -20,10 +20,43 @@ from ..device import resolve_device
 from ..layers.linear import MBWQLinear, MPQLinear
 from ..models.paged_kv import PagedKV
 from ..ops.cuda.dequant_matmul import prepare_for_kernel
-from ..qtensor import MBWQTensor, MPQTensor
+from ..qtensor import MBWQTensor, MPQTensor, with_grad_shadow, without_grad_shadow
 
 _MPQ_FIELDS = ("packed", "scales", "zeros", "w_bit", "group_size", "asym", "layout")
 _MBWQ_FIELDS = ("segments", "q_perm", "channel_scale", "block_perm", "perm_block")
+
+
+def quantized_layers(model: nn.Module) -> List[nn.Module]:
+    """Every ``MBWQLinear`` and every ``MPQLinear`` that is not a segment
+    of one: the layers whose weight is one quantized tensor of the JAX
+    package's parameter tree."""
+    segments = {id(seg) for mod in model.modules() if isinstance(mod, MBWQLinear)
+                for seg in mod.segments}
+    return [mod for mod in model.modules()
+            if isinstance(mod, (MPQLinear, MBWQLinear)) and id(mod) not in segments]
+
+
+def prepare_for_training(model: nn.Module) -> nn.Module:
+    """Training mode: a zero f32 grad shadow on every quantized layer (the
+    JAX package's ``prepare_for_training``), and ``requires_grad`` on every
+    other parameter (embedding, norms, biases).  Works in place; returns
+    the model."""
+    for mod in quantized_layers(model):
+        if mod.grad_shadow is None:
+            mod.set_qweight(with_grad_shadow(mod.qweight))
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
+def prepare_for_inference(model: nn.Module) -> nn.Module:
+    """Inference mode: drop the grad shadows and freeze every parameter.
+    Works in place; returns the model."""
+    for mod in quantized_layers(model):
+        mod.set_qweight(without_grad_shadow(mod.qweight))
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return model
 
 
 @torch.no_grad()
@@ -67,6 +100,7 @@ def _is_mpq(leaf: Any) -> bool:
 def _mpq(leaf: Any, device) -> MPQTensor:
     code_bits = getattr(leaf, "code_bits", None)
     return MPQTensor(
+        grad_shadow=_tensor(getattr(leaf, "grad_shadow", None), device),
         packed=_tensor(leaf.packed, device),
         scales=_tensor(leaf.scales, device),
         zeros=_tensor(leaf.zeros, device),
@@ -88,6 +122,7 @@ def _is_mbwq(leaf: Any) -> bool:
 
 def _mbwq(leaf: Any, device) -> MBWQTensor:
     return MBWQTensor(
+        grad_shadow=_tensor(getattr(leaf, "grad_shadow", None), device),
         segments=tuple(_mpq(seg, device) for seg in leaf.segments),
         q_perm=_tensor(leaf.q_perm, device),
         channel_scale=_tensor(leaf.channel_scale, device),
@@ -135,7 +170,9 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     (an MPQ record, or an MBWQ record with its segments, ``q_perm``,
     ``block_perm``, ``perm_block`` and ``channel_scale``) keeps its layout
     and regime (TPU layouts included) until :func:`prepare_params_for_cuda`
-    converts it.  Returns the model."""
+    converts it; a record that carries a ``grad_shadow`` (a tree after the
+    JAX package's ``prepare_for_training``) gives its layer that shadow.
+    Returns the model."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     device = next(iter(model.buffers())).device

@@ -50,7 +50,21 @@ then, failing on the first check that does not hold:
    in the A16 regime, checks the launch counts per step and profiles a few
    steps of each regime;
 10. compares prefill + 4 decode steps of a 2-layer MBWQ-2.5 model between
-    the kernel path and the plain path on the card, in both regimes.
+    the kernel path and the plain path on the card, in both regimes;
+11. the training slice: holds kernel 4 (the flash-attention backward, dq and
+    dk / dv) against its plain version at the training shape (b8, 16 MHA
+    heads, s 2048, d 64, causal), a Llama-3-8B GQA shape (32 / 8 heads, d
+    128) and a non-causal shape, and times it beside its bound, its plain
+    version and ``scaled_dot_product_attention``'s backward;
+12. trains the JAX bench's 370M Llama (``llama_370m_train()``: 24 layers,
+    hidden 1024, w4 g128, remat, bf16) at full width with DiodeMix (lr
+    1e-4) on seeded tokens (8, 2049): one warm-up step, 3 timed steps with
+    every loss checked finite and the launches of kernels 2, 3 and 4 per
+    step checked, one step split into forward + backward and the optimizer,
+    one profiled step (device busy time, idle share), the peak memory;
+13. compares one train step of a 2-layer full-width model between the
+    kernel path and the plain path on the card (loss, every grad shadow and
+    fp gradient), both from the same weights.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -59,6 +73,8 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
+import importlib
 import json
 import math
 import pathlib
@@ -98,6 +114,7 @@ TPU_KERNELS = {
     "flash_attention": "bitorch_engine_tpu/ops/pallas/flash_attention.py:75",
     "paged_prefix_attention": "bitorch_engine_tpu/ops/pallas/paged_attention.py:65",
     "paged_prefix_attention_update": "bitorch_engine_tpu/ops/pallas/paged_attention.py:65",
+    "flash_attention_bwd": "bitorch_engine_tpu/ops/pallas/flash_attention.py:190",
 }
 SOURCES = {
     "mpq_matmul_a8": "bitorch_engine_tpu_torch/csrc/quad_matmul.cu",
@@ -107,6 +124,7 @@ SOURCES = {
     "flash_attention": "bitorch_engine_tpu_torch/csrc/flash_attention.cu",
     "paged_prefix_attention": "bitorch_engine_tpu_torch/csrc/paged_attention.cu",
     "paged_prefix_attention_update": "bitorch_engine_tpu_torch/csrc/paged_attention.cu",
+    "flash_attention_bwd": "bitorch_engine_tpu_torch/csrc/flash_attention.cu",
 }
 
 # the serving slice: Llama-3-8B's KV layout (8 KV heads of 128, rep 4), pages of 64
@@ -147,6 +165,17 @@ QUAD_SHAPES = (
     + [("w1_4096x4096", 4096, 4096, 1, 128), ("w4_4096x4096", 4096, 4096, 4, 128)]
 )
 
+# the training slice: the bench's 370M fine-tune step (bench.py:616-667)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR = 8, 2048, 24, 3, 1e-4
+TRAIN_PROJ = 7  # q, k, v, o, gate, up, down: unfused, as the bench builds them
+# kernel 4's shapes (name, b, nh, nkv, s, d, causal): the training shape
+# first (the row the main path is reckoned from)
+FLASH_BWD_SHAPES = (
+    ("train_b8_nh16_s2048_d64", TRAIN_BATCH, 16, 16, TRAIN_SEQ, 64, True),
+    ("gqa_b1_nh32_nkv8_s2048_d128", 1, 32, 8, 2048, 128, True),
+    ("noncausal_b2_nh8_s1024_d64", 2, 8, 8, 1024, 64, False),
+)
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -171,9 +200,12 @@ def bucket(n: int, floor: int = 256) -> int:
 
 
 def counts_with(**nonzero) -> dict:
-    """Every kernel's launch count 0 but those named."""
+    """Every kernel's launch count 0 but those named (each a kernel of
+    ``KERNELS``)."""
     from bitorch_engine_tpu_torch.ops.cuda import KERNELS
 
+    unknown = set(nonzero) - set(KERNELS)
+    check(not unknown, f"no launch counter for {sorted(unknown)}")
     return {name: nonzero.get(name, 0) for name in KERNELS}
 
 
@@ -725,20 +757,24 @@ def phase_paged_vs_dense(torch, model):
 
 @contextmanager
 def plain_kernels():
-    """Route the model's seven kernel calls to their plain versions."""
+    """Route the model's and the optimizer's eight kernel calls to their
+    plain versions (the flash forward and backward inside the autograd
+    Function, the dequant in the linears' backward and in DiodeMix)."""
     from bitorch_engine_tpu_torch.models import llama
     from bitorch_engine_tpu_torch.ops import mbwq_linear, mpq_linear
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, mpq_matmul_ref
-    from bitorch_engine_tpu_torch.ops.cuda.flash_attention import flash_attention_ref
     from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul_ref
     from bitorch_engine_tpu_torch.ops.cuda.quad_matmul import mpq_matmul_a8_ref
 
+    # the module (the package's ``flash_attention`` attribute is the wrapper)
+    fa = importlib.import_module("bitorch_engine_tpu_torch.ops.cuda.flash_attention")
     with mock.patch.object(mpq_linear, "mpq_matmul", mpq_matmul_ref), \
             mock.patch.object(mpq_linear, "mpq_matmul_a8", mpq_matmul_a8_ref), \
             mock.patch.object(mbwq_linear, "mbwq_matmul", mbwq_matmul_ref), \
             mock.patch.object(mpq_linear, "dequant_mpq", dequant_mpq_ref), \
-            mock.patch.object(llama, "flash_attention", flash_attention_ref), \
+            mock.patch.object(fa, "flash_attention", fa.flash_attention_ref), \
+            mock.patch.object(fa, "flash_attention_bwd", fa.flash_attention_bwd_ref), \
             mock.patch.object(llama, "paged_prefix_attention", pa.paged_prefix_attention_ref), \
             mock.patch.object(llama, "paged_prefix_attention_update",
                               pa.paged_prefix_attention_update_ref):
@@ -1065,6 +1101,213 @@ def phase_mbwq_path_check(torch, gen):
     return rels
 
 
+def phase_flash_bwd_kernels(torch, gen, flush):
+    """Phase 11: kernel 4 against its plain version (max|d|/max|ref| <= 1e-2
+    for each of dq, dk, dv, bf16 out), then timed beside its bound, its
+    plain version and SDPA's backward (its forward + backward less its
+    forward)."""
+    from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    )
+
+    F = torch.nn.functional
+    rows = []
+    for name, b, nh, nkv, s, d, causal in FLASH_BWD_SHAPES:
+        q, do = (torch.randn(b, nh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(b, nkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        out, lse = flash_attention(q, k, v, causal)
+        got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        errs, rels, diff = {}, {}, {}
+        for part, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[part] = (g.float() - w.float()).abs().max().item()
+            rels[part] = errs[part] / w.float().abs().max().item()
+            diff[part] = (g != w).float().mean().item()
+            check(bool(torch.isfinite(g).all()), f"kernel 4 {name}: {part} not finite")
+        log(f"kernel flash_attention_bwd {name:28s} max|d|/max|ref| " + "  ".join(
+            f"{p}={r:.3e}" for p, r in rels.items()) + "  bf16 elements differing " + "  ".join(
+            f"{p}={f:.2e}" for p, f in diff.items()))
+        check(all(r <= 1e-2 for r in rels.values()), f"kernel 4 {name}: rel {rels} > 1e-2")
+        del got, want
+
+        pairs = s * (s + 1) / 2 if causal else s * s
+        ops = b * nh * 10 * d * pairs  # five products: q k^T, do v^T, dv, dk, dq
+        nbytes = (q.nbytes + k.nbytes + v.nbytes + out.nbytes + lse.nbytes + do.nbytes
+                  + q.nbytes + k.nbytes + v.nbytes)
+        bms, bby = bound(nbytes, ops)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=nkv != nh)
+
+        sdpa_fwd_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do),
+                                  flush=flush)
+        sdpa_fwd_ms = time_ms(torch, sdpa, flush=flush)
+        rows.append(dict(
+            shape=name, b=b, nh=nh, nkv=nkv, s=s, d=d, causal=causal,
+            max_abs_err=max(errs.values()), rel_err=max(rels.values()), rel=rels,
+            bf16_elements_differing=diff,
+            ms=time_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, causal), flush=flush),
+            plain_ms=time_ms(torch, lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal),
+                             reps=5, flush=flush),
+            library_ms=sdpa_fwd_bwd_ms - sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+            sdpa_fwd_ms=sdpa_fwd_ms, bound_ms=bms, bound_by=bby,
+        ))
+        del q, k, v, do, out, lse, qs, ks, vs
+        torch.cuda.empty_cache()
+    for r in rows:
+        log(f"time flash_attention_bwd {r['shape']:28s} kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  sdpa backward {r['library_ms']:.4f} ms (fwd+bwd "
+            f"{r['sdpa_fwd_bwd_ms']:.4f} - fwd {r['sdpa_fwd_ms']:.4f})  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return rows
+
+
+def build_train_model(torch, num_layers, seed):
+    """The bench's 370M training configuration, random weights from
+    ``seed``, in training mode."""
+    from bitorch_engine_tpu_torch.models.llama import LlamaModel, llama_370m_train
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    model = LlamaModel(llama_370m_train(num_layers=num_layers), device="cuda", seed=seed)
+    return prepare_for_training(model)
+
+
+def lm_loss(model, toks):
+    """The bench's loss: next-token cross entropy over the batch."""
+    from bitorch_engine_tpu_torch.training import cross_entropy_loss
+
+    logits, _ = model(toks[:, :-1])
+    return cross_entropy_loss(logits, toks[:, 1:])
+
+
+def phase_train(torch, gen):
+    """Phase 12: the training path at full width: warm-up, timed steps with
+    the launch counts, one split step, one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_train_model(torch, TRAIN_LAYERS, SEED)
+    torch.cuda.synchronize()
+    n_params = sum(m.grad_shadow.numel() for m in model.modules()
+                   if getattr(m, "grad_shadow", None) is not None)
+    log(f"train model: 370M Llama w4 g128, {TRAIN_LAYERS} layers, remat, built in "
+        f"{time.perf_counter() - t0:.1f} s, {n_params} quantized weights, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    vocab = model.cfg.vocab_size
+    toks = torch.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ + 1), device="cuda", generator=gen)
+    step = make_train_step(model, lm_loss, DiodeHyperParams(lr=TRAIN_LR))
+    warm = float(step(toks)["loss"])
+    check(math.isfinite(warm), f"train warm-up loss {warm}")
+
+    per_step = counts_with(dequant_mpq=4 * TRAIN_PROJ * TRAIN_LAYERS, flash_attention=2 * TRAIN_LAYERS,
+                           flash_attention_bwd=2 * TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = float(step(toks)["loss"])  # the host reads the loss: the step has ended
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    counts = launch_counts()
+    log(f"train launches over {TRAIN_STEPS} steps {counts}")
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(counts == {k: TRAIN_STEPS * v for k, v in per_step.items()},
+          f"train launches {counts} != {TRAIN_STEPS} x {per_step}")
+
+    # one step split: forward + backward, then DiodeMix
+    opt = step.optimizer
+    opt.zero_grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm_loss(model, toks).backward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    split = dict(fwd_bwd_ms=(t1 - t0) * 1e3, optimizer_ms=(time.perf_counter() - t1) * 1e3)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(toks)["loss"])
+    prof_summary = _device_summary(torch, prof, time.perf_counter() - t0, 1, top=10)
+    ms = statistics.median(step_ms)
+    out = dict(
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, layers=TRAIN_LAYERS, lr=TRAIN_LR, quantized_weights=n_params,
+        warmup_loss=warm, losses=losses, step_ms=step_ms, ms_per_step=ms,
+        train_tok_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, split=split,
+        launches=counts, launches_per_step=per_step,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, profile=prof_summary,
+    )
+    out["profile"]["idle_share_estimate_unprofiled"] = 1.0 - prof_summary["device_busy_ms_per_call"] / ms
+    log(f"train: {ms:.2f} ms/step (steps {', '.join(f'{t:.2f}' for t in step_ms)}), "
+        f"{out['train_tok_s']:.0f} train tok/s, losses {losses} (warm-up {warm:.4f}); forward + "
+        f"backward {split['fwd_bwd_ms']:.2f} ms, DiodeMix {split['optimizer_ms']:.2f} ms; peak "
+        f"{out['peak_gib']:.2f} GiB")
+    log(f"profile train step: wall {prof_summary['wall_ms_per_call']:.2f} ms (profiled), device busy "
+        f"{prof_summary['device_busy_ms_per_call']:.2f} ms, idle share {prof_summary['idle_share']:.3f} "
+        f"(unprofiled estimate {out['profile']['idle_share_estimate_unprofiled']:.3f}), "
+        f"{prof_summary['launches_per_call']:.0f} launches")
+    for kern in prof_summary["top_kernels"]:
+        log(f"  {kern['ms_per_call']:8.3f} ms  {kern['launches_per_call']:6.1f}x  {kern['name']}")
+    del model, step, opt, toks
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_train_path_check(torch, gen):
+    """Phase 13: one train step of 2 full-width layers on the kernel path
+    and, from a copy of the same weights, on the plain path (loss rel
+    <= 1e-3; every grad shadow's and fp parameter's max|d|/max|ref| <=
+    3e-2: bf16 activations and their gradients round at other points)."""
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    kernel_model = build_train_model(torch, 2, SEED + 4)
+    plain_model = copy.deepcopy(kernel_model)
+    toks = torch.randint(0, kernel_model.cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), device="cuda",
+                         generator=gen)
+    hp = DiodeHyperParams(lr=TRAIN_LR)
+    reset_launch_counts()
+    got = float(make_train_step(kernel_model, lm_loss, hp)(toks)["loss"])
+    launched = launch_counts()
+    check(launched == counts_with(dequant_mpq=4 * TRAIN_PROJ * 2, flash_attention=4,
+                                  flash_attention_bwd=4), f"train path check launches {launched}")
+    reset_launch_counts()
+    with plain_kernels():
+        want = float(make_train_step(plain_model, lm_loss, hp)(toks)["loss"])
+    torch.cuda.synchronize()
+    check(all(n == 0 for n in launch_counts().values()), "the plain training path launched a kernel")
+    loss_rel = abs(got - want) / abs(want)
+    grads = dict(plain_model.named_parameters())
+    grad_rel = {}
+    for name, p in kernel_model.named_parameters():
+        ref = grads[name].grad
+        grad_rel[name] = ((p.grad.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    codes_equal = sum(bool(torch.equal(a, b)) for (n, a), (_, b) in zip(
+        kernel_model.named_buffers(), plain_model.named_buffers()) if n.endswith("packed"))
+    log(f"train path check (2 layers, one step): loss {got:.6f} vs plain {want:.6f}, rel "
+        f"{loss_rel:.3e}; max grad rel {grad_rel[worst]:.3e} ({worst}) over {len(grad_rel)} "
+        f"gradients; packed tensors equal after the step {codes_equal} of {2 * TRAIN_PROJ}")
+    check(loss_rel <= 1e-3, f"train path check: loss rel {loss_rel} > 1e-3")
+    check(grad_rel[worst] <= 3e-2, f"train path check: {worst} grad rel {grad_rel[worst]} > 3e-2")
+    del kernel_model, plain_model
+    torch.cuda.empty_cache()
+    return dict(loss=got, plain_loss=want, loss_rel=loss_rel, max_grad_rel=grad_rel[worst],
+                worst=worst, grad_rel=grad_rel, packed_equal=codes_equal)
+
+
 def kernel_line(name, rows, launches, weights, per, check_text):
     """One entry of the kernels JSON: the per-pass sums of ``rows`` (each
     row's times ``weight`` launches per pass)."""
@@ -1145,6 +1388,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     mbwq["path_check_rel"] = phase_mbwq_path_check(torch, gen)
 
+    # the training slice
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    per_shape["flash_attention_bwd"] = phase_flash_bwd_kernels(torch, gen, flush)
+    del flush
+    train_counts, train = phase_train(torch, gen)
+    train["path_check"] = phase_train_path_check(torch, gen)
+
     checks = {
         "mpq_matmul": "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape",
         "dequant_mpq": "bit-equal (bf16)",
@@ -1158,6 +1408,8 @@ def main() -> int:
     checks["mpq_matmul_a8"] = ("f32 accumulator before sx and the cast, max|d|/max|ref| <= 1e-4 "
                                "per shape, affine and mid_sym; activation codes and sx bit-equal")
     checks["mbwq_matmul"] = "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape"
+    checks["flash_attention_bwd"] = ("max|d|/max|ref| <= 1e-2 for each of dq, dk, dv (bf16 out) per "
+                                     "shape")
     kernels = []
     for name in ("mpq_matmul", "dequant_mpq", "flash_attention"):
         rows = per_shape[name]
@@ -1197,8 +1449,16 @@ def main() -> int:
                        checks["mbwq_matmul"])
     line["per_segment_ms"] = sum(LAYERS * r["per_segment_ms"] for r in per_shape["mbwq_matmul"])
     kernels.append(line)
+    # the training path (phase 12): one backward (a dq and a dkv launch) per
+    # layer per step, reckoned at the training shape; library: SDPA's backward
+    line = kernel_line("flash_attention_bwd", per_shape["flash_attention_bwd"],
+                       train_counts["flash_attention_bwd"], [TRAIN_LAYERS],
+                       "one train step of the 370M path (24 backward calls of 2 launches)",
+                       checks["flash_attention_bwd"])
+    line["library"] = "scaled_dot_product_attention backward (forward + backward less forward)"
+    kernels.append(line)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
-                    "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq,
+                    "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -191,11 +191,17 @@ def test_config_factories_match(name):
 def test_out_of_slice_configs_raise(field, value, slice_):
     """Configurations of a slice still to port raise, naming it; those of a
     slice that has landed build (the sub-4-bit slice: MBWQ projections,
-    whose parity is in test_torch_llama_mbwq.py)."""
+    whose parity is in test_torch_llama_mbwq.py; the training slice: remat,
+    whose gradients test_torch_training.py checks).  fp projections moved
+    to the checkpoint slice; the message says that training takes quantized
+    ones."""
     cfg = tl.tiny_llama(dtype=torch.float32, **{field: value})
     if slice_ == "sub-4-bit":
         model = tl.LlamaModel(cfg, device="cpu")
         assert model.layer_0.attn.q_proj.qweight.bit_widths == (4, 2)
+        return
+    if field == "remat":
+        assert tl.LlamaModel(cfg, device="cpu").cfg.remat
         return
     with pytest.raises(NotImplementedError, match=slice_):
         tl.LlamaModel(cfg, device="cpu")

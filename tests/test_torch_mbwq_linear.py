@@ -239,12 +239,16 @@ def test_mbwq_linear_layer():
 
 
 def test_backward_is_a_later_slice():
-    """The forward runs under ``no_grad`` or on inputs without a gradient; an
-    input that needs one raises, naming the training slice."""
+    """The backward has landed with the training slice: an input that needs
+    a gradient gets ``g @ (dequant · channel_scale)ᵀ`` (its parity with the
+    JAX package is in test_torch_mpq_linear_grad.py); under ``no_grad`` or
+    without a gradient the forward is unchanged."""
     _, _, tqt = _pair("w4w2_g32", seed=8)
     x = torch.randn(2, 256, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmb.mbwq_linear(x, tqt)
+    out = tmb.mbwq_linear(x, tqt)
+    g = torch.randn(2, 64)
+    out.backward(g)
+    torch.testing.assert_close(x.grad, g @ tmb.dequantize_mbwq(tqt).T, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
-        assert tmb.mbwq_linear(x, tqt).shape == (2, 64)
+        assert torch.equal(tmb.mbwq_linear(x, tqt), out.detach())
     assert tmb.mbwq_linear(x.detach(), tqt).shape == (2, 64)

@@ -1,1 +1,2 @@
-"""Quantized layers (the MPQ linear and the fp projection)."""
+"""Quantized layers: the MPQ / MBWQ linears, the binary and n-bit QAT
+linears, convs, embeddings and attention, and the flax-named fp layers."""

@@ -1,1 +1,2 @@
-"""Models: the Llama family and generation."""
+"""Models: the Llama family and generation, and the QAT models (``QuantMLP``,
+``QuantConvNet``)."""

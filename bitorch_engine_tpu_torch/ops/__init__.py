@@ -1,1 +1,2 @@
-"""Quantized ops: packing, quantization, the MPQ linear and the CUDA kernels."""
+"""Quantized ops: packing, quantization, the MPQ / MBWQ linears, the binary
+and QAT ops and the CUDA kernels."""

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .binary_gemm import xnor_gemm
 from .dequant_matmul import dequant_mpq, mpq_matmul
 from .flash_attention import flash_attention, flash_attention_bwd
 from .mbwq_matmul import mbwq_matmul
@@ -24,6 +25,7 @@ KERNELS = {
     "mpq_matmul_a8": mpq_matmul_a8,
     "mbwq_matmul": mbwq_matmul,
     "flash_attention_bwd": flash_attention_bwd,
+    "xnor_gemm": xnor_gemm,
 }
 
 

@@ -8,9 +8,16 @@ two's-complement wrap.
 The three TPU row layouts (``tpu_tiled``, ``tpu_pair``, ``tpu_quad``) are
 read here so that parameters relayouted by the JAX package still load; the
 port packs only the checkpoint ("gptq") order.
+
+Sign packing for binary tensors (:func:`pack_signs` / :func:`unpack_signs`)
+keeps the JAX package's bit order: bit j of a word is element j of its 32
+(LSB first), set iff the element is >= 0; callers pad with -1, so pad bits
+are 0.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -174,3 +181,48 @@ def unpack_rows_layout(
     if layout != "gptq":
         raise ValueError(f"unknown packed layout {layout!r}")
     return unpack_rows(packed, w_bit)
+
+
+# ---------------------------------------------------------------------------
+# Sign bits of binary tensors along the last axis: (..., K) <-> int32 (..., K / 32)
+# ---------------------------------------------------------------------------
+
+
+def pack_signs(x: torch.Tensor) -> torch.Tensor:
+    """Pack signs along the last axis: bit j of word w is set iff
+    ``x[..., 32 w + j] >= 0`` (NaN packs as -1).  ``K`` must be a multiple
+    of 32 (see :func:`pad_to_multiple`)."""
+    *lead, k = x.shape
+    if k % 32 != 0:
+        raise ValueError(f"last axis {k} must be a multiple of 32")
+    bits = (x >= 0).to(torch.int64).reshape(*lead, k // 32, 32)
+    return _to_int32((bits << torch.arange(32, device=x.device)).sum(dim=-1))
+
+
+def unpack_signs(packed: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_signs`: int32 ``(..., Kw)`` → ±1 ``(..., 32 Kw)``."""
+    *lead, kw = packed.shape
+    bits = (_words_u32(packed)[..., None] >> torch.arange(32, device=packed.device)) & 1
+    return (bits * 2 - 1).reshape(*lead, kw * 32).to(dtype)
+
+
+def pad_to_multiple(
+    x: torch.Tensor, axis: int, multiple: int, value=0
+) -> Tuple[torch.Tensor, int]:
+    """Pad ``axis`` of ``x`` with ``value`` up to the next multiple of
+    ``multiple``; returns ``(padded, pad)``."""
+    pad = (-x.shape[axis]) % multiple
+    if pad == 0:
+        return x, 0
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_full(shape, value)], dim=axis), pad
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (its low 32 bits), as int64."""
+    v = _words_u32(words)
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & _LOW32) >> 24

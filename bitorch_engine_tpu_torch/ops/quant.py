@@ -1,22 +1,30 @@
-"""MPQ (GPTQ/GBA) quantize, dequantize, concatenate and slice, in PyTorch.
+"""Quantization math in PyTorch: the per-tensor quantizers, the binary and
+n-bit QAT initialisers, and MPQ (GPTQ/GBA) quantize, dequantize,
+concatenate and slice.
 
-The counterpart of the MPQ half of ``bitorch_engine_tpu/ops/quant.py``,
-bit-exact with it: both sides compute in float32 with the same operations
+The counterpart of ``bitorch_engine_tpu/ops/quant.py``, bit-exact with its
+jitted functions: both sides compute in float32 with the same operations
 in the same order (``torch.round`` rounds half to even, as ``jnp.round``
-does).  :func:`repack_mpq` is the training step's requantization.  The
-scalar quantizers and the binary / n-bit initialisers come with the slices
-that use them.
+does), and where XLA folds a division by a constant into a multiplication
+by its f32 reciprocal the port multiplies by the same reciprocal
+(:func:`_recip`).  Sums are the one exception: XLA and PyTorch add in
+another order, so a mean or a sum may differ in its last bits.
+:func:`repack_mpq` is the training step's requantization.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..qtensor import MPQTensor
+from ..qtensor import BinaryQTensor, IntQTensor, MPQTensor
 from . import packing
+
+# the Q8 / Q4 activation-scale divisors of the reference's quantizers
+Q8_DIVISOR = 11.269
+Q4_DIVISOR = 5.6345
 
 
 def _group_index(qt: MPQTensor, k: int) -> torch.Tensor:
@@ -106,6 +114,103 @@ def concat_mpq(parts: Sequence[MPQTensor]) -> MPQTensor:
 def _recip(c: float) -> float:
     """float32 reciprocal of ``c``, as XLA folds ``x / c``."""
     return float(np.float32(1.0) / np.float32(c))
+
+
+def _mean(x: torch.Tensor, factor: float = 1.0, divisor: float = 1.0) -> torch.Tensor:
+    """``factor * mean(x) / divisor`` in f32 as the jitted JAX computes it:
+    XLA folds the three constants into one, ``f32(f32(factor * 1/n) *
+    1/divisor)`` (each reciprocal in f32), and multiplies the sum by it."""
+    c = np.float32(factor) * np.float32(_recip(x.numel()))
+    return x.sum() * float(np.float32(c * np.float32(_recip(divisor))))
+
+
+# ---------------------------------------------------------------------------
+# Per-tensor quantizers
+# ---------------------------------------------------------------------------
+
+
+def nv_tensor_quant(
+    inputs: torch.Tensor, amax: Optional[torch.Tensor] = None, num_bits: int = 8,
+    narrow_range: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor quantization (TensorRT style): ``(q, scale)`` with
+    ``q = clamp(round(x * scale), -B, B)`` (``-B - 1`` below without
+    ``narrow_range``), ``B = 2^(bits-1) - 1`` and ``scale = B / amax``, in
+    the dtype of ``inputs``.
+
+    As in the reference, ``amax`` defaults to the MAXIMUM of ``x`` (not its
+    largest magnitude), and an ``amax`` at or below 2^-24 overrides only the
+    RETURNED scale (to 1), after ``q`` was computed with the huge one."""
+    x = inputs.float()
+    amax = x.max() if amax is None else torch.as_tensor(amax, dtype=torch.float32,
+                                                         device=x.device)
+    max_bound = float(2.0 ** (num_bits - 1) - 1.0)
+    min_bound = -max_bound if narrow_range else -max_bound - 1.0
+    # a true division (``float / tensor`` would multiply by the reciprocal)
+    scale = torch.div(torch.full_like(amax, max_bound), amax)
+    q = torch.clamp(torch.round(x * scale), min_bound, max_bound)
+    scale = torch.where(amax <= 1.0 / (1 << 24), torch.ones_like(scale), scale)
+    return q.to(inputs.dtype), scale
+
+
+def _act_quant(x: torch.Tensor, scale_a, eps: float, divisor: float, lo: int, hi: int):
+    xf = x.float()
+    if scale_a is None:
+        scale = torch.clamp_min(_mean(xf.abs(), 2.0, divisor), eps)
+        return torch.clamp(torch.round(xf / scale), lo, hi), scale
+    scale = torch.clamp_min(torch.as_tensor(scale_a, device=xf.device).float(), eps)
+    return torch.clamp(torch.round(xf / scale), lo, hi)
+
+
+def q8_quantization(x: torch.Tensor, scale_a: Optional[torch.Tensor] = None, eps: float = 1e-5):
+    """Uniform 8-bit activation quantization: codes in [-128, 127] as f32;
+    without ``scale_a`` also returns the data scale ``2 mean|x| / 11.269``."""
+    return _act_quant(x, scale_a, eps, Q8_DIVISOR, -128, 127)
+
+
+def q4_quantization(x: torch.Tensor, scale_a: Optional[torch.Tensor] = None, eps: float = 1e-5):
+    """Uniform 4-bit activation quantization: codes in [-8, 7] as f32;
+    without ``scale_a`` also returns the data scale ``2 mean|x| / 5.6345``."""
+    return _act_quant(x, scale_a, eps, Q4_DIVISOR, -8, 7)
+
+
+# ---------------------------------------------------------------------------
+# Binary / n-bit QAT weights
+# ---------------------------------------------------------------------------
+
+
+def init_binary_weight(weight: torch.Tensor) -> BinaryQTensor:
+    """fp weight ``(N, K)`` → int8 binary-QAT weight + L1 scale: ``scale_w =
+    mean |w|``; the centered weight quantized by :func:`nv_tensor_quant`,
+    its zero codes replaced by the centered value's sign."""
+    w = weight.float()
+    scale_w = _mean(w.abs())
+    centered = w - _mean(w)
+    w_int8, _ = nv_tensor_quant(centered)
+    w_int8 = torch.where(w_int8 == 0, torch.sign(centered), w_int8)
+    return BinaryQTensor(data=w_int8.to(torch.int8), scale_w=scale_w, in_features=weight.shape[1])
+
+
+def init_nbit_weight(weight: torch.Tensor, w_bit: int = 4) -> IntQTensor:
+    """fp weight → int8 n-bit QAT codes with ``w ≈ data * scale_w``,
+    ``scale_w = max(2 mean|w| / divisor, 1e-5)`` (divisor 5.6345 at 4 bits,
+    11.269 otherwise)."""
+    w = weight.float()
+    divisor = Q4_DIVISOR if w_bit == 4 else Q8_DIVISOR
+    scale_w = torch.clamp_min(_mean(w.abs(), 2.0, divisor), 1e-5)
+    qlow, qhigh = -(2.0 ** (w_bit - 1)), 2.0 ** (w_bit - 1) - 1.0
+    data = torch.clamp(torch.round(w / scale_w), qlow, qhigh)
+    return IntQTensor(data=data.to(torch.int8), scale_w=scale_w, w_bit=w_bit)
+
+
+def pack_binary_weight(qt: BinaryQTensor) -> BinaryQTensor:
+    """QAT binary weight ``(N, K)`` → sign-packed inference weight (one bit
+    a weight); a packed weight is returned as it is."""
+    if qt.packed:
+        return qt
+    data, _ = packing.pad_to_multiple(qt.data.float(), 1, 32, value=-1.0)
+    return BinaryQTensor(data=packing.pack_signs(data), scale_w=qt.scale_w, packed=True,
+                         in_features=qt.data.shape[1])
 
 
 def quantize_mpq(

@@ -2,26 +2,38 @@
 
 The counterpart of ``bitorch_engine_tpu/optim/diode.py``, as an object in
 the shape of a ``torch.optim.Optimizer`` (``step()``, ``zero_grad()``,
-``state_dict()``) built over a model's modules.  Regimes, by layer:
+``state_dict()``) built over a model's modules.  Regimes, by the layer's
+quantized record:
 
-* **fp parameters** (embedding, norms, biases): AdamW (betas (0.99,
-  0.9999), decoupled weight decay, bias correction), no f32 master: a bf16
-  parameter is updated in f32 and cast back each step, as the JAX package
-  does;
-* **MPQLinear**: the gradient is its grad shadow's ``.grad``; optional
-  GaLore projection; AdamW on the dequantized f32 weight; the zeros
-  refreshed every ``zeros_update_interval`` steps from the group means of
-  the update (asym: of the updated integer zeros); the weight repacked
-  into its codes in place;
-* **MBWQLinear**: AdamW on the dequantized logical weight, then each
-  segment repacked with its own scales (and zeros refreshed on schedule).
+* **fp parameters** (embedding, norms, biases, QAT scales and shifts):
+  AdamW (betas (0.99, 0.9999), decoupled weight decay, bias correction),
+  no f32 master: a bf16 parameter is updated in f32 and cast back each
+  step, as the JAX package does;
+* **MPQ** (``MPQLinear``): the gradient is its grad shadow's ``.grad``;
+  optional GaLore projection; AdamW on the dequantized f32 weight; the
+  zeros refreshed every ``zeros_update_interval`` steps from the group
+  means of the update (asym: of the updated integer zeros); the weight
+  repacked into its codes in place;
+* **MBWQ** (``MBWQLinear``): AdamW on the dequantized logical weight, then
+  each segment repacked with its own scales (and zeros refreshed on
+  schedule);
+* **binary** (``BinaryLinear``, ``BinaryConv2d``): sign descent with two
+  EMAs, ``exp_avg_l`` of the gradient (β1) and ``exp_avg_s`` of ``lr ·
+  sign(exp_avg_l)`` (β2); a weight flips where ``-sign(exp_avg_s)`` (0 →
+  +1) disagrees with its sign.  ``exp_avg_s`` starts at ``-sign(w) · U(0,
+  1e-3)``, drawn from a ``torch.Generator`` seeded with ``seed``; that draw
+  decides the first flips, so a run compared with the JAX package starts
+  from its moments (``utils.convert.load_jax_diode_state``);
+* **IntQ** (``Q4Linear``, ``Q8Linear``, ``Q4Conv2d``): AdamW on the codes as
+  f32, then requantized by ``nv_tensor_quant`` at the layer's width (the
+  scale ``scale_w`` stays);
+* **binary embedding** (``BinaryEmbedding(Bag)``): the EMA of ``lr ·
+  sign(g)`` (0 → -1) over the whole table; the rows with a nonzero gradient
+  take the EMA's signs, the others keep theirs.
 
 GaLore applies to MPQ layers and to fp matrices larger than the rank
-(``_galore_eligible``).  The binary, IntQ and binary-embedding regimes
-arrive with the binary/QAT slice; a model holding integer weights outside
-the MPQ / MBWQ layers (``Int8Embedding``) raises.  The JAX package draws
-random numbers only for the binary regimes' state, so nothing here needs a
-generator yet.
+(``_galore_eligible``).  A model holding integer weights outside these
+layers (``Int8Embedding``) raises.
 
 The step counter starts at 1, the bias corrections compute ``beta ** step``
 in f32 as the JAX package does; every update works in place under
@@ -42,7 +54,8 @@ from ..layers.linear import MBWQLinear, MPQLinear
 from ..ops import packing
 from ..ops.mbwq_linear import reconstruct_mbwq
 from ..ops.mpq_linear import reconstruct_weight
-from ..ops.quant import repack_mpq
+from ..ops.quant import nv_tensor_quant, repack_mpq
+from ..qtensor import BinaryEmbeddingQTensor, BinaryQTensor, IntQTensor
 from ..utils.convert import quantized_layers
 from .galore import (
     GaLoreConfig,
@@ -66,8 +79,8 @@ class DiodeHyperParams:
 
 
 def _galore_eligible(shape: Tuple[int, ...], kind: str, rank: int) -> bool:
-    """MPQ layers always, MBWQ layers never; fp matrices whose smaller side
-    exceeds the rank."""
+    """MPQ layers always, the other quantized layers never; fp matrices
+    whose smaller side exceeds the rank."""
     if kind != "fp":
         return kind == "mpq"
     return len(shape) == 2 and min(shape) > rank
@@ -93,16 +106,21 @@ def _group_mean(x: torch.Tensor, group_size: int) -> torch.Tensor:
     return x.reshape(k // group_size, group_size, n).mean(dim=1)
 
 
+# the quantized regimes, by the layer's record type
+_REGIMES = {BinaryQTensor: "binary", IntQTensor: "intq", BinaryEmbeddingQTensor: "bemb"}
+
+
 class DiodeMix:
     """DiodeMix over ``model``'s trainable parameters (call
     ``utils.convert.prepare_for_training`` first: the quantized layers need
-    their grad shadows)."""
+    their grad shadows).  ``seed`` seeds the binary regimes' initial
+    ``exp_avg_s``."""
 
-    def __init__(self, model: nn.Module, hp: Optional[DiodeHyperParams] = None):
+    def __init__(self, model: nn.Module, hp: Optional[DiodeHyperParams] = None, seed: int = 0):
         self.hp = hp or DiodeHyperParams()
         self.step_count = 0
         names = {id(m): n for n, m in model.named_modules()}
-        self.mpq, self.mbwq = [], []
+        self.mpq, self.mbwq, self.binary, self.intq, self.bemb = [], [], [], [], []
         owned = set()
         for mod in quantized_layers(model):
             if mod.grad_shadow is None:
@@ -110,23 +128,42 @@ class DiodeMix:
                     f"{names[id(mod)]}: a quantized layer without a grad shadow "
                     "(call utils.convert.prepare_for_training first)"
                 )
-            (self.mbwq if isinstance(mod, MBWQLinear) else self.mpq).append((names[id(mod)], mod))
+            if isinstance(mod, MBWQLinear):
+                kind = "mbwq"
+            elif isinstance(mod, MPQLinear):
+                kind = "mpq"
+            else:
+                kind = _REGIMES[mod._RECORD]
+            getattr(self, kind).append((names[id(mod)], mod))
             owned.update(id(t) for t in mod.buffers())
             owned.add(id(mod.grad_shadow))
         for name, buf in model.named_buffers():
             if id(buf) not in owned and not buf.is_floating_point():
                 raise NotImplementedError(
-                    f"{name}: DiodeMix updates MPQ / MBWQ layers and fp parameters; "
-                    "integer weights (the binary, IntQ and binary-embedding regimes) "
-                    "arrive with the binary/QAT slice of the port"
+                    f"{name}: DiodeMix updates the quantized layers (MPQ, MBWQ, binary, "
+                    "IntQ, binary embedding) and fp parameters, not a bare integer weight"
                 )
         self.fp = [(n, p) for n, p in model.named_parameters()
                    if p.requires_grad and id(p) not in owned]
         self.state: Dict[str, Dict[str, Any]] = {}
-        for name, mod in self.mpq + self.mbwq:
-            kind = "mpq" if isinstance(mod, MPQLinear) else "mbwq"
+        gens: Dict[torch.device, torch.Generator] = {}
+
+        def delta(shape, device):
+            gen = gens.setdefault(device, torch.Generator(device=device).manual_seed(seed))
+            return torch.rand(shape, generator=gen, device=device) * 1e-3
+
+        for name, mod in self.mpq + self.mbwq + self.intq:
+            kind = "mpq" if isinstance(mod, MPQLinear) else "quant"
             self.state[name] = self._init_state(tuple(mod.grad_shadow.shape), kind,
                                                 mod.grad_shadow.device)
+        for name, mod in self.binary:
+            w = mod.data.float()
+            self.state[name] = {"exp_avg_l": torch.zeros_like(w),
+                                "exp_avg_s": -(torch.sign(w) * delta(w.shape, w.device))}
+        for name, mod in self.bemb:
+            k = mod.qweight.logical_shape[1]
+            w_sign = packing.unpack_signs(mod.data)[:, :k]
+            self.state[name] = {"exp_avg_s": -(w_sign * delta(w_sign.shape, w_sign.device))}
         for name, p in self.fp:
             self.state[name] = self._init_state(tuple(p.shape), "fp", p.device)
 
@@ -140,8 +177,11 @@ class DiodeMix:
         st["exp_avg_s"] = torch.zeros(shape, dtype=torch.float32, device=device)
         return st
 
+    def _quantized(self):
+        return self.mpq + self.mbwq + self.binary + self.intq + self.bemb
+
     def zero_grad(self) -> None:
-        for _, mod in self.mpq + self.mbwq:
+        for _, mod in self._quantized():
             mod.grad_shadow.grad = None
         for _, p in self.fp:
             p.grad = None
@@ -177,6 +217,12 @@ class DiodeMix:
             self._update_mpq(mod, self.state[name], step, size, refresh)
         for name, mod in self.mbwq:
             self._update_mbwq(mod, self.state[name], step, size, refresh)
+        for name, mod in self.binary:
+            self._update_binary(mod, self.state[name])
+        for name, mod in self.intq:
+            self._update_intq(mod, self.state[name], size)
+        for name, mod in self.bemb:
+            self._update_binary_embedding(mod, self.state[name])
         for name, p in self.fp:
             self._update_fp(p, self.state[name], step, size)
 
@@ -225,6 +271,33 @@ class DiodeMix:
             seg_mod.packed.copy_(repack_mpq(w[rows], seg.replace(zeros=seg_mod.zeros)))
             off += seg.in_features
 
+    def _update_binary(self, mod: nn.Module, st) -> None:
+        hp = self.hp
+        g = self._shadow_grad(mod)
+        st["exp_avg_l"].add_((g - st["exp_avg_l"]) * (1.0 - hp.beta1))
+        v = torch.sign(st["exp_avg_l"]) * hp.lr
+        st["exp_avg_s"].add_((v - st["exp_avg_s"]) * (1.0 - hp.beta2))
+        u = -torch.sign(st["exp_avg_s"])
+        u = torch.where(u == 0, 1.0, u)
+        w = mod.data
+        mod.data.copy_(torch.where(u != torch.sign(w.float()), -w, w))
+
+    def _update_intq(self, mod: nn.Module, st, size: float) -> None:
+        w = mod.data.float() - size * self._adamw(self._shadow_grad(mod), st)
+        if self.hp.weight_decay > 0.0:
+            w = w - self.hp.lr * self.hp.weight_decay * w
+        mod.data.copy_(nv_tensor_quant(w, num_bits=mod._w_bit)[0].to(torch.int8))
+
+    def _update_binary_embedding(self, mod: nn.Module, st) -> None:
+        g = self._shadow_grad(mod)
+        active = (g != 0.0).any(dim=1, keepdim=True)
+        v = torch.sign(g)
+        v = torch.where(v == 0, -1.0, v) * self.hp.lr
+        st["exp_avg_s"].add_((v - st["exp_avg_s"]) * (1.0 - self.hp.beta2))
+        bits = torch.where(st["exp_avg_s"] >= 0, 1.0, -1.0)
+        packed = packing.pack_signs(packing.pad_to_multiple(bits, 1, 32, value=-1.0)[0])
+        mod.data.copy_(torch.where(active, packed, mod.data))
+
     def state_dict(self) -> Dict[str, Any]:
         def leaf(st):
             out = {k: v for k, v in st.items() if k != "galore"}
@@ -240,6 +313,7 @@ class DiodeMix:
         for name, st in state_dict["state"].items():
             mine = self.state[name]
             for key in ("exp_avg_l", "exp_avg_s"):
-                mine[key].copy_(st[key])
+                if key in mine:
+                    mine[key].copy_(st[key])
             if "galore" in st:
                 mine["galore"] = GaLoreState(**st["galore"])

@@ -1,10 +1,14 @@
 """Quantized-weight records as dataclasses of tensors.
 
 The counterpart of ``bitorch_engine_tpu/qtensor.py``: ``MPQTensor`` (the
-group-quantized weight) and ``MBWQTensor`` (the mixed-bit weight, a tuple of
-per-bit-width ``MPQTensor`` segments), and the training-mode helpers
-:func:`with_grad_shadow` / :func:`without_grad_shadow`.  The binary and
-n-bit QAT records come with the slices that use them.
+group-quantized weight), ``MBWQTensor`` (the mixed-bit weight, a tuple of
+per-bit-width ``MPQTensor`` segments), the QAT records ``BinaryQTensor``
+(1-bit) and ``IntQTensor`` (4/8-bit), the packed ``BinaryEmbeddingQTensor``,
+and the training-mode helpers :func:`with_grad_shadow` /
+:func:`without_grad_shadow`.
+
+Packed sign words are int32, bit-identical to the JAX package's uint32
+words (see ``ops/packing.py``).
 """
 
 from __future__ import annotations
@@ -140,6 +144,103 @@ class MBWQTensor:
         return self.segments[0].device
 
     def replace(self, **changes) -> "MBWQTensor":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryQTensor:
+    """1-bit weight, in one of two forms:
+
+    * QAT (``packed=False``): ``data`` int8 in [-127, 127] (the sign is the
+      weight; the magnitude is the initial quantized value), ``(N, K)`` for
+      a linear layer, ``(KH, KW, C, O)`` (HWIO) for a conv;
+    * inference (``packed=True``): ``data`` int32 ``(N, ceil(K / 32))``,
+      sign bits packed along K (bit j of word w is element ``32 w + j``,
+      set iff it is >= 0; the pad bits are 0).
+
+    ``scale_w`` is the f32 layer-wise scale (mean |w|); ``in_features`` the
+    logical K of a packed weight.
+
+    ``logical_shape`` is ``data``'s own shape for the QAT form.  The JAX
+    package gives a conv weight ``(KH, KW)`` there, so its grad shadow does
+    not fit the conv's weight gradient and its binary conv net cannot train;
+    the port's shadow has the conv weight's full shape.
+    """
+
+    data: torch.Tensor
+    scale_w: torch.Tensor
+    grad_shadow: Optional[torch.Tensor] = None
+    packed: bool = False
+    in_features: int = -1
+
+    @property
+    def out_features(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def logical_shape(self) -> Tuple[int, ...]:
+        if not self.packed:
+            return tuple(self.data.shape)
+        k = self.in_features if self.in_features >= 0 else self.data.shape[1] * 32
+        return (self.data.shape[0], k)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def replace(self, **changes) -> "BinaryQTensor":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class IntQTensor:
+    """4/8-bit QAT weight: ``data`` int8 codes in ``[-2^(b-1), 2^(b-1) - 1]``
+    (``(N, K)``, or HWIO for a conv) with ``w ≈ data * scale_w``; DiodeMix
+    requantizes it after every step."""
+
+    data: torch.Tensor
+    scale_w: torch.Tensor
+    w_bit: int = 4
+    grad_shadow: Optional[torch.Tensor] = None
+
+    @property
+    def logical_shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def replace(self, **changes) -> "IntQTensor":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryEmbeddingQTensor:
+    """Bit-packed binary embedding table: ``data`` int32 ``(vocab,
+    ceil(dim / 32))`` sign words, ``scale`` f32 ``(vocab, 1)`` per-row
+    scale.  In training mode ``grad_shadow`` is the dense f32 ``(vocab,
+    dim)`` table gradient (rows not looked up are exactly 0)."""
+
+    data: torch.Tensor
+    scale: torch.Tensor
+    grad_shadow: Optional[torch.Tensor] = None
+    dim: int = -1
+
+    @property
+    def vocab_size(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def logical_shape(self) -> Tuple[int, int]:
+        d = self.dim if self.dim > 0 else self.data.shape[1] * 32
+        return (self.data.shape[0], d)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def replace(self, **changes) -> "BinaryEmbeddingQTensor":
         return dataclasses.replace(self, **changes)
 
 

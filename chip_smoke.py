@@ -64,7 +64,27 @@ then, failing on the first check that does not hold:
     one profiled step (device busy time, idle share), the peak memory;
 13. compares one train step of a 2-layer full-width model between the
     kernel path and the plain path on the card (loss, every grad shadow and
-    fp gradient), both from the same weights.
+    fp gradient), both from the same weights;
+14. the binary / QAT slice: holds kernel 8 (the XNOR-popcount GEMM) bit for
+    bit against its plain version at the packed MLP's 1024² (m 1, 8, 16),
+    4096² (m 1-128), 8192² (m 8) and a ragged shape, and times it beside its
+    bound (bytes, or 32-bit popcounts at 16 per clock per SM), its plain
+    version, the bf16 sign matmul it stands in for (``torch.mm`` of the ±1
+    operands with f32 output) and the port's own m > 16 branch (unpack +
+    that matmul), and prints the m where the matmul overtakes it;
+15. trains the MNIST example's ``QuantMLP`` (784 → 1024 → 1024 → 10) at 1,
+    4 and 8 bits with DiodeMix (lr 1e-3, batch 128, 20 steps on seeded
+    synthetic digits; losses finite and falling, the accuracy the train
+    step returns), packs it with ``prepare_for_inference`` and serves it at
+    batch 8 (kernel 8: exactly one launch per forward at 1 bit) and batch
+    128 (none), with one profiled train step; trains ``QuantConvNet`` (widths
+    64-128-128-256, 32×32×3, batch 128) at 1 and 4 bits for 5 steps, with
+    the peak memory.  cuDNN's TF32 flag is on during phases 15-16: the
+    port's convolutions must turn it off themselves;
+16. the packed MLP's logits through kernel 8 against the plain path on the
+    card (bit-equal), and one binary-MLP train step and one conv-net step
+    at 1 and 4 bits on the card against the same step on the CPU from the
+    same weights and optimizer state.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -115,6 +135,7 @@ TPU_KERNELS = {
     "paged_prefix_attention": "bitorch_engine_tpu/ops/pallas/paged_attention.py:65",
     "paged_prefix_attention_update": "bitorch_engine_tpu/ops/pallas/paged_attention.py:65",
     "flash_attention_bwd": "bitorch_engine_tpu/ops/pallas/flash_attention.py:190",
+    "xnor_gemm": "bitorch_engine_tpu/ops/pallas/binary_gemm.py:31",
 }
 SOURCES = {
     "mpq_matmul_a8": "bitorch_engine_tpu_torch/csrc/quad_matmul.cu",
@@ -125,6 +146,7 @@ SOURCES = {
     "paged_prefix_attention": "bitorch_engine_tpu_torch/csrc/paged_attention.cu",
     "paged_prefix_attention_update": "bitorch_engine_tpu_torch/csrc/paged_attention.cu",
     "flash_attention_bwd": "bitorch_engine_tpu_torch/csrc/flash_attention.cu",
+    "xnor_gemm": "bitorch_engine_tpu_torch/csrc/binary_gemm.cu",
 }
 
 # the serving slice: Llama-3-8B's KV layout (8 KV heads of 128, rep 4), pages of 64
@@ -174,6 +196,21 @@ FLASH_BWD_SHAPES = (
     ("train_b8_nh16_s2048_d64", TRAIN_BATCH, 16, 16, TRAIN_SEQ, 64, True),
     ("gqa_b1_nh32_nkv8_s2048_d128", 1, 32, 8, 2048, 128, True),
     ("noncausal_b2_nh8_s1024_d64", 2, 8, 8, 1024, 64, False),
+)
+
+# the binary / QAT slice: the MNIST example's QuantMLP (train_mnist.py:95-145)
+# and QuantConvNet at its default widths on CIFAR-shaped inputs
+MLP_HIDDEN, MLP_BATCH, MLP_STEPS, MLP_LR = 1024, 128, 20, 1e-3
+SERVE_BATCH, SERVE_REPS = 8, 20
+CNN_BATCH, CNN_STEPS, CNN_HW = 128, 5, 32
+POPC_PER_CLOCK_PER_SM = 16  # 32-bit popc, compute capability 9.0 (CUDA C++ guide)
+# kernel 8's shapes (name, m, K, N): the packed MLP's serving forward first
+# (the row the main path is reckoned from), then the A/B shape list of
+# BENCH_NOTES.md:817-835 and a ragged one
+XNOR_SHAPES = (
+    [("mlp_1024_m8", 8, 1024, 1024), ("mlp_1024_m1", 1, 1024, 1024), ("mlp_1024_m16", 16, 1024, 1024)]
+    + [(f"4096_m{m}", m, 4096, 4096) for m in (1, 8, 16, 32, 64, 128)]
+    + [("8192_m8", 8, 8192, 8192), ("ragged_m3_k1000_n70", 3, 1000, 70)]
 )
 
 
@@ -757,11 +794,13 @@ def phase_paged_vs_dense(torch, model):
 
 @contextmanager
 def plain_kernels():
-    """Route the model's and the optimizer's eight kernel calls to their
+    """Route the model's and the optimizer's nine kernel calls to their
     plain versions (the flash forward and backward inside the autograd
-    Function, the dequant in the linears' backward and in DiodeMix)."""
+    Function, the dequant in the linears' backward and in DiodeMix, the
+    packed binary linear's XNOR GEMM)."""
     from bitorch_engine_tpu_torch.models import llama
-    from bitorch_engine_tpu_torch.ops import mbwq_linear, mpq_linear
+    from bitorch_engine_tpu_torch.ops import binary_linear, mbwq_linear, mpq_linear
+    from bitorch_engine_tpu_torch.ops.cuda.binary_gemm import xnor_gemm_ref
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, mpq_matmul_ref
     from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul_ref
@@ -777,7 +816,8 @@ def plain_kernels():
             mock.patch.object(fa, "flash_attention_bwd", fa.flash_attention_bwd_ref), \
             mock.patch.object(llama, "paged_prefix_attention", pa.paged_prefix_attention_ref), \
             mock.patch.object(llama, "paged_prefix_attention_update",
-                              pa.paged_prefix_attention_update_ref):
+                              pa.paged_prefix_attention_update_ref), \
+            mock.patch.object(binary_linear, "xnor_gemm", xnor_gemm_ref):
         yield
 
 
@@ -1308,6 +1348,245 @@ def phase_train_path_check(torch, gen):
                 worst=worst, grad_rel=grad_rel, packed_equal=codes_equal)
 
 
+def phase_xnor_kernels(torch, gen, flush):
+    """Phase 14: kernel 8 bit for bit against its plain version, then timed
+    beside its bound, its plain version, the bf16 sign matmul and the
+    port's m > 16 branch."""
+    from bitorch_engine_tpu_torch.ops import packing
+    from bitorch_engine_tpu_torch.ops.binary_linear import _packed_dot, sign_pm1
+    from bitorch_engine_tpu_torch.ops.cuda.binary_gemm import xnor_gemm, xnor_gemm_ref
+    from bitorch_engine_tpu_torch.qtensor import BinaryQTensor
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()[0])
+    popc_per_s = sms * POPC_PER_CLOCK_PER_SM * clock_mhz * 1e6
+    log(f"kernel 8 bound: {sms} SMs x {POPC_PER_CLOCK_PER_SM} popc/clock x {clock_mhz:.0f} MHz = "
+        f"{popc_per_s / 1e12:.3f} Tpopc/s; bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    rows = []
+    for name, m, k, n in XNOR_SHAPES:
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        w = torch.randn(n, k, device="cuda", generator=gen)
+        xw = packing.pack_signs(packing.pad_to_multiple(x, 1, 32, value=-1.0)[0])
+        ww = packing.pack_signs(packing.pad_to_multiple(w, 1, 32, value=-1.0)[0])
+        got = xnor_gemm(xw, ww, k)
+        want = xnor_gemm_ref(xw, ww, k)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        equal = bool(torch.equal(got, want))
+        log(f"kernel xnor_gemm {name:20s} m={m} K={k} N={n}  bit-equal={equal} max|d|={err}")
+        check(equal, f"xnor_gemm {name}: not bit-equal to the plain version")
+        kw = ww.shape[1]
+        t_bytes = (xw.nbytes + ww.nbytes + m * n * 4) / HBM_BYTES_PER_S * 1e3
+        t_ops = m * n * kw / popc_per_s * 1e3
+        x_bf = sign_pm1(x).to(torch.bfloat16)
+        w_bf = packing.unpack_signs(ww, torch.bfloat16)[:, :k].contiguous()
+        qt = BinaryQTensor(data=ww, scale_w=torch.ones((), device="cuda"), packed=True, in_features=k)
+        rows.append(dict(
+            shape=name, m=m, K=k, N=n, max_abs_err=err, rel_err=err, bit_equal=equal,
+            ms=time_ms(torch, lambda: xnor_gemm(xw, ww, k), flush=flush),
+            plain_ms=time_ms(torch, lambda: xnor_gemm_ref(xw, ww, k), reps=5, flush=flush),
+            library_ms=None,
+            yardstick_ms=time_ms(torch, lambda: torch.mm(x_bf, w_bf.T, out_dtype=torch.float32),
+                                 flush=flush),
+            fallback_ms=(time_ms(torch, lambda: _packed_dot(x, qt), flush=flush)
+                         if m > 16 else None),
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_bytes_ms=t_bytes, bound_popc_ms=t_ops,
+        ))
+        del x, w, xw, ww, x_bf, w_bf, got, want
+    torch.cuda.empty_cache()
+    for r in rows:
+        fb = "n/a" if r["fallback_ms"] is None else f"{r['fallback_ms']:.4f}"
+        log(f"time xnor_gemm {r['shape']:20s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"bf16 sign matmul {r['yardstick_ms']:.4f} ms  m>16 branch {fb} ms  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, popc "
+            f"{r['bound_popc_ms']:.4f})")
+    big = [r for r in rows if r["shape"].startswith("4096_m")]
+    over = [r["m"] for r in big if r["yardstick_ms"] < r["ms"]]
+    crossover = min(over) if over else None
+    log(f"kernel 8 at 4096^2: the bf16 sign matmul overtakes it at m = {crossover} "
+        f"(m tried: {[r['m'] for r in big]}; the port switches above m = 16)")
+    return rows, crossover
+
+
+def synthetic_batches(torch, gen, shape, n_batches, batch, noise):
+    """Seeded class-prototype data (``train_mnist.synthetic_digits``'s
+    recipe, any input shape), made on the card: ``n_batches`` of
+    ``(x, labels)``."""
+    protos = torch.randn(10, *shape, device="cuda", generator=gen)
+    out = []
+    for _ in range(n_batches):
+        y = torch.randint(0, 10, (batch,), device="cuda", generator=gen)
+        out.append((protos[y] + torch.randn(batch, *shape, device="cuda", generator=gen) * noise, y))
+    return out
+
+
+def qat_loss(model, batch):
+    """The MNIST example's loss: cross entropy, with the accuracy as aux."""
+    from bitorch_engine_tpu_torch.training import accuracy, cross_entropy_loss
+
+    logits = model(batch[0])
+    return cross_entropy_loss(logits, batch[1]), accuracy(logits, batch[1])
+
+
+def _train(torch, model, batches, lr=MLP_LR):
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    step = make_train_step(model, qat_loss, DiodeHyperParams(lr=lr))
+    losses, accs, step_ms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        out = step(b)
+        losses.append(float(out["loss"]))  # the host reads the loss: the step has ended
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        accs.append(float(out["aux"]))
+    return step, losses, accs, step_ms
+
+
+def phase_qat_e2e(torch, gen):
+    """Phase 15: QuantMLP at 1, 4 and 8 bits trained, packed and served at
+    full width; QuantConvNet at 1 and 4 bits trained."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitorch_engine_tpu_torch.models.cnn import QuantConvNet
+    from bitorch_engine_tpu_torch.models.mlp import QuantMLP
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_inference, prepare_for_training
+
+    out = {"mlp": {}, "cnn": {}}
+    for bits in (1, 4, 8):
+        torch.cuda.reset_peak_memory_stats()
+        data = synthetic_batches(torch, gen, (28, 28), MLP_STEPS + 2, MLP_BATCH, 0.8)
+        reset_launch_counts()
+        model = prepare_for_training(QuantMLP(hidden=MLP_HIDDEN, bits=bits, seed=SEED,
+                                              sample=data[0][0]))
+        step, losses, accs, step_ms = _train(torch, model, data[:MLP_STEPS])
+        train_counts = launch_counts()
+        check(all(math.isfinite(v) for v in losses), f"MLP w{bits} losses {losses}")
+        check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+              f"MLP w{bits} losses do not fall: {losses}")
+        check(train_counts == counts_with(), f"MLP w{bits} training launched {train_counts}")
+        prof_summary = None
+        if bits == 1:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                float(step(data[MLP_STEPS])["loss"])
+            prof_summary = _device_summary(torch, prof, time.perf_counter() - t0, 1, top=6)
+        peak_train = torch.cuda.max_memory_allocated() / 2**30
+        prepare_for_inference(model)
+        x8, x128 = data[-1][0][:SERVE_BATCH], data[-1][0]
+        model(x8), model(x128)  # warm-up
+        serve = {}
+        for batch, x in ((SERVE_BATCH, x8), (MLP_BATCH, x128)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(SERVE_REPS):
+                logits = model(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SERVE_REPS
+            counts = launch_counts()
+            want = counts_with(xnor_gemm=SERVE_REPS if bits == 1 and batch <= 16 else 0)
+            check(counts == want, f"MLP w{bits} serving b{batch}: launches {counts} != {want}")
+            check(logits.shape == (batch, 10) and bool(torch.isfinite(logits).all()),
+                  f"MLP w{bits} b{batch} logits")
+            serve[batch] = dict(ms_per_forward=ms, launches=counts["xnor_gemm"])
+        acc = float((model(x128).argmax(-1) == data[-1][1]).float().mean())
+        out["mlp"][bits] = dict(losses=losses, train_acc=accs, step_ms=step_ms,
+                                ms_per_step=statistics.median(step_ms), peak_train_gib=peak_train,
+                                serve=serve, packed_acc_b128=acc, profile=prof_summary)
+        log(f"QuantMLP w{bits}: {statistics.median(step_ms):.3f} ms/step (median of {MLP_STEPS}), "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, train acc {accs[-1]:.3f}; packed "
+            f"forward b8 {serve[SERVE_BATCH]['ms_per_forward']:.4f} ms ({serve[SERVE_BATCH]['launches']} "
+            f"kernel-8 launches in {SERVE_REPS}), b128 {serve[MLP_BATCH]['ms_per_forward']:.4f} ms; "
+            f"acc on a held-out batch {acc:.3f}; peak {peak_train:.3f} GiB")
+        if prof_summary is not None:
+            log(f"profile QuantMLP w1 train step: wall {prof_summary['wall_ms_per_call']:.3f} ms "
+                f"(profiled), device busy {prof_summary['device_busy_ms_per_call']:.3f} ms, idle share "
+                f"{prof_summary['idle_share']:.3f}, {prof_summary['launches_per_call']:.0f} launches")
+        del model, step, data
+    for bits in (1, 4):
+        torch.cuda.reset_peak_memory_stats()
+        data = synthetic_batches(torch, gen, (CNN_HW, CNN_HW, 3), CNN_STEPS, CNN_BATCH, 1.0)
+        reset_launch_counts()
+        model = prepare_for_training(QuantConvNet(bits=bits, seed=SEED, sample=data[0][0]))
+        step, losses, accs, step_ms = _train(torch, model, data)
+        check(all(math.isfinite(v) for v in losses), f"conv net w{bits} losses {losses}")
+        check(launch_counts() == counts_with(), f"conv net w{bits} launched {launch_counts()}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out["cnn"][bits] = dict(losses=losses, step_ms=step_ms,
+                                ms_per_step=statistics.median(step_ms[1:]), peak_gib=peak)
+        log(f"QuantConvNet w{bits} (64-128-128-256, {CNN_HW}x{CNN_HW}x3, b{CNN_BATCH}): "
+            f"{statistics.median(step_ms[1:]):.2f} ms/step (median of steps 2-{CNN_STEPS}; first "
+            f"{step_ms[0]:.1f}), losses {[round(v, 4) for v in losses]}, peak {peak:.3f} GiB")
+        del model, step, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_qat_path_check(torch, gen):
+    """Phase 16: the packed MLP's logits through kernel 8 against the plain
+    path on the card (bit-equal); one train step of the binary MLP and of
+    the conv net at 1 and 4 bits on the card against the same step on the
+    CPU from the same weights and optimizer state (the MLP: loss rel <=
+    1e-4; the conv nets: loss rel <= 1e-2 at 1 bit, where LayerNorm ties
+    over integer conv outputs may take either sign, 1e-4 at 4 bits)."""
+    from bitorch_engine_tpu_torch.models.cnn import QuantConvNet
+    from bitorch_engine_tpu_torch.models.mlp import QuantMLP
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.training import make_train_step
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_inference, prepare_for_training
+
+    res = {}
+    (x, y), = synthetic_batches(torch, gen, (28, 28), 1, MLP_BATCH, 0.8)
+    model = prepare_for_inference(QuantMLP(hidden=MLP_HIDDEN, bits=1, seed=SEED + 5, sample=x))
+    reset_launch_counts()
+    got = model(x[:SERVE_BATCH])
+    check(launch_counts() == counts_with(xnor_gemm=1), f"packed path check launches {launch_counts()}")
+    with plain_kernels():
+        want = model(x[:SERVE_BATCH])
+    torch.cuda.synchronize()
+    check(launch_counts() == counts_with(xnor_gemm=1), "the plain packed path launched a kernel")
+    res["packed_logits_bit_equal"] = bool(torch.equal(got, want))
+    log(f"path check packed binary MLP b{SERVE_BATCH}: kernel 8 vs plain logits bit-equal "
+        f"{res['packed_logits_bit_equal']}")
+    check(res["packed_logits_bit_equal"], "packed MLP logits: kernel 8 differs from the plain path")
+
+    def card_vs_cpu(name, model, batch, bar):
+        cpu_model = copy.deepcopy(model).to("cpu")
+        step = make_train_step(model, qat_loss, DiodeHyperParams(lr=MLP_LR))
+        cpu_step = make_train_step(cpu_model, qat_loss, DiodeHyperParams(lr=MLP_LR))
+        # the CPU optimizer starts from the card's moments (the binary
+        # regime's random initial exp_avg_s)
+        cpu_step.optimizer.load_state_dict(step.optimizer.state_dict())
+        loss = float(step(batch)["loss"])
+        cpu_loss = float(cpu_step(tuple(t.cpu() for t in batch))["loss"])
+        rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        codes = [(n, a, b) for (n, a), (_, b) in zip(model.named_buffers(), cpu_model.named_buffers())
+                 if n.endswith(".data")]
+        differ = sum(int((a.cpu() != b).sum()) for _, a, b in codes)
+        total = sum(a.numel() for _, a, _ in codes)
+        log(f"path check {name}: one train step on the card {loss:.6f} vs the CPU {cpu_loss:.6f}, "
+            f"rel {rel:.3e} (bar {bar:g}); quantized codes differing after it {differ} of {total}")
+        check(rel <= bar, f"{name}: loss rel {rel} > {bar}")
+        check(differ <= 1e-2 * total, f"{name}: {differ} of {total} codes differ")
+        return dict(loss=loss, cpu_loss=cpu_loss, rel=rel, codes_differing=differ, codes=total)
+
+    model = prepare_for_training(QuantMLP(hidden=MLP_HIDDEN, bits=1, seed=SEED + 6, sample=x))
+    res["mlp_w1_train_step"] = card_vs_cpu("binary MLP", model, (x, y), 1e-4)
+    (cx, cy), = synthetic_batches(torch, gen, (CNN_HW, CNN_HW, 3), 1, 16, 1.0)
+    for bits, bar in ((1, 1e-2), (4, 1e-4)):
+        net = prepare_for_training(QuantConvNet(bits=bits, seed=SEED + 7, sample=cx))
+        res[f"cnn_w{bits}_train_step"] = card_vs_cpu(f"conv net w{bits} (b16)", net, (cx, cy), bar)
+    del model, net
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_line(name, rows, launches, weights, per, check_text):
     """One entry of the kernels JSON: the per-pass sums of ``rows`` (each
     row's times ``weight`` launches per pass)."""
@@ -1395,6 +1674,16 @@ def main() -> int:
     train_counts, train = phase_train(torch, gen)
     train["path_check"] = phase_train_path_check(torch, gen)
 
+    # the binary / QAT slice
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    per_shape["xnor_gemm"], crossover = phase_xnor_kernels(torch, gen, flush)
+    del flush
+    torch.backends.cudnn.allow_tf32 = True  # the port's convs must not rely on the caller's flag
+    qat = phase_qat_e2e(torch, gen)
+    qat["path_check"] = phase_qat_path_check(torch, gen)
+    torch.backends.cudnn.allow_tf32 = False
+    qat["xnor_crossover_m_4096"] = crossover
+
     checks = {
         "mpq_matmul": "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape",
         "dequant_mpq": "bit-equal (bf16)",
@@ -1410,6 +1699,7 @@ def main() -> int:
     checks["mbwq_matmul"] = "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape"
     checks["flash_attention_bwd"] = ("max|d|/max|ref| <= 1e-2 for each of dq, dk, dv (bf16 out) per "
                                      "shape")
+    checks["xnor_gemm"] = "bit-equal (f32 integers) per shape"
     kernels = []
     for name in ("mpq_matmul", "dequant_mpq", "flash_attention"):
         rows = per_shape[name]
@@ -1457,9 +1747,17 @@ def main() -> int:
                        checks["flash_attention_bwd"])
     line["library"] = "scaled_dot_product_attention backward (forward + backward less forward)"
     kernels.append(line)
+    # the binary path (phase 15): one launch per packed forward of the
+    # binary MLP at batch 8, reckoned at 1024 x 1024, m 8
+    line = kernel_line("xnor_gemm", per_shape["xnor_gemm"], qat["mlp"][1]["serve"][SERVE_BATCH]["launches"],
+                       [1], "one packed forward of the binary MLP at batch 8", checks["xnor_gemm"])
+    line["yardstick_ms"] = per_shape["xnor_gemm"][0]["yardstick_ms"]
+    line["yardstick"] = ("torch.mm of the bf16 +-1 activations by the unpacked bf16 +-1 weight, f32 out "
+                         "(no PyTorch call computes an XNOR-popcount GEMM)")
+    kernels.append(line)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
-                    "seconds": time.perf_counter() - t_start}))
+                    "qat": qat, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -192,12 +192,12 @@ def test_diode_mix_state_dict_round_trip():
 
 
 def test_diode_mix_refuses_what_it_cannot_train():
-    """A quantized layer without its grad shadow, and integer weights of a
-    regime still to port (an int8 embedding), raise."""
+    """A quantized layer without its grad shadow, and an integer weight that
+    no regime updates (the int8 embedding), raise."""
     model = LlamaModel(tiny_llama(dtype=torch.float32, num_layers=1), device="cpu")
     with pytest.raises(ValueError, match="prepare_for_training"):
         DiodeMix(model)
     model = prepare_for_training(
         LlamaModel(tiny_llama(dtype=torch.float32, num_layers=1, quantize_embed=True), device="cpu"))
-    with pytest.raises(NotImplementedError, match="binary/QAT slice"):
+    with pytest.raises(NotImplementedError, match="embed.data: .*not a bare integer weight"):
         DiodeMix(model)

@@ -123,3 +123,38 @@ def test_mbwq_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
         prepare_params_for_cuda(model, act_bits_map=act_bits_map)
         out = tg.generate(model, torch.tensor([[1, 2]]), max_new_tokens=2)
         assert out.shape == (1, 4)
+
+
+def test_qat_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):
+    """The binary / QAT slice's models and layers resolve a default device
+    to cuda and raise without a GPU; asked for the CPU they train, pack and
+    serve there."""
+    from bitorch_engine_tpu_torch.layers.attention import BMHA, LearnableBias, Q4MatMul
+    from bitorch_engine_tpu_torch.layers.basic import Conv, Dense, LayerNorm
+    from bitorch_engine_tpu_torch.layers.conv import BinaryConv2d, Q4Conv2d
+    from bitorch_engine_tpu_torch.layers.embedding import BinaryEmbedding, BinaryEmbeddingBag
+    from bitorch_engine_tpu_torch.layers.linear import BinaryLinear, Q4Linear, Q8Linear
+    from bitorch_engine_tpu_torch.models.cnn import QuantConvNet
+    from bitorch_engine_tpu_torch.models.mlp import QuantMLP
+    from bitorch_engine_tpu_torch.training import cross_entropy_loss, make_train_step
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_inference, prepare_for_training
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: QuantMLP(), lambda: QuantConvNet(), lambda: BinaryLinear(64, 32),
+                  lambda: Q4Linear(64, 32), lambda: Q8Linear(64, 32), lambda: BinaryConv2d(8, 16),
+                  lambda: Q4Conv2d(8, 16), lambda: BinaryEmbedding(10, 32),
+                  lambda: BinaryEmbeddingBag(10, 32), lambda: BMHA(32, 4), lambda: Q4MatMul(),
+                  lambda: LearnableBias(8), lambda: Dense(8, 4), lambda: Conv(3, 8),
+                  lambda: LayerNorm(8)):
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            build()
+    x = torch.randn(4, 28, 28, generator=torch.Generator().manual_seed(0))
+    y = torch.tensor([1, 2, 3, 4])
+    model = prepare_for_training(QuantMLP(hidden=64, device="cpu", sample=x))
+    assert model.quant.data.device.type == "cpu"
+    step = make_train_step(model, lambda m, b: cross_entropy_loss(m(b[0]), b[1]))
+    assert step((x, y))["aux"] is None
+    prepare_for_inference(model)
+    assert model.quant._packed and model(x[:2]).shape == (2, 10)
+    net = QuantConvNet(widths=(8, 16), device="cpu", sample=torch.randn(2, 8, 8, 3))
+    assert net(torch.randn(2, 8, 8, 3)).shape == (2, 10)

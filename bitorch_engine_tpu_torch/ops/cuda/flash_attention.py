@@ -9,6 +9,11 @@ beside them only for CPU tensors; ``<wrapper>.launches`` counts launches
 (two per backward).  :class:`FlashAttention` is the differentiable
 attention of training: its forward runs kernel 3 and saves the lse rows,
 its backward runs kernel 4.
+
+As the reference does, the forward rounds ``p`` to bf16 before the PV
+product against the running max over key tiles of the reference's size
+(:func:`pick_block`: 512, 256 or 128 keys); the backward rounds ``p``
+before the dv product and ``ds`` before the dq / dk products.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ HEAD_DIMS = (64, 128)
 def _fwd_fn():
     return _build.function(
         "flash_attention", "bte_flash_fwd",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     )
 
 
@@ -87,43 +92,89 @@ def _check_kernel_shape(s: int, d: int) -> None:
         )
 
 
+def pick_block(s: int) -> int:
+    """The reference's key tile for sequence ``s``: the first of 512, 256
+    and 128 that divides it (the JAX wrapper's ``_pick_block``, which the
+    model's calls reach: they pass no block size)."""
+    for cand in (512, 256, 128):
+        if s % cand == 0:
+            return cand
+    raise NotImplementedError(f"sequence {s} not a multiple of 128")
+
+
+def _block_k(s: int, block_k: Optional[int]) -> int:
+    bk = pick_block(s) if block_k is None else int(block_k)
+    if bk <= 0 or s % bk:
+        raise ValueError(f"block_k {bk} does not divide the sequence {s}")
+    return bk
+
+
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, sm_scale: Optional[float] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: f32 scores and softmax on the given inputs.
+    """Plain version: the reference kernel's arithmetic as tensor math.
 
+    Walks key tiles of ``block_k`` keys (``None``: :func:`pick_block`)
+    with a running max ``m``: ``p = exp(s - m_new)`` in f32 is rounded to
+    ``v.dtype`` before the PV product, ``l`` sums the unrounded ``p`` and
+    the accumulator stays f32; ``out = acc / l``, ``lse = m + log l``.
     Returns ``(out in q.dtype, lse f32 (b, nh, s))``."""
     b, nh, nkv, s, d = _check_shapes(q, k, v)
     rep = nh // nkv
     scale = _scale(d, sm_scale)
+    bk = _block_k(s, block_k)
     qg = q.float().reshape(b, nkv, rep, s, d)
-    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
-    if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        sc = sc.masked_fill(~mask, float("-inf"))
-    lse = torch.logsumexp(sc, dim=-1)
-    p = torch.exp(sc - lse[..., None])
-    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, nkv, rep, s, 1), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    rows = torch.arange(s, device=q.device)[:, None]
+    # every row sees key 0, so m is finite after the first tile; a tile a
+    # row cannot see leaves it as it was (alpha 1, p 0), as the reference's
+    # skipped grid steps do
+    for k0 in range(0, s, bk):
+        sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, kf[:, :, k0:k0 + bk]) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + bk, device=q.device)[None, :]
+            sc = sc.masked_fill(cols > rows, float("-inf"))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bgrqk,bgkd->bgrqd", p.to(v.dtype).float(), vf[:, :, k0:k0 + bk]
+        )
+        m = m_new
+    out = acc / l
+    lse = m + torch.log(l)
     return out.reshape(b, nh, s, d).to(q.dtype), lse.reshape(b, nh, s)
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, sm_scale: Optional[float] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``softmax(q kᵀ · sm_scale [+ causal]) v`` for q ``(b, nh, s, d)`` and
     k / v ``(b, nkv, s, d)``; query head ``h`` reads KV head ``h // (nh/nkv)``.
+    ``p`` rounds to bf16 against the running max over key tiles of
+    ``block_k`` keys (``None``: the reference's :func:`pick_block`).
 
     Returns ``(out (b, nh, s, d) bf16, lse (b, nh, s) f32)``.  The kernel
-    takes contiguous bf16 operands, ``s % 64 == 0`` and ``d`` in (64, 128)."""
+    takes contiguous bf16 operands, ``s % 64 == 0``, ``d`` in (64, 128) and
+    a ``block_k`` that is a multiple of 64."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, sm_scale)
+        return flash_attention_ref(q, k, v, causal, sm_scale, block_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, nh, nkv, s, d = _check_shapes(q, k, v)
     _check_kernel_operands((("q", q), ("k", k), ("v", v)), q.device)
     _check_kernel_shape(s, d)
+    bk = _block_k(s, block_k)
+    if bk % SEQ_MULTIPLE:
+        raise ValueError(f"the flash forward kernel takes block_k % {SEQ_MULTIPLE} == 0, got {bk}")
     scale = _scale(d, sm_scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
@@ -131,7 +182,7 @@ def flash_attention(
         return out, lse
     err = _fwd_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b * nh, s, d, nh // nkv, scale, int(causal),
+        b * nh, s, d, nh // nkv, bk, scale, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention", err, "flash_attention launch")

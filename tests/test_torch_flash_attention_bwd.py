@@ -94,6 +94,42 @@ def test_bf16_backward_rounds_where_jax_rounds(b, nh, nkv, s, d, causal):
         assert rel <= 4e-3 and differing <= 1e-2, (f"d{name}", rel, differing)
 
 
+@pytest.mark.parametrize("b,nh,nkv,s,d,causal", [(1, 4, 2, 256, 64, True), (1, 4, 1, 256, 64, False)])
+def test_bf16_backward_of_the_ports_own_forward(b, nh, nkv, s, d, causal):
+    """End to end in bf16: the plain backward fed the port's own forward
+    (``flash_attention_ref`` at the model's tile rule) against the JAX
+    backward kernels fed the JAX forward's residuals (interpret mode, the
+    tile ``_pick_block(s)`` as the model's calls take it).  With ``p``
+    rounded where the JAX forward rounds it, out and lse agree but for f32
+    summation order, so dq, dk and dv meet the bar of
+    ``test_bf16_backward_rounds_where_jax_rounds``: at most 1% of the
+    elements differ and max|d|/max|ref| <= 4e-3 (with ``p`` left unrounded
+    in the forward, ~30% of dq and dk differ)."""
+    q, k, v, do = _inputs(b, nh, nkv, s, d, seed=17 + d)
+    scale = d ** -0.5
+    block = jax_fa._pick_block(s)
+
+    def lanes(a):
+        a = jnp.asarray(a, jnp.bfloat16)
+        return jnp.pad(a, ((0, 0), (0, 0), (0, 0), (0, 128 - d))).reshape(-1, s, 128)
+
+    jq, jk, jv, jdo = (lanes(a) for a in (q, k, v, do))
+    kw = dict(causal=causal, sm_scale=scale, bq=block, bk=block, interpret=True)
+    out_j, lse_j = jax_fa._fwd_call(jq, jk, jv, **kw)
+    want = [np.asarray(g[..., :d].astype(jnp.float32)) for g in jax_fa._bwd_call(
+        jq, jk, jv, out_j, lse_j, jdo, **kw)]
+
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    out, lse = flash_attention(tq, tk, tv, causal, scale)
+    got = flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal, scale)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        g = g.float().numpy().reshape(w.shape)
+        rel = np.abs(g - w).max() / np.abs(w).max()
+        differing = np.mean(g != w)
+        assert rel <= 4e-3 and differing <= 1e-2, (f"d{name}", rel, differing)
+
+
 def test_gqa_dk_dv_sum_the_query_heads():
     """dk / dv of a GQA group equal the sums, over the group's query heads,
     of the MHA gradients with K / V repeated per query head."""

@@ -43,10 +43,12 @@ then, failing on the first check that does not hold:
    plain version in f32 before ``sx`` and the cast (and its activation
    quantization bit-equal) at the MBWQ-2.5 w2 segments and the uniform-w2
    Llama-3-8B shapes, affine and mid_sym, and at w1 and w4; holds kernel 7
-   (the fused mixed-bit kernel) against its plain version at the MBWQ-2.5
-   A16 projections; times both beside their bounds, their plain versions, a
-   bf16 ``torch.matmul`` and (kernel 7) the per-segment launches it
-   replaces;
+   (the fused mixed-bit kernel, bf16 activations on the tensor cores)
+   against its plain version at the MBWQ-2.5 A16 projections at m 1-512,
+   at w8 / w1 / w2 / w4 mixes with f32 metadata and ragged N, bf16 out, and
+   run twice bit for bit, and its f32-activation route once; times both
+   beside their bounds, their plain versions, a bf16 ``torch.matmul`` and
+   (kernel 7) the per-segment launches it replaces;
 9. runs Llama-2-7B MBWQ-2.5 (25% w4 g64, 75% w2 g128) at full width: a
    256-token prefill of 8 prompts, 32 greedy decode steps in the A8 regime,
    then 32 more after ``prepare_params_for_cuda(..., act_bits_map={2: 16})``
@@ -143,7 +145,7 @@ TPU_KERNELS = {
 }
 SOURCES = {
     "mpq_matmul_a8": "bitorch_engine_tpu_torch/csrc/quad_matmul.cu",
-    "mbwq_matmul": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
+    "mbwq_matmul": "bitorch_engine_tpu_torch/csrc/mbwq_matmul.cu",
     "mpq_matmul": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "dequant_mpq": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "flash_attention": "bitorch_engine_tpu_torch/csrc/flash_attention.cu",
@@ -179,6 +181,15 @@ MBWQ_PROJ = {
     "gate_up": (4096, 22528, 1024, 3072),
     "down": (11008, 4096, 2816, 8192),
 }
+# kernel 7's further checks: rows m at every MBWQ-2.5 projection, and
+# two-segment mixes (w_bit, group size, rows) at a ragged N with their
+# metadata dtype: every width, chunks of 4, 2 and 1 words
+MBWQ_CHECK_M = (1, 16, 64, 512)
+MBWQ_MIXES = (
+    ("w8g64_w1g128_n4132_f32meta", ((8, 64, 1024), (1, 128, 3072)), 4132, "float32"),
+    ("w2g32_w1g32_n2052", ((2, 32, 2048), (1, 32, 2048)), 2052, "bfloat16"),
+    ("w4g16_w2g16_n1028_f32meta", ((4, 16, 1024), (2, 16, 1024)), 1028, "float32"),
+)
 MBWQ_WINDOW_FLOOR = 128  # the bench's MHA window floor (bench.py:500-506)
 MBWQ_PROFILE_STEPS = 4
 # kernel 5's shapes (K, N, w_bit, group size): the MBWQ-2.5 w2 segments
@@ -985,29 +996,52 @@ def mbwq_weight(torch, gen, k, n):
     return qt.replace(segments=tuple(prepare_for_kernel(s, torch.bfloat16) for s in qt.segments))
 
 
+def check_mbwq(torch, name, x, qt):
+    """Kernel 7 on ``x`` against its plain version: f32 out within
+    max|d|/max|ref| <= 1e-3, a second launch bit-equal (no atomics), and the
+    bf16 out bit-equal to the f32 out cast once."""
+    from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul, mbwq_matmul_ref
+
+    got = mbwq_matmul(x, qt, torch.float32)
+    want = mbwq_matmul_ref(x, qt, torch.float32)
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    again = torch.equal(got, mbwq_matmul(x, qt, torch.float32))
+    cast = torch.equal(mbwq_matmul(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+    log(f"kernel mbwq_matmul {name:34s} m={x.shape[0]:<3d} {str(x.dtype)[6:]:8s} max|d|={err:.3e} "
+        f"rel={rel:.3e} rerun bit-equal={again} bf16 out = cast of f32 out: {cast}")
+    check(rel <= 1e-3, f"kernel 7 {name} m={x.shape[0]}: rel {rel} > 1e-3")
+    check(again, f"kernel 7 {name} m={x.shape[0]}: two launches differ")
+    check(cast, f"kernel 7 {name} m={x.shape[0]}: bf16 out is not the f32 out cast")
+    return dict(check=name, m=x.shape[0], x_dtype=str(x.dtype)[6:], max_abs_err=err, rel_err=rel)
+
+
 def phase_mbwq_kernels(torch, gen, flush):
-    """Phase 8b: kernel 7 against its plain version (f32 out, max|d|/max|ref|
-    <= 1e-3, kernel 1's bar) at the MBWQ-2.5 A16 projections, m = 8; timed
-    beside its bound, its plain version, the per-segment path it replaces
-    (kernel 1 per segment on the sliced activations, and the add) and a bf16
-    ``torch.matmul`` on the stacked weight."""
+    """Phase 8b: kernel 7 against its plain version (``check_mbwq``) at the
+    MBWQ-2.5 A16 projections, m = 8 (the rows the main path is reckoned
+    from) and ``MBWQ_CHECK_M``; at ``MBWQ_MIXES``; once with f32
+    activations (the scalar body); timed at m = 8 beside its bound, its plain
+    version, the per-segment path it replaces (kernel 1 per segment on the
+    sliced activations, and the add) and a bf16 ``torch.matmul`` on the
+    stacked weight.  Returns the timed rows and every check."""
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import prepare_for_kernel
     from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul, mbwq_matmul_ref
     from bitorch_engine_tpu_torch.ops.mbwq_linear import dequantize_mbwq
     from bitorch_engine_tpu_torch.ops.mpq_linear import mpq_linear
+    from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
+    from bitorch_engine_tpu_torch.qtensor import MBWQTensor
 
-    rows = []
+    rows, checks = [], []
     for name, (k, n, k4, k2) in MBWQ_PROJ.items():
         qt = mbwq_weight(torch, gen, k, n)
         segs = [(s.w_bit, s.group_size, s.in_features) for s in qt.segments]
         check(segs == [(4, 64, k4), (2, 128, k2)], f"kernel 7 {name}: segments {segs}")
         x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
-        got = mbwq_matmul(x, qt, torch.float32)
-        want = mbwq_matmul_ref(x, qt, torch.float32)
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        log(f"kernel mbwq_matmul {name:8s} K={k} ({k4} w4 g64 + {k2} w2 g128) N={n} m=8  "
-            f"max|d|={err:.3e} rel={rel:.3e}")
-        check(rel <= 1e-3, f"kernel 7 {name}: rel {rel} > 1e-3")
+        main = check_mbwq(torch, f"{name} K={k} N={n}", x, qt)
+        checks.append(main)
+        for m in MBWQ_CHECK_M:
+            xm = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+            checks.append(check_mbwq(torch, f"{name} K={k} N={n}", xm, qt))
         # the stacked weight in segment order, bf16 (the yardstick's operand)
         w_bf16 = dequantize_mbwq(qt.replace(q_perm=None), torch.bfloat16)
 
@@ -1021,21 +1055,37 @@ def phase_mbwq_kernels(torch, gen, flush):
 
         meta = sum(s.packed.nbytes + s.scales.nbytes + s.zeros.nbytes for s in qt.segments)
         bms, bby = bound(meta + x.nbytes + 8 * n * 2, 2 * 8 * k * n)
+        ms = time_ms(torch, lambda: mbwq_matmul(x, qt), flush=flush)
         rows.append(dict(
-            shape=name, K=k, N=n, m=8, segments=segs, max_abs_err=err, rel_err=rel,
-            ms=time_ms(torch, lambda: mbwq_matmul(x, qt), flush=flush),
+            shape=name, K=k, N=n, m=8, segments=segs, max_abs_err=main["max_abs_err"],
+            rel_err=main["rel_err"], ms=ms, per_launch_us=ms * 1e3,
             plain_ms=time_ms(torch, lambda: mbwq_matmul_ref(x, qt), flush=flush),
             per_segment_ms=time_ms(torch, per_segment, flush=flush),
             library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
             bound_ms=bms, bound_by=bby,
         ))
+        if name == "o":  # the f32-activation route: the scalar body
+            checks.append(check_mbwq(torch, f"{name} K={k} N={n} (f32 x)", x.float(), qt))
         del qt, w_bf16
+    for label, spec, n, meta_name in MBWQ_MIXES:
+        meta_dtype = getattr(torch, meta_name)
+        segs = tuple(
+            prepare_for_kernel(quantize_mpq(torch.randn(k, n, device="cuda", generator=gen) * 0.02,
+                                            w_bit, gs), meta_dtype)
+            for w_bit, gs, k in spec
+        )
+        qt = MBWQTensor(segments=segs)
+        k = sum(s.in_features for s in segs)
+        for m in (8,) + MBWQ_CHECK_M:
+            xm = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+            checks.append(check_mbwq(torch, label, xm, qt))
+        del qt
     for r in rows:
         log(f"time mbwq_matmul {r['shape']:8s} kernel {r['ms']:.4f} ms  per-segment kernel 1 + add "
             f"{r['per_segment_ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  torch.matmul(bf16 weight) "
             f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()
-    return rows
+    return rows, checks
 
 
 def build_mbwq_model(torch, num_layers, seed):
@@ -1691,7 +1741,7 @@ def main() -> int:
     # the sub-4-bit slice
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     per_shape["mpq_matmul_a8"] = phase_quad_kernels(torch, gen, flush)
-    per_shape["mbwq_matmul"] = phase_mbwq_kernels(torch, gen, flush)
+    per_shape["mbwq_matmul"], mbwq_checks = phase_mbwq_kernels(torch, gen, flush)
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1736,7 +1786,9 @@ def main() -> int:
         "; pools bit-equal after the write (but the null page 0)"
     checks["mpq_matmul_a8"] = ("f32 accumulator before sx and the cast, max|d|/max|ref| <= 1e-4 "
                                "per shape, affine and mid_sym; activation codes and sx bit-equal")
-    checks["mbwq_matmul"] = "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape"
+    checks["mbwq_matmul"] = ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check "
+                             "(m 1-512, w1/w2/w4/w8 mixes, f32 metadata, ragged N, f32 activations); "
+                             "a second launch bit-equal; the bf16 out the f32 out cast")
     checks["flash_attention_bwd"] = ("max|d|/max|ref| <= 1e-2 for each of dq, dk, dv (bf16 out) per "
                                      "shape")
     checks["xnor_gemm"] = "bit-equal (f32 integers) per shape"
@@ -1787,6 +1839,9 @@ def main() -> int:
                        "one A16 decode step of the MBWQ-2.5 path (every projection)",
                        checks["mbwq_matmul"])
     line["per_segment_ms"] = sum(LAYERS * r["per_segment_ms"] for r in per_shape["mbwq_matmul"])
+    line["per_launch_us"] = {r["shape"]: r["per_launch_us"] for r in per_shape["mbwq_matmul"]}
+    line["max_rel_err_all_checks"] = max(c["rel_err"] for c in mbwq_checks)
+    line["checks"] = mbwq_checks
     kernels.append(line)
     # the training path (phase 12): one backward (a dq and a dkv launch) per
     # layer per step, reckoned at the training shape; library: SDPA's backward

@@ -1,5 +1,6 @@
-// Kernel 7 for bf16 activations on Hopper (sm_90a): the fused mixed-bit
-// (MBWQ) matmul on the tensor cores.
+// Kernels 1 and 7 for bf16 activations on Hopper (sm_90a): the fused
+// mixed-bit (MBWQ) matmul on the tensor cores, and the A16 dequant GEMV as
+// its one-segment case.
 //
 // bte_mbwq_matmul_mma -- replaces bitorch_engine_tpu/ops/pallas/mbwq_matmul.py
 //   :_mbwq_kernel (entry mbwq_matmul_pallas), the fused mixed-bit matmul:
@@ -7,6 +8,12 @@
 //   @ the 1-8 uniform segments stacked along K, in ONE launch, with one f32
 //   accumulator per output and a single cast.  f32 activations keep
 //   dequant_matmul.cu's mbwq_matmul_kernel (the MMA takes bf16 operands).
+//
+// Kernel 1 -- replaces bitorch_engine_tpu/ops/pallas/dequant_matmul.py
+//   :_mpq_kernel, A16 (entry mpq_matmul_pallas), x (m <= 512, K) bf16 @ one
+//   w1/2/4/8 MPQ tensor: the same entry point with a one-segment table
+//   (ops/cuda/dequant_matmul.py mpq_matmul).  f32 activations, and groups
+//   the chunks cannot tile, keep dequant_matmul.cu's mpq_matmul_kernel.
 //
 // Weights: each segment is gptq-order int32 words (K_s / ppw, N), ppw =
 //   32 / W; value j of word r is row r * ppw + j, LSB first.  Metadata
@@ -44,6 +51,16 @@
 //      switches width, chunk shape and metadata.  The warps' partials meet in
 //      shared memory and are summed in warp order: no atomics, the output is
 //      bit-stable from run to run.
+//   4. Too few blocks.  At m <= 8 a block owns 64 columns, so N = 4096 (the
+//      o and down projections) gives 64 blocks for 132 SMs.  Where the split
+//      grid still runs in one wave, kernel 7 launches a cluster of S = 2
+//      blocks that share each tile along K (host: mbwq_matmul.k_splits;
+//      kernel 1 measured slower split and stays at S = 1): the K runs are
+//      cut for S * n_warps warps and rank r takes runs r * n_warps ..
+//      (r + 1) * n_warps - 1.  Each rank sums its warps as above into its shared
+//      memory; after cluster.sync() rank r adds the S partials of its slice
+//      of the tile in rank order through distributed shared memory
+//      (map_shared_rank) and stores it.  No atomics, no second launch.
 //
 // Numerics (as the scalar body and _accumulate_k_step's zeros form): per
 //   group piece, acc += s[g] * dot(x, q) - z[g] * sum(x), with dot and sum
@@ -91,15 +108,18 @@
 // -Xptxas -v on the card (CUDA 12.8): 99 registers at BM 8, 111 at BM 16,
 // 184 at BM 32; no spills, no stack frame.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 constexpr int MAX_NW = 16;          // warps per block (8 or 16), one K run each
+constexpr int MAX_SPLIT = 2;        // blocks of a cluster along K
 constexpr int MAX_SEGS = 8;
 constexpr uint32_t ONES = 0x3F803F80u;  // bf16x2 (1, 1)
 
@@ -117,7 +137,9 @@ struct Seg {
 struct Args {
   Seg seg[MAX_SEGS];
   int n_seg;
-  int cut[MAX_NW + 1];  // each warp's run [cut[w], cut[w + 1]) of the concatenated K
+  // warp w of cluster rank r runs [cut[r * n_warps + w], cut[r * n_warps + w + 1])
+  // of the concatenated K
+  int cut[MAX_NW * MAX_SPLIT + 1];
 };
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
@@ -406,14 +428,17 @@ __device__ __forceinline__ void dispatch_segment(const bf16* __restrict__ x, int
 template <int MT, int NQ, int NW, bool MF32>
 __global__ void __launch_bounds__(NW * 32)
 mbwq_mma_kernel(const bf16* __restrict__ x, void* __restrict__ out, int out_f32, int M, int K,
-                int N, const __grid_constant__ Args args) {
+                int N, int n_split, const __grid_constant__ Args args) {
   constexpr int BM = MT * 8, BN = NQ * 32;
   extern __shared__ uint4 smem[];  // the warps' rings, then the partials
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * BN;
+  // a cluster of n_split blocks along x shares one tile; its rank is the
+  // block's place in it
+  const int rank = blockIdx.x % n_split;
+  const int n0 = blockIdx.x / n_split * BN;
   const int m0 = blockIdx.y * BM;
 
   float acc[NQ][2][MT][4];
@@ -426,7 +451,7 @@ mbwq_mma_kernel(const bf16* __restrict__ x, void* __restrict__ out, int out_f32,
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[q][h][mt][r] = 0.f;
 
-  const int k_lo = args.cut[warp], k_hi = args.cut[warp + 1];
+  const int k_lo = args.cut[rank * NW + warp], k_hi = args.cut[rank * NW + warp + 1];
   for (int si = 0; si < args.n_seg; ++si) {
     const Seg& sg = args.seg[si];
     const int lo = max(k_lo, sg.k_off), hi = min(k_hi, sg.k_off + sg.k);
@@ -448,58 +473,94 @@ mbwq_mma_kernel(const bf16* __restrict__ x, void* __restrict__ out, int out_f32,
         for (int r = 0; r < 4; ++r)
           red[warp][mt * 8 + 2 * t + (r & 1)][32 * q + 4 * g + 2 * h + (r >> 1)] = acc[q][h][mt][r];
   __syncthreads();
+  auto store = [&](int idx, float v) {
+    const int m = m0 + idx / BN, n = n0 + idx % BN;
+    if (m < M && n < N) {
+      if (out_f32) static_cast<float*>(out)[(size_t)m * N + n] = v;
+      else static_cast<bf16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(v);
+    }
+  };
+  float* part = &red[NW][0][0];  // this rank's sum of the tile, past the warps' parts
   for (int idx = threadIdx.x; idx < BM * BN; idx += NW * 32) {
     const int i = idx / BN, c = idx % BN;
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) sum += red[w][i][c];
-    const int m = m0 + i, n = n0 + c;
-    if (m < M && n < N) {
-      if (out_f32) static_cast<float*>(out)[(size_t)m * N + n] = sum;
-      else static_cast<bf16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(sum);
+    if (n_split == 1) store(idx, sum);
+    else part[idx] = sum;
+  }
+  if (n_split > 1) {
+    // the ranks' partials, added in rank order by the rank that owns each
+    // slice of the tile
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's partial is in its shared memory
+    const int per = (BM * BN + n_split - 1) / n_split;
+    const int hi = min(BM * BN, (rank + 1) * per);
+    for (int idx = rank * per + threadIdx.x; idx < hi; idx += NW * 32) {
+      float sum = 0.f;
+      for (int r = 0; r < n_split; ++r) sum += cluster.map_shared_rank(part, r)[idx];
+      store(idx, sum);
     }
+    cluster.sync();  // no block leaves while a peer still reads its shared memory
   }
 }
 
 template <int MT, int NQ, int NW, bool MF32>
 cudaError_t launch_kernel(const bf16* x, void* out, int out_f32, int M, int K, int N,
-                          const Args& a, cudaStream_t st) {
-  constexpr int RED = NW * MT * 8 * NQ * 32 * 4;
+                          int n_split, const Args& a, cudaStream_t st) {
+  // the warps' parts and the rank's sum of the tile
+  constexpr int RED = (NW + 1) * MT * 8 * NQ * 32 * 4;
   constexpr int SMEM = SMEM_BYTES > RED ? SMEM_BYTES : RED;
-  cudaError_t err = cudaFuncSetAttribute(mbwq_mma_kernel<MT, NQ, NW, MF32>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  auto kern = mbwq_mma_kernel<MT, NQ, NW, MF32>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + NQ * 32 - 1) / (NQ * 32), (M + MT * 8 - 1) / (MT * 8));
-  mbwq_mma_kernel<MT, NQ, NW, MF32><<<grid, NW * 32, SMEM, st>>>(x, out, out_f32, M, K, N, a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + NQ * 32 - 1) / (NQ * 32) * n_split, (M + MT * 8 - 1) / (MT * 8));
+  cfg.blockDim = dim3(NW * 32);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, x, out, out_f32, M, K, N, n_split, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int MT, int NQ, int NW>
 cudaError_t launch(const void* x, void* out, int out_f32, int meta_f32, int M, int K, int N,
-                   const Args& a, cudaStream_t st) {
+                   int n_split, const Args& a, cudaStream_t st) {
   const bf16* xb = static_cast<const bf16*>(x);
-  if (meta_f32) return launch_kernel<MT, NQ, NW, true>(xb, out, out_f32, M, K, N, a, st);
-  return launch_kernel<MT, NQ, NW, false>(xb, out, out_f32, M, K, N, a, st);
+  if (meta_f32) return launch_kernel<MT, NQ, NW, true>(xb, out, out_f32, M, K, N, n_split, a, st);
+  return launch_kernel<MT, NQ, NW, false>(xb, out, out_f32, M, K, N, n_split, a, st);
 }
 
 }  // namespace
 
-// Kernel 7, bf16 activations, over n_seg segments (host arrays of
+// Kernels 1 and 7, bf16 activations, over n_seg segments (host arrays of
 // per-segment pointers, widths, group sizes, rows and words per chunk, in
-// the order of x's columns), the warps of a block (16 for M <= 8, with 64
-// columns and 8 rows; else 8, with 32 columns and 16 or 32 rows) and the
-// n_warps + 1 cuts of their K runs.  Shapes, dtypes, alignment, chunks and
-// cuts are checked by the Python wrapper (ops/cuda/mbwq_matmul.py); this
-// returns cudaErrorInvalidValue on a table it cannot take, else the
-// launch's cudaGetLastError().
+// the order of x's columns; kernel 1 passes one), the warps of a block (16
+// for M <= 8, with 64 columns and 8 rows; else 8, with 32 columns and 16
+// or 32 rows), the blocks of a cluster along K (n_split: 1 or 2) and
+// the n_split * n_warps + 1 cuts of their K runs.  Shapes, dtypes,
+// alignment, chunks and cuts are checked by the Python wrapper
+// (ops/cuda/mbwq_matmul.py launch_mma); this returns cudaErrorInvalidValue
+// on a table it cannot take, else the launch's error (a cluster the card
+// cannot place included).
 extern "C" int bte_mbwq_matmul_mma(const void* x, int n_seg, const void* const* packed,
                                    const void* const* scales, const void* const* zeros,
                                    const int* w_bits, const int* group_sizes, const int* k_segs,
-                                   const int* chunk_words, int n_warps, const int* cuts,
-                                   void* out, int M, int K, int N, int meta_dtype,
-                                   int out_dtype, void* stream) {
+                                   const int* chunk_words, int n_warps, int n_split,
+                                   const int* cuts, void* out, int M, int K, int N,
+                                   int meta_dtype, int out_dtype, void* stream) {
   if (n_seg < 1 || n_seg > MAX_SEGS || N % 4) return cudaErrorInvalidValue;
   if (n_warps != (M <= 8 ? 16 : 8)) return cudaErrorInvalidValue;
+  if (n_split != 1 && n_split != MAX_SPLIT) return cudaErrorInvalidValue;
+  const int n_cuts = n_warps * n_split;
   Args a = {};
   int k_off = 0;
   for (int i = 0; i < n_seg; ++i) {
@@ -510,8 +571,8 @@ extern "C" int bte_mbwq_matmul_mma(const void* x, int n_seg, const void* const* 
                    w, c, group_sizes[i]};
     k_off += k_segs[i];
   }
-  if (k_off != K || cuts[0] != 0 || cuts[n_warps] != K) return cudaErrorInvalidValue;
-  for (int w = 0; w <= n_warps; ++w) {
+  if (k_off != K || cuts[0] != 0 || cuts[n_cuts] != K) return cudaErrorInvalidValue;
+  for (int w = 0; w <= n_cuts; ++w) {
     if (w && cuts[w] < cuts[w - 1]) return cudaErrorInvalidValue;
     // a cut falls on a chunk boundary of the segment it lies in
     for (int i = 0; i < n_seg; ++i) {
@@ -525,9 +586,9 @@ extern "C" int bte_mbwq_matmul_mma(const void* x, int n_seg, const void* const* 
   a.n_seg = n_seg;
   const int out_f32 = out_dtype == 0, meta_f32 = meta_dtype == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch<1, 2, 16>(x, out, out_f32, meta_f32, M, K, N, a, st);
-  if (M <= 16) return launch<2, 1, 8>(x, out, out_f32, meta_f32, M, K, N, a, st);
-  return launch<4, 1, 8>(x, out, out_f32, meta_f32, M, K, N, a, st);
+  if (M <= 8) return launch<1, 2, 16>(x, out, out_f32, meta_f32, M, K, N, n_split, a, st);
+  if (M <= 16) return launch<2, 1, 8>(x, out, out_f32, meta_f32, M, K, N, n_split, a, st);
+  return launch<4, 1, 8>(x, out, out_f32, meta_f32, M, K, N, n_split, a, st);
 }
 
 extern "C" const char* bte_error_string(int err) {

@@ -23,8 +23,15 @@
 // per slot (the window is their prefix); table (b, >= P) int32 with row
 // stride table_stride; cache_len (b,) int32.
 //
-// Design.  One block per (tile of R query rows, KV head, slot); 256
-// threads.  The reference forms p against the row max of the WHOLE window
+// Two kernels, the route picked by the wrapper from the call's form:
+// paged_decode_kernel for the write-back form with at most 8 query rows
+// (every decode step of the repo's Llama configurations) where a cluster
+// of at most 4 blocks fits its share of the window in shared memory, else
+// paged_attention_kernel (the read-only chunk form, and windows past about
+// 16K positions at 8 rows, 29K at 4).
+//
+// paged_attention_kernel.  One block per (tile of R query rows, KV head,
+// slot); 256 threads.  The reference forms p against the row max of the WHOLE window
 // and rounds p to bf16 before the PV product, so a one-pass online softmax
 // (rounding p against a running max) would drift from it.  The block keeps
 // its R x W f32 scores in shared memory and makes two passes: pass 1 walks
@@ -47,17 +54,50 @@
 // Bound on the H100: bytes at decode.  One launch reads the valid K and V
 // rows (b8, window 512, int8, nkv * hd = 1024: ~8.4 MB), their scales and
 // q, ~2.6 us at 3.35 TB/s.  At chunked prefill (rs = 1024 rows) the dots
-// dominate and the bf16 tensor-core rate sets the floor.  This first kernel
-// uses f32 CUDA-core FMAs and no asynchronous copies; at decode the grid is
-// b * nkv blocks (64 at b8 on 132 SMs).  Splitting the window across blocks,
-// a cp.async page ring and mma are later work.
+// dominate and the bf16 tensor-core rate sets the floor.  This kernel uses
+// f32 CUDA-core FMAs and no asynchronous copies; mma for the chunk form is
+// later work.
+//
+// paged_decode_kernel (write-back, rs <= 8).  The first kernel gave b * nkv
+// blocks at decode (64 at b8 on 132 SMs), each walking its whole window
+// with a few bytes in flight: 55 us a launch on the H100 against a ~1 us
+// bound.  Here a
+// cluster of S blocks (host: paged_attention.window_splits) shares each
+// (KV head, slot); rank r takes the r-th contiguous share of the slot's
+// valid pages.  A plain split (flash-decoding, each part rounding p against
+// its own max) would drift from the reference, which rounds p against the
+// WHOLE window's max, so the ranks meet twice:
+//   1. each rank streams its K rows through a 32 KB ring of chunks of 64
+//      positions in shared memory (cp.async, 16 bytes a thread, all but
+//      one chunk ahead), scores them (16 lanes a position, 8 columns a lane,
+//      q in registers, a 4-step shuffle sum) into its R x span score slab
+//      and takes its rows' local max; its span's k / v scales are read
+//      into shared memory up front, all at once;
+//   2. cluster.sync(); every rank reads the S local maxes through
+//      distributed shared memory (map_shared_rank) and forms the window's
+//      m, then p = exp(s - m) [* v_scale] rounded to bf16 and its part of l,
+//      exactly as the first kernel does;
+//   3. it streams its V rows through the same ring (the first chunks
+//      issued before the cluster wait), a warp per position, 4 columns a
+//      lane, its warps' PV parts summed in warp order;
+//   4. cluster.sync(); rank r adds the S partial acc of its slice of the
+//      (R, hd) tile in rank order, rank 0 the l parts (the same order);
+//      no atomics, reruns bit-equal;
+//   5. rank 0 writes k_new / v_new (every rank's reads are over), and a last
+//      cluster.sync() keeps each block's shared memory alive for its peers.
+// Only the f32 order of the dots, of l and of acc changes.  What holds it
+// back now: launching a cluster and its three synchronisations cost a few
+// microseconds that grow with S (so S <= 4), against a ~1 us bound.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int PA_THREADS = 256;
 constexpr int PA_WARPS = PA_THREADS / 32;
@@ -80,6 +120,32 @@ __device__ __forceinline__ void load_f32(const T* __restrict__ p, float* out) {
     w[0] = v.x; w[1] = v.y;
   } else {
     w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if constexpr (sizeof(T) == 1) {
+      out[k] = (float)(int8_t)((w[k / 4] >> (8 * (k % 4))) & 0xffu);
+    } else {
+      out[k] = __uint_as_float(((w[k / 2] >> (16 * (k % 2))) & 0xffffu) << 16);
+    }
+  }
+}
+
+// N elements at p in shared memory (N * sizeof(T) = 4, 8 or 16 bytes,
+// aligned to that) → f32.
+template <typename T, int N>
+__device__ __forceinline__ void load_smem_f32(const T* p, float* out) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  uint32_t w[4];
+  if constexpr (BYTES == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (BYTES == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else {
+    static_assert(BYTES == 4, "4, 8 or 16 bytes");
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -247,6 +313,264 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q, T* k_pool, T* v_pool
   }
 }
 
+constexpr int DEC_CH = 64;  // positions of a ring chunk
+// the ring: 32 KB, 4 chunks of int8 rows or 2 of bf16 rows (deeper or
+// larger rings measured no faster on the card, PERF.md §6)
+constexpr int DEC_RING_BYTES = 32 * 1024;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but the newest N committed groups of this thread's copies have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory of paged_decode_kernel (floats, then the table row): the
+// ring, the R x span scores, the span's k and v scales, the warps' PV
+// parts, the rank's acc part and its m / l parts.
+size_t dec_smem_bytes(int R, int HD, int span, int P) {
+  return DEC_RING_BYTES +
+         ((size_t)(R + 2) * span + (size_t)PA_WARPS * R * HD + (size_t)R * HD + 2 * R) *
+             sizeof(float) +
+         (size_t)P * sizeof(int);
+}
+
+template <typename T, int HD, int R>
+__global__ void __launch_bounds__(PA_THREADS)
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q, T* k_pool, T* v_pool,
+                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                    const int* __restrict__ table, const int* __restrict__ cache_len,
+                    const T* __restrict__ k_new, const T* __restrict__ v_new,
+                    float* __restrict__ acc_out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int nkv, int rs, int ps, int P, int table_stride,
+                    int scale_len, float sm_scale, int n_split, int span_cap) {
+  constexpr int UPR = HD * (int)sizeof(T) / 16;  // 16-byte units of a head row
+  constexpr int ROWB = HD * (int)sizeof(T);      // bytes of a head row
+  constexpr int STAGE = DEC_CH * ROWB;           // bytes of a ring chunk
+  constexpr int D = DEC_RING_BYTES / STAGE;      // ring depth (chunks)
+  constexpr int CPL = 4;                         // PV columns per lane
+  static_assert(HD == 128 && R <= PA_WARPS, "hd 128, one warp per query row");
+  static_assert(PA_THREADS == 16 * 16 && DEC_CH % 16 == 0, "16 lanes score each position");
+  static_assert(D >= 2, "the ring holds at least two chunks");
+  // the pools are not __restrict__: rank 0 stores the new row into them, at
+  // a position no block reads
+
+  extern __shared__ float4 smem_f4[];
+  char* ring = reinterpret_cast<char*>(smem_f4);
+  float* s_s = reinterpret_cast<float*>(ring + DEC_RING_BYTES);  // (R, span_cap)
+  float* ks_s = s_s + R * span_cap;      // (span_cap,) k scales of the span
+  float* vs_s = ks_s + span_cap;         // (span_cap,) v scales of the span
+  float* red = vs_s + span_cap;          // (PA_WARPS, R, HD) the warps' PV parts
+  float* part = red + PA_WARPS * R * HD; // (R, HD) this rank's acc
+  float* m_loc = part + R * HD;          // (R,) this rank's row maxes
+  float* l_loc = m_loc + R;              // (R,) this rank's part of l
+  int* tbl_s = reinterpret_cast<int*>(l_loc + R);  // (P,) the window's pages
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int rank = blockIdx.x;  // the cluster spans x: blockIdx.x is the rank
+  const int g = blockIdx.y;
+  const int t = blockIdx.z;
+  const int F = nkv * HD;  // pool row width
+  const int clen = max(cache_len[t], 0);
+  const int nv = min(clen, P * ps);
+  const bool quant = k_scale != nullptr;
+  const size_t head_row0 = ((size_t)t * nkv + g) * rs;
+  // this rank's share of the valid pages, as positions [lo, hi)
+  const int nvp = (nv + ps - 1) / ps;
+  const int lo = rank * nvp / n_split * ps;
+  const int hi = min((rank + 1) * nvp / n_split * ps, nv);
+  const int n_chunks = hi > lo ? (hi - lo + DEC_CH - 1) / DEC_CH : 0;
+
+  // the lane's 8 columns of q (see pass 1) in registers, the table row and
+  // the span's scales in shared memory
+  const int jq = tid / 16, l16 = tid % 16;
+  float qr[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < rs) {
+      load_f32<__nv_bfloat16, 8>(q + (head_row0 + r) * HD + l16 * 8, qr[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qr[r][e] = 0.f;
+    }
+  }
+  for (int i = tid; i < P; i += PA_THREADS) tbl_s[i] = table[(size_t)t * table_stride + i];
+  if (quant) {
+    for (int i = tid; i < hi - lo; i += PA_THREADS) {
+      const size_t at = ((size_t)t * scale_len + lo + i) * nkv + g;
+      ks_s[i] = __ldg(k_scale + at);
+      vs_s[i] = __ldg(v_scale + at);
+    }
+  }
+  __syncthreads();
+
+  // chunk c of this rank's positions (of pool `pool`) into ring stage c % D;
+  // one commit group per chunk slot, empty past the last chunk
+  auto issue = [&](const T* pool, int c) {
+    if (c < n_chunks) {
+      char* st = ring + (c % D) * STAGE;
+      const int c0 = lo + c * DEC_CH;
+      for (int u = tid; u < DEC_CH * UPR; u += PA_THREADS) {
+        const int jj = u / UPR, col = u % UPR, j = c0 + jj;
+        if (j < hi)
+          cp_async16(st + jj * ROWB + col * 16,
+                     pool + ((size_t)tbl_s[j / ps] * ps + j % ps) * F + g * HD + col * (16 / sizeof(T)));
+      }
+    }
+    cp_async_commit();
+  };
+
+  // 1. scores: positions jq and jq + 16 of a chunk to the 16 lanes tid / 16,
+  // each lane the 8 columns l16 * 8 .. + 7
+  for (int p = 0; p < D - 1; ++p) issue(k_pool, p);
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<D - 2>();  // chunk c has landed (this thread's copies)
+    __syncthreads();             // everyone's copies; stage (c - 1) % D is free
+    issue(k_pool, c + D - 1);
+#pragma unroll
+    for (int h = 0; h < DEC_CH / 16; ++h) {
+      const int jc = h * 16 + jq, j = lo + c * DEC_CH + jc;
+      float kf[8];
+      load_smem_f32<T, 8>(
+          reinterpret_cast<const T*>(ring + (c % D) * STAGE + jc * ROWB) + l16 * 8, kf);
+      float dot[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a = fmaf(qr[r][e], kf[e], a);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+        dot[r] = a;
+      }
+      if (l16 == 0 && j < hi) {
+        const float ks = quant ? ks_s[j - lo] : 1.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float sc = dot[r] * sm_scale;
+          s_s[r * span_cap + j - lo] = quant ? sc * ks : sc;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free, the scores are in
+  for (int p = 0; p < D - 1; ++p) issue(v_pool, p);  // V's first chunks, ahead of the wait
+
+  // the rank's row maxes
+  const int span = hi - lo;
+  if (warp < R) {
+    float mx = PA_MASK;
+    for (int j = lane; j < span; j += 32) mx = fmaxf(mx, s_s[warp * span_cap + j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) m_loc[warp] = mx;
+  }
+  // 2. the window's max from every rank, then p rounded against it
+  if (n_split > 1) cluster.sync();
+  else __syncthreads();
+  if (warp < R) {
+    float mx = PA_MASK;
+    for (int r = 0; r < n_split; ++r)
+      mx = fmaxf(mx, n_split > 1 ? cluster.map_shared_rank(m_loc, r)[warp] : m_loc[warp]);
+    float* srow = s_s + warp * span_cap;
+    float sum = 0.f;
+    for (int j = lane; j < span; j += 32) {
+      const float p = expf(srow[j] - mx);
+      sum += p;
+      const float vs = quant ? vs_s[j] : 1.f;
+      srow[j] = round_bf16(quant ? p * vs : p);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) l_loc[warp] = sum;
+  }
+
+  // 3. PV: warp w takes positions w, w + 8, ... of each chunk, lane 4 columns
+  float acc[R][CPL];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < CPL; ++e) acc[r][e] = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<D - 2>();
+    __syncthreads();  // (the first pass also sees every row's p)
+    issue(v_pool, c + D - 1);
+    const char* st = ring + (c % D) * STAGE;
+#pragma unroll
+    for (int i = 0; i < DEC_CH / PA_WARPS; ++i) {
+      const int jc = warp + i * PA_WARPS, jr = c * DEC_CH + jc;  // jr: rank-relative
+      if (lo + jr < hi) {
+        float vf[CPL];
+        load_smem_f32<T, CPL>(reinterpret_cast<const T*>(st + jc * ROWB) + lane * CPL, vf);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float p = s_s[r * span_cap + jr];
+#pragma unroll
+          for (int e = 0; e < CPL; ++e) acc[r][e] = fmaf(p, vf[e], acc[r][e]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < CPL; ++e) red[((size_t)warp * R + r) * HD + lane * CPL + e] = acc[r][e];
+  __syncthreads();
+  for (int i = tid; i < R * HD; i += PA_THREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < PA_WARPS; ++w) sum += red[(size_t)w * R * HD + i];
+    part[i] = sum;
+  }
+
+  // 4. the ranks' parts, added in rank order
+  if (n_split > 1) cluster.sync();
+  else __syncthreads();
+  auto peer = [&](float* p_, int r) { return n_split > 1 ? cluster.map_shared_rank(p_, r) : p_; };
+  const int per = (rs * HD + n_split - 1) / n_split;
+  for (int i = rank * per + tid; i < min(rs * HD, (rank + 1) * per); i += PA_THREADS) {
+    float sum = 0.f;
+    for (int r = 0; r < n_split; ++r) sum += peer(part, r)[i];
+    acc_out[head_row0 * HD + i] = sum;
+  }
+  if (rank == 0 && tid < rs) {
+    float mx = PA_MASK, sum = 0.f;
+    for (int r = 0; r < n_split; ++r) {
+      mx = fmaxf(mx, peer(m_loc, r)[tid]);
+      sum += peer(l_loc, r)[tid];
+    }
+    m_out[head_row0 + tid] = mx;
+    l_out[head_row0 + tid] = sum;
+  }
+
+  // 5. the new token, once every rank's reads are over
+  if (rank == 0) {
+    const int wp = min(clen / ps, P - 1);
+    const size_t dst = ((size_t)tbl_s[wp] * ps + clen % ps) * F + g * HD;
+    const size_t src = (size_t)t * F + g * HD;
+    for (int i = tid; i < HD; i += PA_THREADS) {
+      k_pool[dst + i] = k_new[src + i];
+      v_pool[dst + i] = v_new[src + i];
+    }
+  }
+  if (n_split > 1) cluster.sync();  // no block leaves while a peer reads its shared memory
+}
+
 // q tile, the key splits' parts of acc (NJ * R = 8 * min(R, 8) rows), the
 // scores and the window's table row
 size_t smem_bytes(int R, int HD, int P, int ps) {
@@ -293,7 +617,85 @@ cudaError_t launch_rows(int R, const void* q, void* k_pool, void* v_pool,
 #undef PA_CASE
 }
 
+template <typename T, int R>
+cudaError_t launch_decode(const void* q, void* k_pool, void* v_pool, const void* k_scale,
+                          const void* v_scale, const void* table, int table_stride,
+                          const void* cache_len, const void* k_new, const void* v_new, void* acc,
+                          void* m, void* l, int b, int nkv, int rs, int ps, int P, int scale_len,
+                          float sm_scale, int n_split, cudaStream_t stream) {
+  auto kern = paged_decode_kernel<T, 128, R>;
+  const int span_cap = (P + n_split - 1) / n_split * ps;
+  const size_t smem = dec_smem_bytes(R, 128, span_cap, P);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, nkv, b);
+  cfg.blockDim = dim3(PA_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const __nv_bfloat16*>(q), static_cast<T*>(k_pool),
+      static_cast<T*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(table),
+      static_cast<const int*>(cache_len), static_cast<const T*>(k_new),
+      static_cast<const T*>(v_new), static_cast<float*>(acc), static_cast<float*>(m),
+      static_cast<float*>(l), nkv, rs, ps, P, table_stride, scale_len, sm_scale, n_split,
+      span_cap);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_decode_rows(int R, const void* q, void* k_pool, void* v_pool,
+                               const void* k_scale, const void* v_scale, const void* table,
+                               int table_stride, const void* cache_len, const void* k_new,
+                               const void* v_new, void* acc, void* m, void* l, int b, int nkv,
+                               int rs, int ps, int P, int scale_len, float sm_scale, int n_split,
+                               cudaStream_t st) {
+#define PD_CASE(RR)                                                                          \
+  case RR:                                                                                   \
+    return launch_decode<T, RR>(q, k_pool, v_pool, k_scale, v_scale, table, table_stride,    \
+                                cache_len, k_new, v_new, acc, m, l, b, nkv, rs, ps, P,       \
+                                scale_len, sm_scale, n_split, st);
+  switch (R) {
+    PD_CASE(1) PD_CASE(2) PD_CASE(4) PD_CASE(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef PD_CASE
+}
+
 }  // namespace
+
+// The write-back decode form on paged_decode_kernel: R is rs rounded up to
+// a power of 2 (<= 8), n_split the blocks of a cluster per (KV head, slot)
+// (1, 2 or 4, at most the window's pages); the wrapper checks shapes and
+// dtypes and picks R and n_split so that the shared memory fits
+// (ops/cuda/paged_attention.py decode_plan).  Returns the
+// launch's error (a cluster the card cannot place included).
+extern "C" int bte_paged_decode(const void* q, void* k_pool, void* v_pool, const void* k_scale,
+                                const void* v_scale, const void* table, int table_stride,
+                                const void* cache_len, const void* k_new, const void* v_new,
+                                void* acc, void* m, void* l, int b, int nkv, int rs, int hd,
+                                int ps, int P, int scale_len, int pool_int8, int R,
+                                int n_split, float sm_scale, void* stream) {
+  if (hd != 128 || k_new == nullptr || v_new == nullptr || rs > R || R > 8 ||
+      (n_split != 1 && n_split != 2 && n_split != 4) || n_split > P)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PD_ARGS                                                                                 \
+  R, q, k_pool, v_pool, k_scale, v_scale, table, table_stride, cache_len, k_new, v_new, acc, m, \
+      l, b, nkv, rs, ps, P, scale_len, sm_scale, n_split, st
+  return pool_int8 ? launch_decode_rows<int8_t>(PD_ARGS) : launch_decode_rows<__nv_bfloat16>(PD_ARGS);
+#undef PD_ARGS
+}
 
 // Shapes, dtypes, contiguity and the row tile R (a power of 2 <= 32 whose
 // shared memory fits) are checked and chosen by the Python wrapper

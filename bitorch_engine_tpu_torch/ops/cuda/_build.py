@@ -15,6 +15,7 @@ machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -116,6 +119,13 @@ def function(stem: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the launch rules
+    size clusters by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(stem: str, err: int, what: str) -> None:

@@ -1,9 +1,13 @@
 """Kernels 1 and 2: the fused dequant-matmul and the streaming dequant.
 
 The counterpart of ``bitorch_engine_tpu/ops/pallas/dequant_matmul.py``.  The
-kernels (``csrc/dequant_matmul.cu``) take the "gptq" row order with
-symmetric float zeros (``w = q * s - z``); :func:`prepare_for_kernel`
-brings any :class:`MPQTensor` to that form once, at load time.
+kernels take the "gptq" row order with symmetric float zeros (``w = q * s -
+z``); :func:`prepare_for_kernel` brings any :class:`MPQTensor` to that form
+once, at load time.  Kernel 1 has two bodies, picked up front by
+:func:`mpq_matmul_route`: bf16 activations run kernel 7's tensor-core body
+(``csrc/mbwq_matmul.cu``) with the tensor as its one segment, f32
+activations the scalar ``mpq_matmul_kernel`` (``csrc/dequant_matmul.cu``),
+as does kernel 2.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; it runs the plain PyTorch version beside it only for
@@ -152,13 +156,28 @@ def mpq_matmul_ref(
     return (x.float() @ w).to(out_dtype or x.dtype)
 
 
+def mpq_matmul_route(x_dtype: torch.dtype, qt: MPQTensor) -> str:
+    """Kernel 1's body on the card: ``"mma"`` (kernel 7's tensor-core body,
+    one segment) for bf16 activations and a group size its chunks tile (a
+    multiple of 16 that the chunk of ``mbwq_matmul.chunk_words`` divides:
+    every Llama configuration of the repo), else ``"scalar"``
+    (``mpq_matmul_kernel``: f32 activations, or groups of 8 w4 / 4 w8 codes
+    and the like)."""
+    from .mbwq_matmul import tiles_group  # that module imports this one
+
+    if x_dtype == torch.bfloat16 and tiles_group(qt.w_bit, qt.group_size):
+        return "mma"
+    return "scalar"
+
+
 def mpq_matmul(
     x: torch.Tensor, qt: MPQTensor, out_dtype: Optional[torch.dtype] = None
 ) -> torch.Tensor:
     """Kernel 1: ``x (m, K) @ dequant(qt) (K, N)`` with f32 accumulation.
 
     ``out_dtype`` defaults to ``x.dtype``; ``torch.float32`` returns the
-    accumulator before any cast."""
+    accumulator before any cast.  On the card the body is the one
+    :func:`mpq_matmul_route` names; neither falls back to the other."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return mpq_matmul_ref(x, qt, out_dtype)
@@ -176,13 +195,20 @@ def mpq_matmul(
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    err = _mpq_fn()(
-        x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(),
-        out.data_ptr(), m, k, n, qt.w_bit, qt.group_size,
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[qt.scales.dtype], _DTYPE_CODE[out_dtype],
-        _stream(x.device),
-    )
-    _build.check("dequant_matmul", err, "mpq_matmul launch")
+    if mpq_matmul_route(x.dtype, qt) == "mma":
+        from .mbwq_matmul import launch_mma  # that module imports this one
+
+        # unsplit: a cluster along K measured slower at every 8B shape
+        # (PERF.md §6)
+        launch_mma(x, (qt,), out, "mpq_matmul launch", 1)
+    else:
+        err = _mpq_fn()(
+            x.data_ptr(), qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(),
+            out.data_ptr(), m, k, n, qt.w_bit, qt.group_size,
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[qt.scales.dtype], _DTYPE_CODE[out_dtype],
+            _stream(x.device),
+        )
+        _build.check("dequant_matmul", err, "mpq_matmul launch")
     mpq_matmul.launches += 1
     return out
 

@@ -2,10 +2,15 @@
 write.
 
 The counterpart of ``bitorch_engine_tpu/ops/pallas/paged_attention.py``.
-The kernel lives in ``csrc/paged_attention.cu``; each wrapper launches it
-for CUDA tensors, raises on what it does not take, and runs the plain
-version beside it only for CPU tensors.  ``paged_prefix_attention.launches``
-and ``paged_prefix_attention_update.launches`` count launches.
+The kernels live in ``csrc/paged_attention.cu``: the write-back form with
+at most :data:`DECODE_MAX_ROWS` query rows (every decode step) runs
+``paged_decode_kernel``, the window split over a cluster of blocks per (KV
+head, slot), where :func:`decode_plan` finds a cluster size whose share of
+the window fits the kernel's shared memory; everything else
+``paged_attention_kernel``.  Each wrapper launches a kernel for CUDA
+tensors, raises on what it does not take, and runs the plain version beside
+it only for CPU tensors.  ``paged_prefix_attention.launches`` and
+``paged_prefix_attention_update.launches`` count launches.
 
 Both return the unnormalised streaming-softmax state ``(acc, m, l)`` of
 ``q`` over each slot's cached prefix: ``acc`` (b, nkv, rs, hd) f32 and the
@@ -31,7 +36,9 @@ _I = ctypes.c_int
 MASK = -1e30
 HEAD_DIMS = (128,)
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
-_WARPS = 8  # warps per block in the kernel
+_WARPS = 8  # warps per block in the kernels
+DECODE_MAX_ROWS = 8  # query rows per KV head that paged_decode_kernel takes
+_DEC_RING_BYTES = 32 * 1024  # paged_decode_kernel's ring
 
 CacheLen = Union[int, Sequence[int], torch.Tensor]
 
@@ -43,6 +50,65 @@ def _fn():
         [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_fn():
+    return _build.function(
+        "paged_attention", "bte_paged_decode",
+        [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    )
+
+
+def window_splits(b: int, nkv: int, P: int, sms: int = 132) -> int:
+    """Blocks of a cluster that share one (KV head, slot) of the decode
+    kernel, each a contiguous share of the window's ``P`` pages: the largest
+    of 4 and 2 whose ``b · nkv · S`` blocks fit two to an SM on the ``sms``
+    SMs, else 1, and never more than ``P``.  Batch 8 of Llama-3-8B (8 KV
+    heads) takes 4, batch 16 2, batch 32 and up 1.  On the card a cluster
+    costs a few µs of launch and synchronisation that grow with its size
+    (PERF.md §6), so 8 is never taken."""
+    s = 1
+    for cand in (4, 2):
+        if b * nkv * cand <= 2 * sms:
+            s = cand
+            break
+    while s > P:
+        s //= 2
+    return s
+
+
+def decode_plan(b: int, nkv: int, rs: int, hd: int, P: int, ps: int,
+                sms: int = 132) -> Optional[Tuple[int, int]]:
+    """The write-back form's route, chosen from the shape: ``(R, S)`` for
+    ``paged_decode_kernel`` (``R`` the ``rs`` query rows rounded up to a
+    power of 2, ``S`` the cluster size of :func:`window_splits`, doubled up
+    to 4 and ``P`` while a rank's share of the window does not fit shared
+    memory), or None where ``rs`` exceeds :data:`DECODE_MAX_ROWS` or no
+    such cluster fits, and ``paged_attention_kernel`` takes the call.  A
+    full card with a long window (batch 34 of Qwen2-7B at 4096, batch 33 of
+    Llama-3-8B at 8192) takes a cluster of 2; windows past about 16K
+    positions at 8 rows (29K at 4) take the other kernel."""
+    if rs > DECODE_MAX_ROWS:
+        return None
+    r = 1
+    while r < rs:
+        r *= 2
+    s = window_splits(b, nkv, P, sms)
+    while _decode_smem_bytes(r, hd, P, ps, s) > _SMEM_LIMIT:
+        if 2 * s > min(4, P):
+            return None
+        s *= 2
+    return r, s
+
+
+def _decode_smem_bytes(r: int, hd: int, P: int, ps: int, n_split: int) -> int:
+    """Shared memory of ``paged_decode_kernel`` (``dec_smem_bytes`` in the
+    source): its ring, the rank's scores and scales, its warps' PV parts,
+    its acc part, its m and l parts and the window's table row."""
+    span = -(-P // n_split) * ps
+    return _DEC_RING_BYTES + ((r + 2) * span + _WARPS * r * hd + r * hd + 2 * r) * 4 + P * 4
 
 
 def cache_len_tensor(cache_len: CacheLen, b: int, device) -> torch.Tensor:
@@ -193,13 +259,17 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, cache_len, k_new, v
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _fn()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
-        page_table.data_ptr(), page_table.stride(0), clen.data_ptr(), ptr(k_new), ptr(v_new),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, nkv, rs, hd, ps, P, scale_len, int(quant), _rows_per_tile(rs, hd, P, ps),
-        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
+            page_table.data_ptr(), page_table.stride(0), clen.data_ptr(), ptr(k_new), ptr(v_new),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, nkv, rs, hd, ps, P, scale_len,
+            int(quant))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = None if k_new is None else decode_plan(b, nkv, rs, hd, P, ps,
+                                                  _build.sm_count(dev.index or 0))
+    if plan is not None:
+        err = _decode_fn()(*args, *plan, float(sm_scale), stream)
+    else:
+        err = _fn()(*args, _rows_per_tile(rs, hd, P, ps), float(sm_scale), stream)
     _build.check("paged_attention", err, f"{what} launch")
     return acc, m, l
 

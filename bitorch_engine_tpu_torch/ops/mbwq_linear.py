@@ -9,10 +9,13 @@ and sums the segments' products.
 
 Dispatch of the forward (``m`` rows after flattening):
 
-* on the card, ``m <= MAX_FUSED_ROWS`` and every segment A16 without
+* on the card, ``m <= MAX_FUSED_ROWS_A16`` and every segment A16 without
   ``g_idx`` / ``q_perm``: kernel 7, one launch over all segments with one
   f32 accumulator (the JAX package keeps this kernel behind
-  ``BITORCH_MBWQ_FUSED``; the port takes it whenever these conditions hold);
+  ``BITORCH_MBWQ_FUSED``; the port takes it whenever these conditions hold).
+  Kernel 7 shares kernel 1's body and its cut-off: against the per-segment
+  form below it wins to m = 64 at every Llama-2-7B MBWQ-2.5 projection and
+  loses from m = 128 (``chip_smoke.py`` phase 8b, PERF.md §6);
 * otherwise (an A8 segment, or prefill): one ``mpq_linear`` per segment,
   summed in ``x.dtype``; on the CPU always this form, as the JAX package
   runs off the TPU.
@@ -34,7 +37,9 @@ import torch
 from ..qtensor import MBWQTensor
 from . import packing
 from .cuda.mbwq_matmul import mbwq_matmul
-from .mpq_linear import MAX_FUSED_ROWS, mpq_linear, needs_grad, reconstruct_weight, weight_grad
+from .mpq_linear import (
+    MAX_FUSED_ROWS_A16, mpq_linear, needs_grad, reconstruct_weight, weight_grad,
+)
 from .quant import dequantize_mpq, quantize_mpq
 
 
@@ -189,7 +194,7 @@ def gather_activations(x: torch.Tensor, qt: MBWQTensor) -> torch.Tensor:
 def _fused_ok(x2d: torch.Tensor, qt: MBWQTensor) -> bool:
     return (
         x2d.device.type == "cuda"
-        and x2d.shape[0] <= MAX_FUSED_ROWS
+        and x2d.shape[0] <= MAX_FUSED_ROWS_A16
         and all(s.act_bits == 16 and s.g_idx is None and s.q_perm is None for s in qt.segments)
     )
 

@@ -2,12 +2,13 @@
 
 Two regimes, as in the JAX package:
 
-* decode (``m <= MAX_FUSED_ROWS`` rows): on the card the fused kernel reads
-  the packed words once and never writes the weight out: kernel 1 for A16
-  tensors (bf16 activations), kernel 5 for A8 tensors (``act_bits=8``:
-  per-token int8 activations against the codes).  On the CPU an A8 tensor
-  takes the JAX package's exact simulation of its A8 kernel (kernel 5's
-  plain version), an A16 tensor the second form below;
+* decode: on the card the fused kernel reads the packed words once and
+  never writes the weight out: kernel 1 for A16 tensors at ``m <=
+  MAX_FUSED_ROWS_A16`` rows, kernel 5 for A8 tensors (``act_bits=8``:
+  per-token int8 activations against the codes) at ``m <= MAX_FUSED_ROWS``.
+  On the CPU an A8 tensor at ``m <= MAX_FUSED_ROWS`` takes the JAX
+  package's exact simulation of its A8 kernel (kernel 5's plain version),
+  an A16 tensor the second form below;
 * prefill (more rows, and every A16 ``m`` on the CPU): the weight is
   reconstructed in ``x.dtype`` (kernel 2 on the card, in either regime) and
   ``torch.matmul`` runs the product (the JAX package leaves that product to
@@ -32,9 +33,16 @@ from .cuda.dequant_matmul import dequant_mpq, mpq_matmul
 from .cuda.quad_matmul import mpq_matmul_a8
 from .quant import dequantize_mpq
 
-# Crossover between the two regimes, measured on a TPU v5e by the JAX
-# package; re-measuring it on the H100 is later work.
+# The A8 regime's row limit, the crossover the JAX package measured on a
+# TPU v5e.  It decides whether the activations are quantized to int8, so
+# the numbers, and stays the reference's on every device.
 MAX_FUSED_ROWS = 512
+# The A16 crossover on the card: kernel 1 against kernel 2 + torch.matmul
+# at the Llama-3-8B projections and head, m 16-512 (chip_smoke.py phase 3,
+# PERF.md §6, H100 80GB HBM3 at 700 W): kernel 1 wins to m = 64 at every
+# shape and loses from m = 128.  Kernel 7, on the same body, measured the
+# same cut-off and uses it (ops/mbwq_linear.py).
+MAX_FUSED_ROWS_A16 = 64
 
 
 def reconstruct_weight(qt: MPQTensor, dtype: torch.dtype) -> torch.Tensor:
@@ -97,10 +105,10 @@ def _mpq_forward(x: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2d = x.reshape(-1, k)
-    small = x2d.shape[0] <= MAX_FUSED_ROWS
-    if qt.act_bits == 8 and small:
+    m = x2d.shape[0]
+    if qt.act_bits == 8 and m <= MAX_FUSED_ROWS:
         out = mpq_matmul_a8(x2d.contiguous(), qt)
-    elif x.device.type == "cuda" and small:
+    elif x.device.type == "cuda" and m <= MAX_FUSED_ROWS_A16:
         out = mpq_matmul(x2d.contiguous(), qt)
     else:
         w = reconstruct_weight(qt, x.dtype)

@@ -11,14 +11,19 @@ then, failing on the first check that does not hold:
 1. prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions and the kernels' build time;
 2. holds each kernel against its plain PyTorch version at the shapes of the
-   Llama-3-8B w4 g128 serving path (tolerances below), kernel 3 (the flash
-   forward) also at the 370M training shape, with the share of its bf16
-   outputs that differ from the plain version (both round ``p`` to bf16
-   against the running max of the reference's key tile);
+   Llama-3-8B w4 g128 serving path (tolerances below), kernel 1 (the A16
+   GEMV on kernel 7's tensor-core body) also at m 1-512 and at w1/w2/w4/w8
+   with bf16 and f32 metadata, run twice bit for bit, and once with f32
+   activations (its scalar body), kernel 3 (the flash forward) also at the
+   370M training shape, with the share of its bf16 outputs that differ from
+   the plain version (both round ``p`` to bf16 against the running max of
+   the reference's key tile);
 3. times each kernel, its plain version and, where one exists, the single
    PyTorch call that computes the same function (CUDA events, median of 20
    launches, L2 flushed before each), beside the least time the card could
-   take (bytes at 3.35 TB/s, or bf16 operations at 989 TFLOP/s);
+   take (bytes at 3.35 TB/s, or bf16 operations at 989 TFLOP/s); times
+   kernel 1 against kernel 2 + ``torch.matmul`` at m 16-512 (the A16
+   crossover), and unsplit against a cluster of 2 along K;
 4. runs the serving path at full width (32 layers, random weights from a
    seed): a 256-token prefill of 8 prompts, then 32 greedy decode steps with
    the bucketed attention window, and checks the kernels' launch counts;
@@ -28,12 +33,16 @@ then, failing on the first check that does not hold:
 5. the serving slice: holds both paged-attention entry points against their
    plain versions (shuffled page tables, per-slot cache lengths with 0 and
    W - 1, inactive slots on the null page 0; pools bit-equal after the
-   write) and times them beside their bound and a gathered-window
-   ``scaled_dot_product_attention`` yardstick; serves a mixed queue of 16
-   requests through ``ContinuousBatcher`` (8 slots, a paged pool of 16
-   pages of 64 per slot, 256-token prefill chunks) on the same 32-layer
-   model and checks every request, the freed pool and the paged kernels'
-   launch counts; times a decode step paged and dense at batch 8 and 64;
+   write; a second launch bit-equal; the write-back rows on the decode
+   kernel split over a cluster, timed at each cluster size; two long
+   windows checked on the route ``decode_plan`` picks for them) and times
+   them beside their bound and a gathered-window
+   ``scaled_dot_product_attention`` yardstick; serves a
+   mixed queue of 16 requests through ``ContinuousBatcher`` (8 slots, a
+   paged pool of 16 pages of 64 per slot, 256-token prefill chunks) on the
+   same 32-layer model and checks every request, the freed pool and the
+   paged kernels' launch counts; times a decode step dense, paged, and
+   paged on the first kernels 1 and 6 at batch 8 and 64;
 6. compares prefill + 4 decode steps of a 2-layer full-width model between
    the kernel path and the plain path on the card, over dense and over
    paged caches;
@@ -48,14 +57,18 @@ then, failing on the first check that does not hold:
    at w8 / w1 / w2 / w4 mixes with f32 metadata and ragged N, bf16 out, and
    run twice bit for bit, and its f32-activation route once; times both
    beside their bounds, their plain versions, a bf16 ``torch.matmul`` and
-   (kernel 7) the per-segment launches it replaces;
+   (kernel 7) the per-segment launches it replaces, kernel 7 unsplit
+   against a cluster of 2 along K, and kernel 7 at m 16-128 against
+   ``mpq_linear`` per segment (its cut-off);
 9. runs Llama-2-7B MBWQ-2.5 (25% w4 g64, 75% w2 g128) at full width: a
    256-token prefill of 8 prompts, 32 greedy decode steps in the A8 regime,
    then 32 more after ``prepare_params_for_cuda(..., act_bits_map={2: 16})``
    in the A16 regime, checks the launch counts per step and profiles a few
    steps of each regime;
 10. compares prefill + 4 decode steps of a 2-layer MBWQ-2.5 model between
-    the kernel path and the plain path on the card, in both regimes;
+    the kernel path and the plain path on the card, in both regimes, and
+    prints (not gated) the A8 check on four more prompts with kernel 1 on
+    either body;
 11. the training slice: holds kernel 4 (the flash-attention backward, dq and
     dk / dv) against its plain version at the training shape (b8, 16 MHA
     heads, s 2048, d 64, causal), a Llama-3-8B GQA shape (32 / 8 heads, d
@@ -132,6 +145,12 @@ PROJ_SHAPES = {  # (K, N) of the Llama-3-8B serving projections and padded head
 # launches of each projection shape per decode step (kernel 1) or per
 # prefill (kernel 2): once per layer, the head once
 PER_PASS = {"qkv": LAYERS, "o": LAYERS, "gate_up": LAYERS, "down": LAYERS, "head": 1}
+# kernel 1's further checks: rows m at every serving shape (w4 g128, bf16
+# metadata), and (w_bit, group size) at a ragged N = 516 with bf16 and f32
+# metadata; the A16 crossover sweep against kernel 2 + torch.matmul
+KERNEL1_CHECK_M = (1, 8, 16, 64, 256, 512)
+KERNEL1_WIDTHS = ((1, 128), (2, 128), (4, 128), (8, 64))
+CROSSOVER_M = (16, 32, 64, 128, 256, 512)
 TPU_KERNELS = {
     "mpq_matmul_a8": "bitorch_engine_tpu/ops/pallas/dequant_matmul.py:365",
     "mbwq_matmul": "bitorch_engine_tpu/ops/pallas/mbwq_matmul.py:52",
@@ -146,7 +165,7 @@ TPU_KERNELS = {
 SOURCES = {
     "mpq_matmul_a8": "bitorch_engine_tpu_torch/csrc/quad_matmul.cu",
     "mbwq_matmul": "bitorch_engine_tpu_torch/csrc/mbwq_matmul.cu",
-    "mpq_matmul": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
+    "mpq_matmul": "bitorch_engine_tpu_torch/csrc/mbwq_matmul.cu",
     "dequant_mpq": "bitorch_engine_tpu_torch/csrc/dequant_matmul.cu",
     "flash_attention": "bitorch_engine_tpu_torch/csrc/flash_attention.cu",
     "paged_prefix_attention": "bitorch_engine_tpu_torch/csrc/paged_attention.cu",
@@ -192,6 +211,7 @@ MBWQ_MIXES = (
 )
 MBWQ_WINDOW_FLOOR = 128  # the bench's MHA window floor (bench.py:500-506)
 MBWQ_PROFILE_STEPS = 4
+A8_SPREAD_PROMPTS = 4  # prompts beside the gated one in the A8 check's spread
 # kernel 5's shapes (K, N, w_bit, group size): the MBWQ-2.5 w2 segments
 # first (the rows the main path is reckoned from), then the uniform-w2
 # Llama-3-8B shapes of tools/quad_gate.py, then w1 and w4 at one shape
@@ -303,33 +323,82 @@ def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(torch, gen, flush):
-    """Phases 2 and 3: every kernel against its plain version, then timed."""
+def check_mpq(torch, name, x, qt):
+    """Kernel 1 on ``x`` against its plain version: f32 out within
+    max|d|/max|ref| <= 1e-3, a second launch bit-equal (no atomics), and the
+    bf16 out bit-equal to the f32 out cast once."""
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
-        dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_ref, prepare_for_kernel,
+        mpq_matmul, mpq_matmul_ref, mpq_matmul_route,
+    )
+
+    got = mpq_matmul(x, qt, torch.float32)
+    want = mpq_matmul_ref(x, qt, torch.float32)
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    again = torch.equal(got, mpq_matmul(x, qt, torch.float32))
+    cast = torch.equal(mpq_matmul(x, qt, torch.bfloat16), got.to(torch.bfloat16))
+    route = mpq_matmul_route(x.dtype, qt)
+    log(f"kernel mpq_matmul {name:34s} m={x.shape[0]:<3d} {str(x.dtype)[6:]:8s} {route:6s} "
+        f"max|d|={err:.3e} rel={rel:.3e} rerun bit-equal={again} bf16 out = cast of f32 out: {cast}")
+    check(rel <= 1e-3, f"kernel 1 {name} m={x.shape[0]}: rel {rel} > 1e-3")
+    check(again, f"kernel 1 {name} m={x.shape[0]}: two launches differ")
+    check(cast, f"kernel 1 {name} m={x.shape[0]}: bf16 out is not the f32 out cast")
+    return dict(check=name, m=x.shape[0], x_dtype=str(x.dtype)[6:], route=route,
+                max_abs_err=err, rel_err=rel)
+
+
+def split_sweep(torch, mbwq_mm, x, segs, flush):
+    """The tensor-core body on ``x`` and ``segs`` timed unsplit and as a
+    cluster of 2 along K, through its launcher (no wrapper, so no launch
+    is counted): the measurement behind ``k_splits``."""
+    out = torch.empty((x.shape[0], segs[0].out_features), dtype=x.dtype, device="cuda")
+    return {split: time_ms(torch, lambda split=split: mbwq_mm.launch_mma(
+        x, segs, out, "split sweep", split), flush=flush) for split in (1, 2)}
+
+
+def phase_kernels(torch, gen, flush):
+    """Phases 2 and 3: every kernel against its plain version, then timed;
+    kernel 1's A16 crossover against kernel 2 + ``torch.matmul``."""
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
+        dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_ref, mpq_matmul_route,
+        prepare_for_kernel,
     )
     from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (
         flash_attention, flash_attention_ref,
     )
+    from bitorch_engine_tpu_torch.ops.mpq_linear import MAX_FUSED_ROWS_A16
+
+    # the module (the package's ``mbwq_matmul`` attribute is the wrapper)
+    mbwq_mm = importlib.import_module("bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul")
     from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
 
     F = torch.nn.functional
     results = {name: [] for name in TPU_KERNELS}
+    kernel1_checks, crossover = [], {}
+    # kernel 1's further checks and its crossover draw from their own
+    # generator, so the later phases get the inputs they got before these
+    # were added (the MBWQ A8 path check moves with its prompt)
+    k1_gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
 
-    def weight(k, n, w_bit, gs=128):
-        w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
-        return prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs), torch.bfloat16)
+    def weight(k, n, w_bit, gs=128, meta=torch.bfloat16, g=gen):
+        w = torch.randn(k, n, device="cuda", generator=g) * 0.02
+        return prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs), meta)
 
-    # kernel 1 and 2 at the serving shapes (w4 g128, bf16 metadata, m = 8)
+    # kernel 1 and 2 at the serving shapes (w4 g128, bf16 metadata, m = 8;
+    # kernel 1 also at KERNEL1_CHECK_M rows, and timed against kernel 2 +
+    # torch.matmul at CROSSOVER_M rows)
     for name, (k, n) in PROJ_SHAPES.items():
         qt = weight(k, n, 4)
+        check(mpq_matmul_route(torch.bfloat16, qt) == "mma", f"kernel 1 {name}: not the mma body")
         x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
-        got = mpq_matmul(x, qt, torch.float32)
-        want = mpq_matmul_ref(x, qt, torch.float32)
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        log(f"kernel mpq_matmul  {name:8s} K={k} N={n} m=8  max|d|={err:.3e} rel={rel:.3e}")
-        check(rel <= 1e-3, f"mpq_matmul {name}: rel err {rel} > 1e-3")
+        main = check_mpq(torch, f"{name} K={k} N={n}", x, qt)
+        err, rel = main["max_abs_err"], main["rel_err"]
+        kernel1_checks.append(main)
+        for m in KERNEL1_CHECK_M:
+            xm = torch.randn(m, k, device="cuda", generator=k1_gen).to(torch.bfloat16)
+            kernel1_checks.append(check_mpq(torch, f"{name} K={k} N={n}", xm, qt))
+        if name == "o":  # the f32-activation route: the scalar body
+            kernel1_checks.append(check_mpq(torch, f"{name} K={k} N={n} (f32 x)", x.float(), qt))
         w_bf16 = dequant_mpq_ref(qt, torch.bfloat16)
         got_w = dequant_mpq(qt, torch.bfloat16)
         equal = torch.equal(got_w, w_bf16)
@@ -338,13 +407,21 @@ def phase_kernels(torch, gen, flush):
 
         meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
         b1, by1 = bound(meta + x.nbytes + 8 * n * 2, 2 * 8 * k * n)
+        ms = time_ms(torch, lambda: mpq_matmul(x, qt), flush=flush)
         results["mpq_matmul"].append(dict(
-            shape=name, K=k, N=n, m=8, max_abs_err=err, rel_err=rel,
-            ms=time_ms(torch, lambda: mpq_matmul(x, qt), flush=flush),
+            shape=name, K=k, N=n, m=8, n_split=1, max_abs_err=err, rel_err=rel,
+            ms=ms, per_launch_us=ms * 1e3, ms_by_split=split_sweep(torch, mbwq_mm, x, (qt,), flush),
             plain_ms=time_ms(torch, lambda: mpq_matmul_ref(x, qt), flush=flush),
             library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
             bound_ms=b1, bound_by=by1,
         ))
+        crossover[name] = {}
+        for m in CROSSOVER_M:
+            xm = torch.randn(m, k, device="cuda", generator=k1_gen).to(torch.bfloat16)
+            crossover[name][m] = dict(
+                kernel1_ms=time_ms(torch, lambda: mpq_matmul(xm, qt), flush=flush),
+                kernel2_matmul_ms=time_ms(torch, lambda: torch.matmul(xm, dequant_mpq(qt)),
+                                          flush=flush))
         b2, by2 = bound(meta + k * n * 2, 2 * k * n)
         results["dequant_mpq"].append(dict(
             shape=name, K=k, N=n, max_abs_err=0.0, rel_err=0.0,
@@ -358,11 +435,18 @@ def phase_kernels(torch, gen, flush):
     for w_bit in (1, 2, 8):
         qt = weight(1024, 512, w_bit)
         x = torch.randn(8, 1024, device="cuda", generator=gen).to(torch.bfloat16)
-        want = mpq_matmul_ref(x, qt, torch.float32)
-        rel = ((mpq_matmul(x, qt, torch.float32) - want).abs().max() / want.abs().max()).item()
+        kernel1_checks.append(check_mpq(torch, f"w{w_bit}g128 K=1024 N=512", x, qt))
         equal = torch.equal(dequant_mpq(qt), dequant_mpq_ref(qt))
-        log(f"kernel mpq_matmul/dequant_mpq w{w_bit} K=1024 N=512  rel={rel:.3e} bit-equal={equal}")
-        check(rel <= 1e-3 and equal, f"w_bit={w_bit}: rel {rel}, bit-equal {equal}")
+        log(f"kernel dequant_mpq w{w_bit} K=1024 N=512  bit-equal={equal}")
+        check(equal, f"dequant_mpq w{w_bit}: not bit-equal")
+    # and kernel 1 at every width, bf16 and f32 metadata, a ragged N, m 1-512
+    for w_bit, gs in KERNEL1_WIDTHS:
+        for meta in (torch.bfloat16, torch.float32):
+            qt = weight(1024, 516, w_bit, gs, meta, g=k1_gen)
+            for m in KERNEL1_CHECK_M:
+                x = torch.randn(m, 1024, device="cuda", generator=k1_gen).to(torch.bfloat16)
+                kernel1_checks.append(check_mpq(
+                    torch, f"w{w_bit}g{gs} K=1024 N=516 {str(meta)[6:]} meta", x, qt))
 
     # kernel 3: the prefill's attention, a d = 64 shape and the train shape
     # the train shape draws from its own generator, so the later phases get
@@ -406,25 +490,45 @@ def phase_kernels(torch, gen, flush):
             log(f"time {name:16s} {r['shape']:30s} kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {lib} ms  bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})")
-    return results
+    for r in results["mpq_matmul"]:
+        log(f"kernel 1 {r['shape']:8s} split {r['n_split']}; by cluster size " + "  ".join(
+            f"{s}: {v * 1e3:.2f} us" for s, v in r["ms_by_split"].items()))
+    # the A16 crossover: the largest m at which kernel 1 wins at every shape
+    wins = [m for m in CROSSOVER_M
+            if all(c[m]["kernel1_ms"] < c[m]["kernel2_matmul_ms"] for c in crossover.values())]
+    for name, c in crossover.items():
+        log(f"A16 crossover {name:8s} " + "  ".join(
+            f"m={m}: {v['kernel1_ms'] * 1e3:.1f} / {v['kernel2_matmul_ms'] * 1e3:.1f} us"
+            for m, v in c.items()) + "  (kernel 1 / kernel 2 + torch.matmul)")
+    won = None
+    for m in CROSSOVER_M:
+        if m not in wins:
+            break
+        won = m
+    log(f"A16 crossover: kernel 1 wins at every shape up to m = {won}; MAX_FUSED_ROWS_A16 = "
+        f"{MAX_FUSED_ROWS_A16}")
+    extra = dict(kernel1_checks=kernel1_checks, a16_crossover=crossover, a16_kernel1_wins_to=won)
+    return results, extra
 
 
-def paged_inputs(torch, gen, b, W, rs, pool):
+def paged_inputs(torch, gen, b, W, rs, pool, slot_pages=PAGES_PER_SLOT):
     """Inputs of one paged-attention shape: a shuffled page table read as a
-    column slice of the full per-slot table, per-slot cache lengths with 0
-    and W - 1, slot 1 inactive (its row all null page 0, length 0)."""
+    column slice of the full per-slot table of ``slot_pages`` pages,
+    per-slot cache lengths with 0 and W - 1, slot 1 inactive (its row all
+    null page 0, length 0)."""
     import numpy as np
 
     rng = np.random.default_rng(b * 7919 + W + rs)
     P = W // PAGE
-    pages = b * PAGES_PER_SLOT + 1
+    pages = b * slot_pages + 1
     shape = (pages, PAGE, NKV * HD)
     dev = dict(device="cuda")
     q = torch.randn(b, NKV, rs, HD, generator=gen, **dev).to(torch.bfloat16)
     if pool == "int8":
         kp, vp = (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, **dev)
                   for _ in range(2))
-        ks, vs = (torch.rand(b, CACHE, NKV, generator=gen, **dev) * 0.02 + 0.01 for _ in range(2))
+        ks, vs = (torch.rand(b, slot_pages * PAGE, NKV, generator=gen, **dev) * 0.02 + 0.01
+                  for _ in range(2))
         kn, vn = (torch.randint(-127, 128, (b, NKV * HD), generator=gen, dtype=torch.int8, **dev)
                   for _ in range(2))
     else:
@@ -432,7 +536,7 @@ def paged_inputs(torch, gen, b, W, rs, pool):
         ks = vs = None
         kn, vn = (torch.randn(b, NKV * HD, generator=gen, **dev).to(torch.bfloat16)
                   for _ in range(2))
-    full = (rng.permutation(pages - 1) + 1).reshape(b, PAGES_PER_SLOT).astype(np.int32)
+    full = (rng.permutation(pages - 1) + 1).reshape(b, slot_pages).astype(np.int32)
     clen = rng.integers(1, W, b).astype(np.int32)
     clen[0], clen[-1] = 0, W - 1
     full[1], clen[1] = 0, 0
@@ -441,9 +545,76 @@ def paged_inputs(torch, gen, b, W, rs, pool):
                 clen=torch.from_numpy(clen).cuda(), clen_np=clen)
 
 
+def paged_route(torch, pa, a, update):
+    """The kernel the wrapper picks for ``a`` and its cluster size."""
+    b, nkv, rs, hd = a["q"].shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pa.decode_plan(b, nkv, rs, hd, a["table"].shape[1], PAGE, sms) if update else None
+    return ("paged_decode_kernel", plan[1]) if plan else ("paged_attention_kernel", 1)
+
+
+def check_paged(torch, name, a, update):
+    """One paged-attention launch on ``a`` (``paged_inputs``) against its
+    plain version: acc max|d|/max|ref| <= 5e-3, m and l <= 1e-4 on the live
+    slots, empty slots exact, the pools bit-equal after the write (the
+    read-only form leaves them as they were), a second launch bit-equal.
+    Returns (acc max|d|, acc rel, m rel, l rel, pools equal, rerun equal);
+    the pools are left as they were."""
+    from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
+
+    sm = 1.0 / math.sqrt(HD)
+    args = (a["q"], a["kp"], a["vp"], a["ks"], a["vs"], a["table"], a["clen"])
+    kp0, vp0 = a["kp"].clone(), a["vp"].clone()
+    kernel, n_split = paged_route(torch, pa, a, update)
+    if update:
+        got = pa.paged_prefix_attention_update(*args, a["kn"], a["vn"], sm_scale=sm)
+        kp_got, vp_got = a["kp"].clone(), a["vp"].clone()
+        a["kp"].copy_(kp0)
+        a["vp"].copy_(vp0)
+        again = pa.paged_prefix_attention_update(*args, a["kn"], a["vn"], sm_scale=sm)
+        rerun = (all(torch.equal(x, y) for x, y in zip(got, again))
+                 and torch.equal(a["kp"], kp_got) and torch.equal(a["vp"], vp_got))
+        a["kp"].copy_(kp0)
+        a["vp"].copy_(vp0)
+        want = pa.paged_prefix_attention_update_ref(*args, a["kn"], a["vn"], sm)
+        pools_equal = (torch.equal(kp_got[1:], a["kp"][1:])
+                       and torch.equal(vp_got[1:], a["vp"][1:])
+                       and not torch.equal(kp_got[1:], kp0[1:]))
+        a["kp"].copy_(kp0)
+        a["vp"].copy_(vp0)
+    else:
+        got = pa.paged_prefix_attention(*args, sm_scale=sm)
+        again = pa.paged_prefix_attention(*args, sm_scale=sm)
+        rerun = all(torch.equal(x, y) for x, y in zip(got, again))
+        want = pa.paged_prefix_attention_ref(*args, sm)
+        pools_equal = torch.equal(a["kp"], kp0) and torch.equal(a["vp"], vp0)
+    torch.cuda.synchronize()
+    live = a["clen"] > 0
+    acc_err = (got[0] - want[0]).abs().max().item()
+    acc_rel = acc_err / want[0].abs().max().item()
+
+    def rel(i):
+        return ((got[i][live] - want[i][live]).abs().max() / want[i][live].abs().max()).item()
+
+    m_rel, l_rel = rel(1), rel(2)
+    empty_ok = bool((got[1][~live] == pa.MASK).all() and (got[2][~live] == 0).all()
+                    and (got[0][~live] == 0).all())
+    log(f"kernel paged {name:22s} {kernel}, split {n_split}: "
+        f"acc max|d|/max|ref|={acc_rel:.3e} m rel={m_rel:.3e} l rel={l_rel:.3e} empty slots "
+        f"exact={empty_ok} pools bit-equal={pools_equal} rerun bit-equal={rerun}")
+    check(acc_rel <= 5e-3 and m_rel <= 1e-4 and l_rel <= 1e-4 and empty_ok and pools_equal,
+          f"paged attention {name}: acc {acc_rel}, m {m_rel}, l {l_rel}, "
+          f"empty {empty_ok}, pools {pools_equal}")
+    check(rerun, f"paged attention {name}: two launches differ")
+    return acc_err, acc_rel, m_rel, l_rel, pools_equal, rerun
+
+
 def phase_paged_kernels(torch, gen, flush):
     """Phase 5a: both paged-attention entry points against their plain
-    versions, then timed, at the serving slice's shapes."""
+    versions (``check_paged``), then timed, at the serving slice's shapes;
+    the write-back rows run the decode kernel split over a cluster of
+    ``window_splits`` blocks, also checked at 1, 2 and 8 query rows a KV
+    head."""
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
 
     F = torch.nn.functional
@@ -452,43 +623,16 @@ def phase_paged_kernels(torch, gen, flush):
     for name, b, W, rs, pool, update in PAGED_SHAPES:
         a = paged_inputs(torch, gen, b, W, rs, pool)
         args = (a["q"], a["kp"], a["vp"], a["ks"], a["vs"], a["table"], a["clen"])
-        kp0, vp0 = a["kp"].clone(), a["vp"].clone()
-        if update:
-            got = pa.paged_prefix_attention_update(*args, a["kn"], a["vn"], sm_scale=sm)
-            kp_got, vp_got = a["kp"].clone(), a["vp"].clone()
-            a["kp"].copy_(kp0)
-            a["vp"].copy_(vp0)
-            want = pa.paged_prefix_attention_update_ref(*args, a["kn"], a["vn"], sm)
-            pools_equal = (torch.equal(kp_got[1:], a["kp"][1:])
-                           and torch.equal(vp_got[1:], a["vp"][1:])
-                           and not torch.equal(kp_got[1:], kp0[1:]))
-        else:
-            got = pa.paged_prefix_attention(*args, sm_scale=sm)
-            want = pa.paged_prefix_attention_ref(*args, sm)
-            pools_equal = torch.equal(a["kp"], kp0) and torch.equal(a["vp"], vp0)
-        torch.cuda.synchronize()
-        live = a["clen"] > 0
-        acc_err = (got[0] - want[0]).abs().max().item()
-        acc_rel = acc_err / want[0].abs().max().item()
-
-        def rel(i):
-            return ((got[i][live] - want[i][live]).abs().max() / want[i][live].abs().max()).item()
-
-        m_rel, l_rel = rel(1), rel(2)
-        empty_ok = bool((got[1][~live] == pa.MASK).all() and (got[2][~live] == 0).all()
-                        and (got[0][~live] == 0).all())
-        log(f"kernel paged {name:22s} acc max|d|/max|ref|={acc_rel:.3e} m rel={m_rel:.3e} "
-            f"l rel={l_rel:.3e} empty slots exact={empty_ok} pools bit-equal={pools_equal}")
-        check(acc_rel <= 5e-3 and m_rel <= 1e-4 and l_rel <= 1e-4 and empty_ok and pools_equal,
-              f"paged attention {name}: acc {acc_rel}, m {m_rel}, l {l_rel}, "
-              f"empty {empty_ok}, pools {pools_equal}")
+        kernel_name, n_split = paged_route(torch, pa, a, update)
+        decode = kernel_name == "paged_decode_kernel"
+        acc_err, acc_rel, m_rel, l_rel, pools_equal, rerun = check_paged(torch, name, a, update)
 
         # bound: q, the valid K / V rows and their scales, the table, the
         # outputs, and the new rows read and written; dots at the bf16 rate
         elt = 1 if pool == "int8" else 2
         nv = int(sum(min(int(c), W) for c in a["clen_np"]))
         nbytes = (a["q"].nbytes + 2 * nv * NKV * HD * elt + (2 * nv * NKV * 4 if pool == "int8" else 0)
-                  + b * (W // PAGE) * 4 + b * 4 + got[0].nbytes + got[1].nbytes + got[2].nbytes
+                  + b * (W // PAGE) * 4 + b * 4 + b * NKV * rs * (HD + 2) * 4
                   + (4 * b * NKV * HD * elt if update else 0))
         bms, bby = bound(nbytes, 4 * nv * NKV * rs * HD)
         # yardstick: SDPA over the window already gathered and dequantized to
@@ -511,22 +655,51 @@ def phase_paged_kernels(torch, gen, flush):
         else:
             kernel = lambda: pa.paged_prefix_attention(*args, sm_scale=sm)
             plain = lambda: pa.paged_prefix_attention_ref(*args, sm)
+        by_split = {}  # the decode kernel with each cluster size forced
+        for split in (1, 2, 4) if decode else ():
+            if split <= W // PAGE:
+                with mock.patch.object(pa, "window_splits", lambda *_, split=split, **__: split):
+                    by_split[split] = time_ms(torch, kernel, flush=flush)
         key = "paged_prefix_attention_update" if update else "paged_prefix_attention"
         results[key].append(dict(
             shape=name, b=b, W=W, rs=rs, pool=pool, max_abs_err=acc_err, rel_err=acc_rel,
-            m_rel=m_rel, l_rel=l_rel, pools_bit_equal=pools_equal, pages=P,
+            m_rel=m_rel, l_rel=l_rel, pools_bit_equal=pools_equal, rerun_bit_equal=rerun, pages=P,
+            kernel=kernel_name, n_split=n_split,
+            ms_by_split=by_split,
             ms=time_ms(torch, kernel, flush=flush),
             plain_ms=time_ms(torch, plain, flush=flush),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, kd, vd, attn_mask=mask, enable_gqa=True), flush=flush),
             bound_ms=bms, bound_by=bby,
         ))
-        del a, kp0, vp0, kd, vd
+        del a, kd, vd
+    # the decode kernel at the other query-row counts it takes (MHA's 1, and
+    # 2 and 8 query heads a KV head), checked, not timed; their inputs come
+    # from their own generator, so the later phases keep theirs
+    rows_gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for rs in (1, 2, 8):
+        for pool in ("int8", "bf16"):
+            a = paged_inputs(torch, rows_gen, BATCH, 512, rs, pool)
+            check_paged(torch, f"decode_b8_w512_rs{rs}_{pool}", a, True)
+            del a
+    # the write-back route at long windows, checked, not timed: a full card
+    # whose 8K windows overflow one block's shared memory takes a cluster of
+    # 2, and 8 rows over 32K positions (no cluster of <= 4 fits) the
+    # row-tiled kernel
+    for name, b, W, rs, want in (("decode_b17_w8192", 17, 8192, REP, ("paged_decode_kernel", 2)),
+                                 ("decode_b3_w32768_rs8", 3, 32768, 8,
+                                  ("paged_attention_kernel", 1))):
+        a = paged_inputs(torch, rows_gen, b, W, rs, "int8", slot_pages=W // PAGE)
+        route = paged_route(torch, pa, a, True)
+        check(route == want, f"paged attention {name}: route {route}, not {want}")
+        check_paged(torch, name, a, True)
+        del a
     for name, rows in results.items():
         for r in rows:
-            log(f"time {name:30s} {r['shape']:22s} kernel {r['ms']:.4f} ms  plain "
+            log(f"time {name:30s} {r['shape']:22s} split {r['n_split']} kernel {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  sdpa-on-gathered-window {r['library_ms']:.4f} ms  "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); by cluster size " + "  ".join(
+                    f"{s}: {v * 1e3:.2f} us" for s, v in r["ms_by_split"].items()))
     torch.cuda.empty_cache()
     return results
 
@@ -774,58 +947,87 @@ def phase_serving(torch, model):
     return counts, out
 
 
+@contextmanager
+def first_kernels():
+    """Run kernel 1 on its first (scalar) body for bf16 activations too, and
+    kernel 6's write-back form on its first kernel (``paged_attention_kernel``,
+    no split): the paged decode path as it ran before the tensor-core body
+    and the split decode kernel."""
+    from bitorch_engine_tpu_torch.ops.cuda import dequant_matmul as dm
+    from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
+
+    with mock.patch.object(dm, "mpq_matmul_route", lambda x_dtype, qt: "scalar"), \
+            mock.patch.object(pa, "DECODE_MAX_ROWS", 0):
+        yield
+
+
 def phase_paged_vs_dense(torch, model):
     """Phase 5c: one decode step with dense and with paged caches at batch 8
-    (window 512) and 64 (window 256), in turns dense, paged, paged, dense."""
+    (window 512) and 64 (window 256), in turns dense, paged, first, first,
+    paged, dense, where "first" is the paged step on the first kernels 1
+    and 6 (``first_kernels``); device busy per step of each, profiled."""
     from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches
 
     cfg = model.cfg
     out = {}
+    arm_names = ("dense", "paged", "paged_first_kernels")
     for batch, window, clen in ((8, 512, 300), (64, 256, 200)):
         arms = {"dense": init_kv_caches(cfg, batch, CACHE, device="cuda"),
                 "paged": paged_caches(torch, cfg, batch)}
+        arms["paged_first_kernels"] = arms["paged"]
         tok = torch.ones((batch, 1), dtype=torch.long, device="cuda")
 
-        def timed(caches, steps=8):
-            for _ in range(2):
-                decode_step(model, tok, caches, clen, attn_window=window)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                decode_step(model, tok, caches, clen, attn_window=window)
-            torch.cuda.synchronize()
+        @contextmanager
+        def kernels_of(arm):
+            if arm == "paged_first_kernels":
+                with first_kernels():
+                    yield
+            else:
+                yield
+
+        def timed(arm, steps=8):
+            with kernels_of(arm):
+                for _ in range(2):
+                    decode_step(model, tok, arms[arm], clen, attn_window=window)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    decode_step(model, tok, arms[arm], clen, attn_window=window)
+                torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3 / steps
 
-        def busy(caches, steps=4):
+        def busy(arm, steps=4):
             """Device busy ms per step and the largest kernels, profiled."""
             from torch.profiler import ProfilerActivity, profile
 
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with kernels_of(arm), profile(activities=[ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(steps):
-                    decode_step(model, tok, caches, clen, attn_window=window)
+                    decode_step(model, tok, arms[arm], clen, attn_window=window)
                 torch.cuda.synchronize()
             return _device_summary(torch, prof, time.perf_counter() - t0, steps, top=4)
 
-        ms = {"dense": [], "paged": []}
-        for arm in ("dense", "paged", "paged", "dense"):
-            ms[arm].append(timed(arms[arm]))
-        prof = {arm: busy(arms[arm]) for arm in ("dense", "paged")}
-        r = dict(window=window, cache_len=clen, dense_ms=statistics.mean(ms["dense"]),
-                 paged_ms=statistics.mean(ms["paged"]), runs=ms,
-                 dense_busy_ms=prof["dense"]["device_busy_ms_per_call"],
-                 paged_busy_ms=prof["paged"]["device_busy_ms_per_call"],
-                 dense_launches=prof["dense"]["launches_per_call"],
-                 paged_launches=prof["paged"]["launches_per_call"], profile=prof)
+        ms = {arm: [] for arm in arm_names}
+        for arm in ("dense", "paged", "paged_first_kernels", "paged_first_kernels", "paged", "dense"):
+            ms[arm].append(timed(arm))
+        prof = {arm: busy(arm) for arm in arm_names}
+        r = dict(window=window, cache_len=clen, runs=ms, profile=prof)
+        for arm in arm_names:
+            r[f"{arm}_ms"] = statistics.mean(ms[arm])
+            r[f"{arm}_busy_ms"] = prof[arm]["device_busy_ms_per_call"]
+            r[f"{arm}_launches"] = prof[arm]["launches_per_call"]
         r["paged_over_dense"] = r["paged_ms"] / r["dense_ms"]
         r["paged_over_dense_busy"] = r["paged_busy_ms"] / r["dense_busy_ms"]
         out[f"b{batch}"] = r
         log(f"paged vs dense decode b{batch} window {window}: dense {r['dense_ms']:.3f} ms/step, "
-            f"paged {r['paged_ms']:.3f} ms/step, ratio {r['paged_over_dense']:.4f} (runs {ms}); "
-            f"device busy dense {r['dense_busy_ms']:.3f} / paged {r['paged_busy_ms']:.3f} ms/step "
-            f"(ratio {r['paged_over_dense_busy']:.4f}), launches/step dense "
-            f"{r['dense_launches']:.0f} / paged {r['paged_launches']:.0f}")
-        for arm in ("dense", "paged"):
+            f"paged {r['paged_ms']:.3f} ms/step, ratio {r['paged_over_dense']:.4f}, paged on the "
+            f"first kernels 1 and 6 {r['paged_first_kernels_ms']:.3f} ms/step (runs {ms}); device busy "
+            f"dense {r['dense_busy_ms']:.3f} / paged {r['paged_busy_ms']:.3f} / paged on the first "
+            f"kernels {r['paged_first_kernels_busy_ms']:.3f} ms/step, launches/step dense "
+            f"{r['dense_launches']:.0f} / paged {r['paged_launches']:.0f} / first "
+            f"{r['paged_first_kernels_launches']:.0f}")
+        for arm in arm_names:
             for kern in prof[arm]["top_kernels"]:
                 log(f"  {arm} {kern['ms_per_call']:8.3f} ms  {kern['launches_per_call']:6.1f}x  "
                     f"{kern['name']}")
@@ -1021,17 +1223,26 @@ def phase_mbwq_kernels(torch, gen, flush):
     MBWQ-2.5 A16 projections, m = 8 (the rows the main path is reckoned
     from) and ``MBWQ_CHECK_M``; at ``MBWQ_MIXES``; once with f32
     activations (the scalar body); timed at m = 8 beside its bound, its plain
-    version, the per-segment path it replaces (kernel 1 per segment on the
-    sliced activations, and the add) and a bf16 ``torch.matmul`` on the
-    stacked weight.  Returns the timed rows and every check."""
+    version, the per-segment path it replaces (``mpq_linear`` per segment on
+    the sliced activations, and the add: kernel 1 per segment at m = 8) and
+    a bf16 ``torch.matmul`` on the stacked weight; unsplit against a cluster
+    of 2 along K (``split_sweep``); and at m 16-128 against that per-segment
+    path, the route ``mbwq_linear`` takes where kernel 7 does not run
+    (kernel 1 per segment to ``MAX_FUSED_ROWS_A16`` rows, then kernel 2 +
+    matmul): the measurement behind kernel 7's cut-off.
+    Returns the timed rows, every check and the largest m at which kernel 7
+    wins at every projection."""
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import prepare_for_kernel
-    from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul, mbwq_matmul_ref
+    from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import k_splits, mbwq_matmul, mbwq_matmul_ref
     from bitorch_engine_tpu_torch.ops.mbwq_linear import dequantize_mbwq
-    from bitorch_engine_tpu_torch.ops.mpq_linear import mpq_linear
+    from bitorch_engine_tpu_torch.ops.mpq_linear import MAX_FUSED_ROWS_A16, mpq_linear
     from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
     from bitorch_engine_tpu_torch.qtensor import MBWQTensor
 
+    mbwq_mm = importlib.import_module("bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul")
     rows, checks = [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k7_gen = torch.Generator(device="cuda").manual_seed(SEED + 12)  # the crossover's own inputs
     for name, (k, n, k4, k2) in MBWQ_PROJ.items():
         qt = mbwq_weight(torch, gen, k, n)
         segs = [(s.w_bit, s.group_size, s.in_features) for s in qt.segments]
@@ -1045,22 +1256,29 @@ def phase_mbwq_kernels(torch, gen, flush):
         # the stacked weight in segment order, bf16 (the yardstick's operand)
         w_bf16 = dequantize_mbwq(qt.replace(q_perm=None), torch.bfloat16)
 
-        def per_segment():
+        def per_segment(xm):  # the A16 form past the crossover
             out, off = None, 0
             for seg in qt.segments:
-                part = mpq_linear(x[:, off : off + seg.in_features], seg)
+                part = mpq_linear(xm[:, off : off + seg.in_features], seg)
                 out = part if out is None else out + part
                 off += seg.in_features
             return out
 
+        crossover = {}
+        for m in (16, 32, 64, 128):
+            xm = torch.randn(m, k, device="cuda", generator=k7_gen).to(torch.bfloat16)
+            crossover[m] = dict(kernel7_ms=time_ms(torch, lambda: mbwq_matmul(xm, qt), flush=flush),
+                                per_segment_ms=time_ms(torch, lambda: per_segment(xm), flush=flush))
         meta = sum(s.packed.nbytes + s.scales.nbytes + s.zeros.nbytes for s in qt.segments)
         bms, bby = bound(meta + x.nbytes + 8 * n * 2, 2 * 8 * k * n)
         ms = time_ms(torch, lambda: mbwq_matmul(x, qt), flush=flush)
         rows.append(dict(
-            shape=name, K=k, N=n, m=8, segments=segs, max_abs_err=main["max_abs_err"],
+            shape=name, K=k, N=n, m=8, n_split=k_splits(n, 8, sms), crossover=crossover,
+            segments=segs, max_abs_err=main["max_abs_err"],
             rel_err=main["rel_err"], ms=ms, per_launch_us=ms * 1e3,
+            ms_by_split=split_sweep(torch, mbwq_mm, x, qt.segments, flush),
             plain_ms=time_ms(torch, lambda: mbwq_matmul_ref(x, qt), flush=flush),
-            per_segment_ms=time_ms(torch, per_segment, flush=flush),
+            per_segment_ms=time_ms(torch, lambda: per_segment(x), flush=flush),
             library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
             bound_ms=bms, bound_by=bby,
         ))
@@ -1080,12 +1298,25 @@ def phase_mbwq_kernels(torch, gen, flush):
             xm = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
             checks.append(check_mbwq(torch, label, xm, qt))
         del qt
+    k7_wins = None  # the largest m at which kernel 7 wins at every projection
+    for m in rows[0]["crossover"]:
+        if not all(r["crossover"][m]["kernel7_ms"] < r["crossover"][m]["per_segment_ms"]
+                   for r in rows):
+            break
+        k7_wins = m
+    log(f"kernel 7 crossover: kernel 7 wins at every projection up to m = {k7_wins}; "
+        f"MAX_FUSED_ROWS_A16 = {MAX_FUSED_ROWS_A16}")
     for r in rows:
-        log(f"time mbwq_matmul {r['shape']:8s} kernel {r['ms']:.4f} ms  per-segment kernel 1 + add "
-            f"{r['per_segment_ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  torch.matmul(bf16 weight) "
-            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"time mbwq_matmul {r['shape']:8s} split {r['n_split']} kernel {r['ms']:.4f} ms  "
+            f"per-segment mpq_linear + add {r['per_segment_ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"torch.matmul(bf16 weight) {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); crossover " + "  ".join(
+                f"m={m}: {c['kernel7_ms'] * 1e3:.1f} / {c['per_segment_ms'] * 1e3:.1f} us"
+                for m, c in r["crossover"].items()) + " (kernel 7 / mpq_linear per segment); "
+            "by cluster size " + "  ".join(
+                f"{sp}: {v * 1e3:.2f} us" for sp, v in r["ms_by_split"].items()))
     torch.cuda.empty_cache()
-    return rows, checks
+    return rows, checks, k7_wins
 
 
 def build_mbwq_model(torch, num_layers, seed):
@@ -1217,9 +1448,36 @@ def phase_mbwq_path_check(torch, gen):
             f"max|d logits|/max|logits| = {rel:.3e}")
         check(rel <= 2e-2, f"MBWQ path check {regime}: {rel} > 2e-2")
         rels[regime] = rel
+    rels["a8_spread"] = a8_spread(torch, model, prompt)
     del model
     torch.cuda.empty_cache()
     return rels
+
+
+def a8_spread(torch, model, prompt):
+    """The A8 path check on the gated prompt and ``A8_SPREAD_PROMPTS`` more,
+    with kernel 1 (the w4 segments and the head) on either body: printed,
+    not gated, to show how far the check moves with the prompt and with
+    kernel 1's f32 summation order."""
+    from bitorch_engine_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    set_regime(torch, model, 8)
+    spread_gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    prompts = [prompt] + [
+        torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=spread_gen)
+        for _ in range(A8_SPREAD_PROMPTS)]
+    out = {}
+    for body in ("mma", "scalar"):
+        out[body] = []
+        for p in prompts:
+            with mock.patch.object(dm, "mpq_matmul_route", lambda x_dtype, qt, body=body: body):
+                got, toks = serve(torch, model, p, 4, floor=MBWQ_WINDOW_FLOOR)
+            with plain_kernels():
+                want, _ = serve(torch, model, p, 4, forced=toks, floor=MBWQ_WINDOW_FLOOR)
+            out[body].append(((got - want).abs().max() / want.abs().max()).item())
+        log(f"MBWQ path check (a8) by prompt, kernel 1 on the {body} body (the first prompt is "
+            f"the gated one; not gated): " + "  ".join(f"{r:.3e}" for r in out[body]))
+    return out
 
 
 def phase_flash_bwd_kernels(torch, gen, flush):
@@ -1722,7 +1980,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MiB > L2
-    per_shape = phase_kernels(torch, gen, flush)
+    per_shape, kernel1_extra = phase_kernels(torch, gen, flush)
     per_shape.update(phase_paged_kernels(torch, gen, flush))
     del flush
     t0 = time.perf_counter()
@@ -1741,7 +1999,7 @@ def main() -> int:
     # the sub-4-bit slice
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     per_shape["mpq_matmul_a8"] = phase_quad_kernels(torch, gen, flush)
-    per_shape["mbwq_matmul"], mbwq_checks = phase_mbwq_kernels(torch, gen, flush)
+    per_shape["mbwq_matmul"], mbwq_checks, k7_wins = phase_mbwq_kernels(torch, gen, flush)
     del flush
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1773,7 +2031,9 @@ def main() -> int:
     qat["xnor_crossover_m_4096"] = crossover
 
     checks = {
-        "mpq_matmul": "max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape",
+        "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
+                       "w1/w2/w4/w8, bf16 and f32 metadata, ragged N, f32 activations); a second "
+                       "launch bit-equal; the bf16 out the f32 out cast"),
         "dequant_mpq": "bit-equal (bf16)",
         "flash_attention": (f"bf16 out elements differing <= {FWD_DIFFERING_MAX:g} and out atol 1e-2 "
                             "rtol 1e-2; lse within 1e-4 relative (absolute where |lse| < 1; max_err is this "
@@ -1796,8 +2056,14 @@ def main() -> int:
     for name in ("mpq_matmul", "dequant_mpq"):
         rows = per_shape[name]
         per = f"one {'decode step' if name == 'mpq_matmul' else 'prefill'} of the main path"
-        kernels.append(kernel_line(name, rows, counts[name], {r["shape"]: PER_PASS[r["shape"]] for r in rows},
-                                   per, checks[name]))
+        line = kernel_line(name, rows, counts[name], {r["shape"]: PER_PASS[r["shape"]] for r in rows},
+                           per, checks[name])
+        if name == "mpq_matmul":
+            line["per_launch_us"] = {r["shape"]: r["per_launch_us"] for r in rows}
+            line["n_split"] = {r["shape"]: r["n_split"] for r in rows}
+            line["max_rel_err_all_checks"] = max(c["rel_err"] for c in kernel1_extra["kernel1_checks"])
+            line.update(kernel1_extra)
+        kernels.append(line)
     rows = per_shape["flash_attention"]
     line = kernel_line("flash_attention", rows, counts["flash_attention"], {FLASH_PREFILL: LAYERS},
                        "one prefill of the main path", checks["flash_attention"])
@@ -1842,6 +2108,8 @@ def main() -> int:
     line["per_launch_us"] = {r["shape"]: r["per_launch_us"] for r in per_shape["mbwq_matmul"]}
     line["max_rel_err_all_checks"] = max(c["rel_err"] for c in mbwq_checks)
     line["checks"] = mbwq_checks
+    line["n_split"] = {r["shape"]: r["n_split"] for r in per_shape["mbwq_matmul"]}
+    line["kernel7_wins_to"] = k7_wins
     kernels.append(line)
     # the training path (phase 12): one backward (a dq and a dkv launch) per
     # layer per step, reckoned at the training shape; library: SDPA's backward

@@ -56,9 +56,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_common.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int FA_TILE = 64;     // rows per block, keys (or queries) per streamed tile
 constexpr int FA_THREADS = 128; // 4 warps of 16 rows
@@ -66,24 +66,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D> __host__ __device__ constexpr int ld_of() { return D + 8; }  // padded row
 template <int D> __host__ __device__ constexpr int tile_elems() { return FA_TILE * ld_of<D>(); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all but the newest committed group have landed (this thread's copies)
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Start copying a (64, D) bf16 tile (global row stride D) into shared
 // memory (row stride D + 8), 16 bytes per cp.async.
@@ -94,54 +76,8 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restric
   for (int c = threadIdx.x; c < FA_TILE * CPR; c += FA_THREADS) {
     const int row = c / CPR;
     const int col = (c % CPR) * 8;
-    cp_async16(dst + row * ld_of<D>() + col, src + (size_t)row * D + col);
+    cp_async<16>(dst + row * ld_of<D>() + col, src + (size_t)row * D + col);
   }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (round to nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// ldmatrix addresses, for lane `lane` of a warp, into a tile with row
-// stride LD.  A operand: the 16 x 16 block at (r0, c0) of a row-major
-// [m][k] tile.  B operands of two 8-wide n-tiles: the 16 (n) x 16 (k) block
-// at (n0, k0) of an [n][k] tile (non-transposed load), or the 16 (k) x 16
-// (n) block at (k0, n0) of a [k][n] tile (transposed load).  Either way
-// r[0], r[1] feed n-tile n0 and r[2], r[3] n-tile n0 + 8.
-template <int LD>
-__device__ __forceinline__ const bf16* a_addr(const bf16* base, int r0, int c0, int lane) {
-  return base + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 + (lane >> 4) * 8;
-}
-template <int LD>
-__device__ __forceinline__ const bf16* bn_addr(const bf16* base, int n0, int k0, int lane) {
-  return base + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 + ((lane >> 3) & 1) * 8;
-}
-template <int LD>
-__device__ __forceinline__ const bf16* bt_addr(const bf16* base, int k0, int n0, int lane) {
-  return base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 + (lane >> 4) * 8;
 }
 
 // acc (16 x 8*NT) = A (16 x D, the warp's rows of `a`, row-major) times
@@ -265,7 +201,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_commit();
   load_step(0);
   cp_async_commit();
-  cp_async_wait_prev();
+  cp_async_wait<1>();
   __syncthreads();
   // the warp's 16 query rows stay in registers as A fragments
   uint32_t qf[D / 16][4];
@@ -281,7 +217,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < total; ++i) {
     if (i + 1 < total) load_step(i + 1);
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
     int key0, pass, sub;
     decode(i, key0, pass, sub);
@@ -431,7 +367,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     if (kt + 1 < n_tiles) load_step(kt + 1);
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
     const bf16* ktile = sk + (kt & 1) * TE;
     float s[8][4], dp[8][4];
@@ -489,8 +425,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile_async<D>(sq + st * TE, q + r0 * D);
     load_tile_async<D>(sdo + st * TE, dout + r0 * D);
     float* stat = sstat + st * 2 * FA_TILE;
-    if (threadIdx.x < 16) cp_async16(stat + 4 * threadIdx.x, lse + r0 + 4 * threadIdx.x);
-    else if (threadIdx.x < 32) cp_async16(stat + FA_TILE + 4 * (threadIdx.x - 16), delta + r0 + 4 * (threadIdx.x - 16));
+    if (threadIdx.x < 16) cp_async<16>(stat + 4 * threadIdx.x, lse + r0 + 4 * threadIdx.x);
+    else if (threadIdx.x < 32) cp_async<16>(stat + FA_TILE + 4 * (threadIdx.x - 16), delta + r0 + 4 * (threadIdx.x - 16));
   };
 
   load_tile_async<D>(sk, k + ((size_t)bkv * S + k0) * D);
@@ -507,7 +443,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < total; ++i) {
     if (i + 1 < total) load_step(i + 1);
     cp_async_commit();
-    cp_async_wait_prev();
+    cp_async_wait<1>();
     __syncthreads();
     const int jq = jq0 + i % per_head;
     const bf16* qt = sq + (i & 1) * TE;

@@ -113,10 +113,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
-typedef __nv_bfloat16 bf16;
 
 constexpr int MAX_NW = 16;          // warps per block (8 or 16), one K run each
 constexpr int MAX_SPLIT = 2;        // blocks of a cluster along K
@@ -142,14 +143,6 @@ struct Args {
   int cut[MAX_NW * MAX_SPLIT + 1];
 };
 
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Code pair j of word w (codes j and j + 16/W) as bf16x2, low half first.
 template <int W>
 __device__ __forceinline__ uint32_t code_pair(uint32_t w, int j) {
@@ -165,38 +158,6 @@ __device__ __forceinline__ uint32_t code_pair(uint32_t w, int j) {
                                __float2bfloat162_rn(128.f));
     return *reinterpret_cast<uint32_t*>(&r);
   }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// An asynchronous copy of B (4, 8 or 16) bytes from device to shared memory.
-template <int B>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (B == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src), "n"(B)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all but the newest N committed groups of this lane's copies have landed
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The bytes of one lane's slot in a ring stage: 16-byte units, unit u of
-// lane l at index u * 32 + l of the stage (a warp's reads of one unit are
-// consecutive: no bank conflict).  Byte b of a lane's field starting at
-// unit u0 lies in unit u0 + b / 16.
-__device__ __forceinline__ char* unit_ptr(uint4* stage, int u, int lane) {
-  return reinterpret_cast<char*>(stage + u * 32 + lane);
 }
 
 // Copy NB bytes (a multiple of 4, at most 16 unless a multiple of 16)

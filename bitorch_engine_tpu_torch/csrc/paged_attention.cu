@@ -23,12 +23,13 @@
 // per slot (the window is their prefix); table (b, >= P) int32 with row
 // stride table_stride; cache_len (b,) int32.
 //
-// Two kernels, the route picked by the wrapper from the call's form:
-// paged_decode_kernel for the write-back form with at most 8 query rows
-// (every decode step of the repo's Llama configurations) where a cluster
-// of at most 4 blocks fits its share of the window in shared memory, else
-// paged_attention_kernel (the read-only chunk form, and windows past about
-// 16K positions at 8 rows, 29K at 4).
+// Three kernels, the route picked by the wrapper from the call's form
+// (ops/cuda/paged_attention.py kernel_route): paged_chunk_kernel for every
+// read-only call (the chunked prefill's prefix); paged_decode_kernel for the
+// write-back form with at most 8 query rows (every decode step of the
+// repo's Llama configurations) where a cluster of at most 4 blocks fits its
+// share of the window in shared memory; else paged_attention_kernel (the
+// write-back form past about 16K positions at 8 rows, 29K at 4).
 //
 // paged_attention_kernel.  One block per (tile of R query rows, KV head,
 // slot); 256 threads.  The reference forms p against the row max of the WHOLE window
@@ -53,10 +54,32 @@
 //
 // Bound on the H100: bytes at decode.  One launch reads the valid K and V
 // rows (b8, window 512, int8, nkv * hd = 1024: ~8.4 MB), their scales and
-// q, ~2.6 us at 3.35 TB/s.  At chunked prefill (rs = 1024 rows) the dots
-// dominate and the bf16 tensor-core rate sets the floor.  This kernel uses
-// f32 CUDA-core FMAs and no asynchronous copies; mma for the chunk form is
-// later work.
+// q, ~2.6 us at 3.35 TB/s.  This kernel uses f32 CUDA-core FMAs and no
+// asynchronous copies (336 us a launch on the H100 at the chunk shape below,
+// where paged_chunk_kernel now runs).
+//
+// paged_chunk_kernel (read-only, any rs).  At chunked prefill (b8, 8 KV
+// heads, rs = 4 query heads x 256 tokens = 1024 rows, window 256) the dots
+// dominate: 2 products of 4.3 GFLOP each, bound by the bf16 tensor-core
+// rate.  The function is kernel 3's (csrc/flash_attention.cu) with p
+// rounded against the WHOLE window's max, so this is kernel 3's body: a
+// block is 4 warps over 64 query rows of one (KV head, slot) (the 4 query
+// heads of a KV head are folded into rs, so K and V are read once per 64
+// rows); a key tile is 64 positions (one page at ps 64; each row's page is
+// looked up, so any ps works), streamed through a 2-stage cp.async ring;
+// every product is mma.sync.m16n8k16 bf16 -> f32 with ldmatrix operands, q
+// in registers as A fragments.  Two sweeps over the window's tiles: sweep 1
+// computes q k^T for the row max, sweep 2 computes it again (bit for bit the
+// same scores) and forms p = exp(s - m) (expf, as the reference's exp), l on
+// the unrounded p, then p [* v_scale] rounded to bf16 as it is packed into
+// the A fragments of the P V product.  No score slab, so no window limit:
+// 3 products where 2 are needed, the price of rounding p as the reference
+// does.  int8 pools: the block converts each raw K and V tile into a bf16
+// tile once (i8x4_to_bf16x4: exact), shared by its 4 warps; bf16 pools go
+// to the ring tiles directly.  Positions past the valid prefix and rows past
+// rs are copied as zeros (cp.async with a source size of 0) and masked or
+// never stored; a slot with cache_len 0 runs no step and stores m = -1e30,
+// l = 0, acc = 0.
 //
 // paged_decode_kernel (write-back, rs <= 8).  The first kernel gave b * nkv
 // blocks at decode (64 at b8 on 132 SMs), each walking its whole window
@@ -94,6 +117,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -318,25 +343,6 @@ constexpr int DEC_CH = 64;  // positions of a ring chunk
 // larger rings measured no faster on the card, PERF.md §6)
 constexpr int DEC_RING_BYTES = 32 * 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// all but the newest N committed groups of this thread's copies have landed
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Shared memory of paged_decode_kernel (floats, then the table row): the
 // ring, the R x span scores, the span's k and v scales, the warps' PV
 // parts, the rank's acc part and its m / l parts.
@@ -426,7 +432,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, T* k_pool, T* v_pool,
       for (int u = tid; u < DEC_CH * UPR; u += PA_THREADS) {
         const int jj = u / UPR, col = u % UPR, j = c0 + jj;
         if (j < hi)
-          cp_async16(st + jj * ROWB + col * 16,
+          cp_async<16>(st + jj * ROWB + col * 16,
                      pool + ((size_t)tbl_s[j / ps] * ps + j % ps) * F + g * HD + col * (16 / sizeof(T)));
       }
     }
@@ -571,6 +577,279 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q, T* k_pool, T* v_pool,
   if (n_split > 1) cluster.sync();  // no block leaves while a peer reads its shared memory
 }
 
+// ---------------------------------------------------------------------------
+// paged_chunk_kernel: kernel 3's tensor-core body (csrc/flash_attention.cu,
+// its helpers in mma_common.cuh) over a paged window.
+
+constexpr int PC_TILE = 64;                           // query rows a block, positions a key tile
+constexpr int PC_THREADS = 128;                       // 4 warps of 16 query rows
+constexpr int PC_LD = 128 + 8;                        // padded bf16 row of a tile (elements)
+constexpr int PC_TILE_BYTES = PC_TILE * PC_LD * 2;    // one padded bf16 tile
+constexpr int PC_RAW_BYTES = PC_TILE * 128;           // one int8 tile as the pool holds it
+
+// cp.async of 16 (or 4) bytes that writes zeros instead where !valid
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Four signed int8 codes (one word, byte b = element b) as four bf16, exactly:
+// byte x + 128 becomes the low mantissa bits of 2^23 in f32, less 2^23 + 128
+// leaves x, and an integer of at most 8 significant bits keeps its low 16
+// f32 bits zero, so its upper half is its bf16.
+__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + b)) - 8388736.f;
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// An int8 tile (64 rows of 128 codes) into a padded bf16 tile, 8 codes a
+// thread at a time (8-byte reads, 16-byte writes: no bank conflicts).
+__device__ __forceinline__ void convert_tile(const char* raw, bf16* dst) {
+#pragma unroll
+  for (int i = 0; i < PC_TILE * 16 / PC_THREADS; ++i) {
+    const int u = threadIdx.x + i * PC_THREADS, row = u / 16, c = u % 16;
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + row * 128 + c * 8);
+    const uint2 lo = i8x4_to_bf16x4(w.x), hi = i8x4_to_bf16x4(w.y);
+    *reinterpret_cast<uint4*>(dst + row * PC_LD + c * 8) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+// Shared memory of paged_chunk_kernel.  int8 pools: the converted K and V
+// tiles, a 2-stage ring of raw K and V tiles and a 3-stage ring of their
+// 64 k and v scales (read after the conversion's barrier, so a stage is
+// refilled only two steps later).  bf16 pools: a 2-stage ring of K and V
+// tiles.
+template <typename T>
+constexpr int chunk_smem_bytes() {
+  return sizeof(T) == 1 ? 2 * PC_TILE_BYTES + 4 * PC_RAW_BYTES + 3 * 2 * PC_TILE * 4
+                        : 4 * PC_TILE_BYTES;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PC_THREADS, 3)  // 3 blocks an SM (measured faster than 2)
+paged_chunk_kernel(const bf16* __restrict__ q, const T* __restrict__ k_pool,
+                   const T* __restrict__ v_pool, const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale, const int* __restrict__ table,
+                   const int* __restrict__ cache_len, float* __restrict__ acc_out,
+                   float* __restrict__ m_out, float* __restrict__ l_out, int nkv, int rs, int ps,
+                   int P, int table_stride, int scale_len, float sm_scale) {
+  constexpr bool Q8 = sizeof(T) == 1;
+  constexpr int UPR = 128 * (int)sizeof(T) / 16;  // 16-byte units of a head row
+  extern __shared__ float4 smem_f4[];
+  char* sm = reinterpret_cast<char*>(smem_f4);
+  // stage s of the ring: its K and V tiles (raw int8, or padded bf16)
+  auto k_tile = [&](int s) {
+    return Q8 ? sm + 2 * PC_TILE_BYTES + s * 2 * PC_RAW_BYTES : sm + s * 2 * PC_TILE_BYTES;
+  };
+  auto v_tile = [&](int s) { return k_tile(s) + (Q8 ? PC_RAW_BYTES : PC_TILE_BYTES); };
+  float* sc_ring = reinterpret_cast<float*>(sm + 2 * PC_TILE_BYTES + 4 * PC_RAW_BYTES);
+  bf16* kb = reinterpret_cast<bf16*>(sm);  // int8 pools: the converted tiles
+  bf16* vb = kb + PC_TILE * PC_LD;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = blockIdx.x * PC_TILE;
+  const int hg = blockIdx.y;
+  const int t = blockIdx.z;
+  const int F = nkv * 128;  // pool row width
+  const int nv = min(max(cache_len[t], 0), P * ps);
+  const int nt = (nv + PC_TILE - 1) / PC_TILE;
+  const int total = 2 * nt;  // sweep 1 (K) then sweep 2 (K and V) over the tiles
+  const size_t head_row0 = ((size_t)t * nkv + hg) * rs + r0;
+  const int* trow = table + (size_t)t * table_stride;
+
+  // step i: tile i % nt's K rows (and in sweep 2 its V rows) into stage
+  // i & 1, its scales into scale stage i % 3; positions past the valid
+  // prefix land as zeros
+  auto issue = [&](int i) {
+    const bool sweep2 = i >= nt;
+    const int j0 = (sweep2 ? i - nt : i) * PC_TILE, s = i & 1;
+    for (int u = tid; u < PC_TILE * UPR; u += PC_THREADS) {
+      const int jj = u / UPR, col = u % UPR, j = j0 + jj;
+      const bool ok = j < nv;
+      const size_t src =
+          (ok ? ((size_t)__ldg(trow + j / ps) * ps + j % ps) * F + hg * 128 : 0) + col * (16 / sizeof(T));
+      const int dst = Q8 ? jj * 128 + col * 16 : jj * PC_LD * 2 + col * 16;
+      cp_async16_zfill(k_tile(s) + dst, k_pool + src, ok);
+      if (sweep2) cp_async16_zfill(v_tile(s) + dst, v_pool + src, ok);
+    }
+    if constexpr (Q8) {
+      if (tid < PC_TILE) {
+        const int j = j0 + tid;
+        const bool ok = j < nv;
+        const size_t at = ok ? ((size_t)t * scale_len + j) * nkv + hg : 0;
+        float* st = sc_ring + i % 3 * 2 * PC_TILE;
+        cp_async4_zfill(st + tid, k_scale + at, ok);
+        if (sweep2) cp_async4_zfill(st + PC_TILE + tid, v_scale + at, ok);
+      }
+    }
+  };
+
+  // the block's 64 query rows (rows past rs as zeros) → the warps' A
+  // fragments; the q tile borrows the converted K tile (int8) or stage 1's
+  // K tile (bf16)
+  bf16* sq = Q8 ? kb : reinterpret_cast<bf16*>(k_tile(1));
+  for (int u = tid; u < PC_TILE * 16; u += PC_THREADS) {
+    const int r = u / 16, col = u % 16;
+    const bool ok = r0 + r < rs;
+    cp_async16_zfill(sq + r * PC_LD + col * 8, q + (ok ? (head_row0 + r) * 128 : 0) + col * 8, ok);
+  }
+  cp_async_commit();
+  if (total > 0) issue(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[8][4];
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) ldsm_x4(qf[ks], a_addr<PC_LD>(sq, warp * 16, ks * 16, lane));
+  __syncthreads();  // the q tile's space is free
+
+  float o[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_row[2] = {PA_MASK, PA_MASK}, l[2] = {0.f, 0.f};  // rows g and g + 8 of the warp
+
+  for (int i = 0; i < total; ++i) {
+    if (i + 1 < total) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // step i's tiles have landed (every thread's copies)
+    const bool sweep2 = i >= nt;
+    const int j0 = (sweep2 ? i - nt : i) * PC_TILE, s = i & 1;
+    const bf16* kt = reinterpret_cast<const bf16*>(k_tile(s));
+    const bf16* vt = reinterpret_cast<const bf16*>(v_tile(s));
+    const float* ks_s = sc_ring + i % 3 * 2 * PC_TILE;
+    const float* vs_s = ks_s + PC_TILE;
+    if constexpr (Q8) {
+      convert_tile(k_tile(s), kb);
+      if (sweep2) convert_tile(v_tile(s), vb);
+      __syncthreads();
+      kt = kb;
+      vt = vb;
+    }
+
+    // s = q k^T for the warp's 16 rows and the tile's 64 positions
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, bn_addr<PC_LD>(kt, np * 16, ks * 16, lane));
+        mma16816(sc[2 * np], qf[ks], bfr[0], bfr[1]);
+        mma16816(sc[2 * np + 1], qf[ks], bfr[2], bfr[3]);
+      }
+    }
+    // the reference's scores: (q . k) * sm_scale [* k_scale], masked
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t4 + (e & 1);
+        float x = sc[j][e] * sm_scale;
+        if constexpr (Q8) x *= ks_s[c];
+        sc[j][e] = j0 + c < nv ? x : PA_MASK;
+      }
+
+    if (!sweep2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) m_row[r] = fmaxf(m_row[r], fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+    } else {
+      if (i == nt) {  // the window's max, from the quad's lanes
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 1));
+          m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 2));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t4 + (e & 1);
+          const float p = j0 + c < nv ? expf(sc[j][e] - m_row[e >> 1]) : 0.f;
+          l[e >> 1] += p;  // l sums the unrounded p
+          if constexpr (Q8) sc[j][e] = p * vs_s[c];
+          else sc[j][e] = p;
+        }
+      // P V: p rounded to bf16 as it is packed into A fragments
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+                                pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+                                pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+                                pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+        for (int np = 0; np < 8; ++np) {
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr, bt_addr<PC_LD>(vt, kc * 16, np * 16, lane));
+          mma16816(o[2 * np], pa, bfr[0], bfr[1]);
+          mma16816(o[2 * np + 1], pa, bfr[2], bfr[3]);
+        }
+      }
+    }
+    // bf16 pools: the stage is read here, and step i + 2 refills it next;
+    // int8 pools: its raw tiles were read before the conversion's barrier,
+    // and the next conversion waits at the next step's barrier
+    if constexpr (!Q8) __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+    if (r0 + row >= rs) continue;  // rows past rs were computed on zero q
+    float* dst = acc_out + (head_row0 + row) * 128;
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+      *reinterpret_cast<float2*>(dst + n * 8 + 2 * t4) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    if (t4 == 0) {
+      m_out[head_row0 + row] = m_row[r];
+      l_out[head_row0 + row] = l[r];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_chunk(const void* q, const void* k_pool, const void* v_pool,
+                         const void* k_scale, const void* v_scale, const void* table,
+                         int table_stride, const void* cache_len, void* acc, void* m, void* l,
+                         int b, int nkv, int rs, int ps, int P, int scale_len, float sm_scale,
+                         cudaStream_t stream) {
+  auto kern = paged_chunk_kernel<T>;
+  constexpr int smem = chunk_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((rs + PC_TILE - 1) / PC_TILE, nkv, b);
+  kern<<<grid, PC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(table), static_cast<const int*>(cache_len), static_cast<float*>(acc),
+      static_cast<float*>(m), static_cast<float*>(l), nkv, rs, ps, P, table_stride, scale_len,
+      sm_scale);
+  return cudaGetLastError();
+}
+
 // q tile, the key splits' parts of acc (NJ * R = 8 * min(R, 8) rows), the
 // scores and the window's table row
 size_t smem_bytes(int R, int HD, int P, int ps) {
@@ -695,6 +974,23 @@ extern "C" int bte_paged_decode(const void* q, void* k_pool, void* v_pool, const
       l, b, nkv, rs, ps, P, scale_len, sm_scale, n_split, st
   return pool_int8 ? launch_decode_rows<int8_t>(PD_ARGS) : launch_decode_rows<__nv_bfloat16>(PD_ARGS);
 #undef PD_ARGS
+}
+
+// The read-only form on paged_chunk_kernel, any rs and window; the wrapper
+// checks shapes, dtypes, alignment and contiguity
+// (ops/cuda/paged_attention.py).  Returns the launch's error.
+extern "C" int bte_paged_chunk(const void* q, const void* k_pool, const void* v_pool,
+                               const void* k_scale, const void* v_scale, const void* table,
+                               int table_stride, const void* cache_len, void* acc, void* m,
+                               void* l, int b, int nkv, int rs, int hd, int ps, int P,
+                               int scale_len, int pool_int8, float sm_scale, void* stream) {
+  if (hd != 128) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PC_ARGS                                                                                \
+  q, k_pool, v_pool, k_scale, v_scale, table, table_stride, cache_len, acc, m, l, b, nkv, rs, ps, \
+      P, scale_len, sm_scale, st
+  return pool_int8 ? launch_chunk<int8_t>(PC_ARGS) : launch_chunk<__nv_bfloat16>(PC_ARGS);
+#undef PC_ARGS
 }
 
 // Shapes, dtypes, contiguity and the row tile R (a power of 2 <= 32 whose

@@ -34,23 +34,78 @@
 // packed words and the metadata once (2.25 bits per weight with bf16
 // metadata at w2 g128) and does 2 * m integer operations per weight, far
 // below the int8 tensor cores' 1979 TOP/s over 3.35 TB/s: memory bound.
-// Design: kernel 1's block structure (csrc/dequant_matmul.cu).  Each block
-// owns 32 output columns and 8 activation rows; its 256 threads are 8
-// column quads (one coalesced 16-byte load of packed words per packed row)
-// x 32 K-slices, each slice a whole quant group (or an equal part of one
-// when there are fewer than 32 groups); per packed row a thread reads the
-// row's S activation words of each of its 8 rows with one load and issues
-// 4 * S dp4a for the dots and S for the sums.  The slices' f32 sums meet in
-// shared memory.  CUDA-core dp4a, no tensor cores, no cp.async / TMA: the
-// simple form first.
+//
+// Two bodies for step 2, the route picked by the wrapper from the shape
+// (ops/cuda/quad_matmul.py quad_route): quad_mma_kernel where the group's
+// packed rows tile into chunks (chunk_words: every group size from 32 codes
+// up), else quad_matmul_kernel.
+//
+// quad_matmul_kernel (the first body): kernel 1's first block structure.
+// Each block owns 32 output columns and 8 activation rows; its 256 threads
+// are 8 column quads (one coalesced 16-byte load of packed words per packed
+// row) x 32 K-slices, each slice a whole quant group (or an equal part of
+// one when there are fewer than 32 groups); per packed row a thread reads
+// the row's S activation words of each of its 8 rows with one load and
+// issues 4 * S dp4a for the dots and S for the sums.  The slices' f32 sums
+// meet in shared memory.  CUDA-core dp4a: 160 dp4a a thread per 16 bytes of
+// w2 codes at m 8, and few bytes in flight (3.7 ms per A8 step of
+// Llama-2-7B MBWQ-2.5 on the H100 against a 0.42 ms bound).
+//
+// quad_mma_kernel: the products on the int8 tensor cores,
+// mma.sync.m16n8k32.row.col.s32.u8.s8.s32 with the weight as A (16 output
+// columns x 32 k of u8 codes) and the activations as B (32 k x 8 rows of
+// s8), int32 accumulators: exact, and |d| <= 127 * 15 * 128 per group piece
+// never overflows.  Sum(x) per row is one more MMA per slab with an all-ones
+// A.  The launch structure is kernel 7's (csrc/mbwq_matmul.cu): a block
+// owns 32 columns and 8 rows (16 to m 16, else 32) with 8 warps; the K
+// chunks are cut into 8 equal runs, one per warp, each streamed through the
+// warp's own 3-stage cp.async ring; at the chunk that ends a group piece
+// the lane applies the present kernel's terms, acc += d * s - xs * z (or
+// (d - mid * xs) * s) in f32, and the warps' f32 partials meet in shared
+// memory, summed in warp order (no atomics: reruns bit-equal).  A group
+// split between two warps is applied as two pieces; with bf16 metadata
+// every term is exact in f32.  On the H100 a launch is mostly fixed cost
+// (a 2048 x 512 call takes ~10 us, the 3.5 MB o projection ~12), so the
+// matmul grid is the quantization grid's programmatic dependent: its first
+// chunks' words are copied while the codes are made.  What the card
+// measured against: 64 or 128 columns a block (fewer re-reads of the
+// activations, but too few blocks at N = 4096), 16 warps a block, and
+// quantizing in every block (one launch, but the division of each
+// activation repeated N / 32 times) were slower; prefetching the rest of
+// each run's words to L2 before the wait bought nothing.
+//
+// The k order inside an MMA.  mma.m16n8k32 (8-bit) gives lane (g = lane /
+// 4, t = lane % 4) the A bytes of rows g (registers a0, a2) and g + 8 (a1,
+// a3) at k = 4t .. 4t + 3 (a0, a1) and 16 + 4t .. 16 + 4t + 3 (a2, a3), and
+// B register b0 (b1) the bytes of column g at the same k as a0 (a2); D gives
+// it rows g, g + 8 at columns 2t, 2t + 1.  The sum runs over k, so any
+// permutation of k applied to A and B alike gives the same integers.  Here
+// each 4-byte k group is one (packed row, shift) pair: (word >> u * W) &
+// (mask * 0x01010101) holds the codes the activation word at byte
+// r * PPW + 4u of qx (the dot order above) pairs with.  A chunk is C packed
+// rows of every column (C in 1, 2, 4, C >= W), C * S shift groups, NS = C *
+// S / 8 slabs; lane t takes packed row widx = t / (4 / C) and, in slab j,
+// shift u0 = sb + 2j for its low k group and u0 + 1 for its high one, sb =
+// (t % (4 / C)) * 2 * NS.  So its A registers are shifted, masked words (no
+// conversion) and b0 / b1 are the 8 activation bytes at r * PPW + 4 u0 of
+// its row: a lane reads 8 * NS contiguous bytes a chunk and n8 tile.
+//   w2, C = 4 (S 4, NS 2): lane t owns packed row t of the chunk, its 16
+//     codes; slab 0 takes shifts 0 (low) and 1 (high), slab 1 shifts 2, 3;
+//     its activation bytes are qx[r * 16 .. r * 16 + 15] of row g.
+//   w2, C = 2 (groups of 32 codes): lanes 2i and 2i + 1 share packed row i,
+//     lane 2i takes shifts 0, 1 and lane 2i + 1 shifts 2, 3 (one slab).
+//   w4, C = 4 (S 2, NS 1): lane t, packed row t, shifts 0 and 1.
+//   w1, C = 4 (S 8, NS 4): lane t, packed row t, slab j shifts 2j, 2j + 1.
+// Columns: lane g loads the words of columns 4g .. 4g + 3 (16 bytes); A
+// rows g / g + 8 of n16 tile h are columns 4g + 2h / 4g + 2h + 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_common.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -98,8 +153,39 @@ template <> __device__ __forceinline__ void load_act<8>(const int8_t* p, uint32_
   a[4] = u.x; a[5] = u.y; a[6] = u.z; a[7] = u.w;
 }
 
+// Programmatic dependent launch: the matmul grid may start while the
+// quantization grid runs (launch_dependents, early in the quantization);
+// griddep_wait() returns once that grid has finished and its writes are
+// visible (at once for a grid launched without the attribute).
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 constexpr int QA_THREADS = 256;
 
+// The N values at p (N * sizeof(T) bytes, a multiple of 16 and aligned to
+// 16) as f32, with 16-byte loads.
+template <typename T, int N>
+__device__ __forceinline__ void load_vals(const T* __restrict__ p, float v[N]) {
+  constexpr int VEC = 16 / (int)sizeof(T);  // values a 16-byte load
+#pragma unroll
+  for (int i = 0; i < N / VEC; ++i) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if constexpr (sizeof(T) == 4) v[i * VEC + e] = __uint_as_float(w[e]);
+      else v[i * VEC + e] = __uint_as_float(e % 2 ? w[e / 2] & 0xFFFF0000u : w[e / 2] << 16);
+    }
+  }
+}
+
+// One block per row.  Each thread step takes one packed row's PPW values
+// (16-byte loads): pass 1 their max |x| (and NaN), pass 2 their codes, put in
+// the dot order in registers and stored as PPW bytes at once.
 template <int W, typename XT>
 __global__ void __launch_bounds__(QA_THREADS)
 quantize_rows_kernel(const XT* __restrict__ x, int8_t* __restrict__ qx,
@@ -108,15 +194,21 @@ quantize_rows_kernel(const XT* __restrict__ x, int8_t* __restrict__ qx,
   constexpr int S = 8 / W;
   __shared__ float red[QA_THREADS / 32];
   __shared__ int has_nan;
+  griddep_launch_dependents();  // the matmul grid may start its weight loads now
   const XT* xr = x + (size_t)blockIdx.x * K;
+  const int rows = K / PPW;
   if (threadIdx.x == 0) has_nan = 0;
   __syncthreads();
   float amax = 0.f;
   bool nan = false;
-  for (int k = threadIdx.x; k < K; k += QA_THREADS) {
-    const float v = to_f32(xr[k]);
-    nan |= (v != v);
-    amax = fmaxf(amax, fabsf(v));
+  for (int r = threadIdx.x; r < rows; r += QA_THREADS) {
+    float v[PPW];
+    load_vals<XT, PPW>(xr + (size_t)r * PPW, v);
+#pragma unroll
+    for (int j = 0; j < PPW; ++j) {
+      nan |= (v[j] != v[j]);
+      amax = fmaxf(amax, fabsf(v[j]));
+    }
   }
   if (nan) has_nan = 1;
 #pragma unroll
@@ -136,11 +228,38 @@ quantize_rows_kernel(const XT* __restrict__ x, int8_t* __restrict__ qx,
   const float s = red[0];
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
   int8_t* qr = qx + (size_t)blockIdx.x * K;
-  for (int k = threadIdx.x; k < K; k += QA_THREADS) {
-    const int r = k / PPW, j = k % PPW;
-    const float q = rintf(to_f32(xr[k]) / s);
-    qr[r * PPW + 4 * (j % S) + j / S] = (q == q) ? (int8_t)(int)q : (int8_t)0;
+  for (int r = threadIdx.x; r < rows; r += QA_THREADS) {
+    float v[PPW];
+    load_vals<XT, PPW>(xr + (size_t)r * PPW, v);
+    uint32_t out[PPW / 4];
+#pragma unroll
+    for (int i = 0; i < PPW / 4; ++i) out[i] = 0;
+#pragma unroll
+    for (int j = 0; j < PPW; ++j) {
+      const float q = rintf(v[j] / s);  // a true division, as the reference's
+      const uint32_t c = (q == q) ? (uint32_t)(uint8_t)(int8_t)(int)q : 0u;
+      const int at = 4 * (j % S) + j / S;  // code j of the packed row, in the dot order
+      out[at / 4] |= c << (8 * (at % 4));
+    }
+    if constexpr (PPW == 8) {
+      *reinterpret_cast<uint2*>(qr + (size_t)r * PPW) = make_uint2(out[0], out[1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < PPW / 16; ++i)
+        *reinterpret_cast<uint4*>(qr + (size_t)r * PPW + 16 * i) =
+            make_uint4(out[4 * i], out[4 * i + 1], out[4 * i + 2], out[4 * i + 3]);
+    }
   }
+}
+
+template <int W>
+cudaError_t quantize_rows(int x_dtype, const void* x, int8_t* qx, float* sx, int M, int K,
+                          cudaStream_t st) {
+  if (x_dtype == kF32)
+    quantize_rows_kernel<W, float><<<M, QA_THREADS, 0, st>>>(static_cast<const float*>(x), qx, sx, K);
+  else
+    quantize_rows_kernel<W, bf16><<<M, QA_THREADS, 0, st>>>(static_cast<const bf16*>(x), qx, sx, K);
+  return cudaGetLastError();
 }
 
 constexpr int MM_TX = 8;              // column quads per block
@@ -235,6 +354,298 @@ quad_matmul_kernel(const int8_t* __restrict__ qx, const float* __restrict__ sx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// quad_mma_kernel: the same function on the int8 tensor cores.
+
+// c (16 x 8, s32) += a (16 x 32, u8, row) * b (32 x 8, s8, col): exact
+__device__ __forceinline__ void mma_u8s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int QM_DEPTH = 3;  // ring stages a warp: two chunks in flight beside the one in use
+
+// The f32 value of 4 consecutive metadata values at unit u (f32 or bf16).
+__device__ __forceinline__ void read_meta(uint4* stage, int u, int lane, bool f32, float o[4]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(unit_ptr(stage, u, lane));
+  if (f32) {
+    o[0] = __uint_as_float(v.x); o[1] = __uint_as_float(v.y);
+    o[2] = __uint_as_float(v.z); o[3] = __uint_as_float(v.w);
+  } else {
+    o[0] = __uint_as_float(v.x << 16); o[1] = __uint_as_float(v.x & 0xFFFF0000u);
+    o[2] = __uint_as_float(v.y << 16); o[3] = __uint_as_float(v.y & 0xFFFF0000u);
+  }
+}
+
+constexpr int QM_BN = 32;  // output columns a block
+
+constexpr int QM_WARPS = 8;  // warps a block, one K run each
+
+// 16-byte units of one lane's ring stage: its words, its activation codes
+// of MT n8 tiles (8 * NS = C * S bytes each), its scales and zeros.
+template <int W, int C, int MT>
+__host__ __device__ constexpr int stage_units() {
+  return 1 + MT * ((C * (8 / W) + 15) / 16) + 2;
+}
+
+// A block owns 32 output columns and MT * 8 rows; warp w of its 8 warps
+// takes the w-th of 8 equal runs of the K chunks (C packed rows of every
+// column, CK = C * PPW codes), streamed through its own ring of QM_DEPTH
+// stages by cp.async, two chunks ahead of the products.  Per chunk and lane
+// (g, t): the 16-byte words of columns 4g .. 4g + 3 at packed row widx, and
+// of each n8 tile of rows its row g's activations that pair with them; at
+// the chunk that ends a group piece, the group's 4 scales and zeros.  The
+// grid is launched as the quantization grid's programmatic dependent: the
+// first chunks' words and metadata are issued before the wait for its
+// codes (quantizing in every block instead repeats the division of each
+// activation N / 32 times, and measured slower than even the first body on
+// the H100).
+template <int W, int C, int MT>
+__global__ void __launch_bounds__(QM_WARPS * 32)
+quad_mma_kernel(const int8_t* __restrict__ qx, const float* __restrict__ sx,
+                const int32_t* __restrict__ packed, const void* __restrict__ scales,
+                const void* __restrict__ zeros, void* __restrict__ out, int scale_out,
+                int out_f32, int meta_f32, int mid, int M, int K, int N, int group_size) {
+  constexpr int NW = QM_WARPS;
+  constexpr int PPW = 32 / W;            // codes a word
+  constexpr int S = 8 / W;               // shifts a word: groups of 4 codes
+  constexpr int CK = C * PPW;            // codes (k) a chunk
+  constexpr int NS = C * S / 8;          // k32 slabs a chunk
+  constexpr int TPW = 4 / C;             // lanes of a quad sharing a word
+  constexpr int XB = 8 * NS;             // activation bytes a lane and n8 tile
+  constexpr int XU = (XB + 15) / 16;     // 16-byte units of them
+  constexpr int UNITS = stage_units<W, C, MT>();
+  constexpr int MU = 1 + MT * XU;        // the scales' unit; the zeros' is MU + 1
+  constexpr int D = QM_DEPTH;
+  constexpr int BM = MT * 8;
+  constexpr uint32_t MASK = ((1u << W) - 1u) * 0x01010101u;
+  static_assert(NS >= 1 && C * S % 8 == 0, "a chunk holds whole k32 slabs");
+  extern __shared__ uint4 smem[];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int widx = t / TPW;              // the lane's packed row of a chunk
+  const int sb = (t % TPW) * 2 * NS;     // its first shift
+  const int n0 = blockIdx.x * QM_BN, m0 = blockIdx.y * BM;
+  const int col = n0 + 4 * g;
+  const bool col_ok = col < N;           // N % 4 == 0: a lane's 4 columns are all in or all out
+  const int n_chunks = K / CK, cpg = group_size / CK;
+  const int c_lo = warp * n_chunks / NW, c_hi = (warp + 1) * n_chunks / NW;
+  const int mb = meta_f32 ? 16 : 8;      // bytes of 4 metadata values
+  uint4* ring = smem + warp * (D * UNITS * 32);
+
+  // the issuing side, D - 1 chunks ahead: the words and metadata of a chunk
+  // (its own pointers and group counter, no division), then its
+  // activations; each chunk into the next ring stage
+  const int32_t* wp = packed + ((size_t)c_lo * C + widx) * N + col;
+  size_t mo = (size_t)(c_lo / cpg) * N + col;
+  int iw = c_lo, is_left = cpg - c_lo % cpg, iw_st = 0;
+  auto issue_w = [&]() {
+    if (iw < c_hi) {
+      uint4* st = ring + iw_st * UNITS * 32;
+      if (col_ok) {  // columns past N: their outputs are never stored
+        cp_async<16>(unit_ptr(st, 0, lane), wp);
+        if (is_left == 1 || iw + 1 == c_hi) {  // the chunk ends its group piece
+          const char* sp = static_cast<const char*>(scales) + mo * (mb / 4);
+          const char* zp = static_cast<const char*>(zeros) + mo * (mb / 4);
+          if (meta_f32) {
+            cp_async<16>(unit_ptr(st, MU, lane), sp);
+            if (!mid) cp_async<16>(unit_ptr(st, MU + 1, lane), zp);
+          } else {
+            cp_async<8>(unit_ptr(st, MU, lane), sp);
+            if (!mid) cp_async<8>(unit_ptr(st, MU + 1, lane), zp);
+          }
+        }
+      }
+      wp += (size_t)C * N;
+      if (--is_left == 0) {
+        is_left = cpg;
+        mo += N;
+      }
+      if (++iw_st == D) iw_st = 0;
+      ++iw;
+    }
+  };
+  // rows past M are not copied: their codes in the ring are stale, and
+  // only their own outputs, which are never stored, depend on them
+  const int8_t* xp[MT];
+  bool row_ok[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    row_ok[mt] = m0 + mt * 8 + g < M;
+    xp[mt] = qx + (size_t)(row_ok[mt] ? m0 + mt * 8 + g : 0) * K + (size_t)c_lo * CK + widx * PPW +
+             4 * sb;
+  }
+  int ix = c_lo, ix_st = 0;
+  auto issue_x = [&]() {
+    if (ix < c_hi) {
+      uint4* st = ring + ix_st * UNITS * 32;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (row_ok[mt]) {
+#pragma unroll
+          for (int u = 0; u < XU; ++u)
+            cp_async<(XB < 16 ? XB : 16)>(unit_ptr(st, 1 + mt * XU + u, lane), xp[mt] + 16 * u);
+        }
+        xp[mt] += CK;
+      }
+      if (++ix_st == D) ix_st = 0;
+      ++ix;
+    }
+    cp_async_commit();  // one group per chunk slot, empty past the run
+  };
+
+  float acc[2][MT][4];
+  int dot[2][MT][4], xs[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      xs[mt][r] = 0;
+      acc[0][mt][r] = acc[1][mt][r] = 0.f;
+      dot[0][mt][r] = dot[1][mt][r] = 0;
+    }
+  const uint32_t ones[4] = {0x01010101u, 0x01010101u, 0x01010101u, 0x01010101u};
+
+  // the first chunks' words ride in group 0 with chunk 0's activations
+#pragma unroll
+  for (int p = 0; p < D - 1; ++p) issue_w();
+  griddep_wait();  // the codes are written
+#pragma unroll
+  for (int p = 0; p < D - 1; ++p) issue_x();
+  int left = cpg - c_lo % cpg, stage = 0;  // the products' group counter and ring slot
+  for (int i = c_lo; i < c_hi; ++i) {
+    issue_w();
+    issue_x();
+    cp_async_wait<D - 1>();  // chunk i has landed (this lane's copies: it reads only those)
+    uint4* st = ring + stage * UNITS * 32;
+    const uint4 wv = *reinterpret_cast<const uint4*>(unit_ptr(st, 0, lane));
+    const uint32_t w4[4] = {wv.x, wv.y, wv.z, wv.w};
+    uint32_t xv[MT][2 * NS];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (NS == 1) {
+        const uint2 v = *reinterpret_cast<const uint2*>(unit_ptr(st, 1 + mt * XU, lane));
+        xv[mt][0] = v.x; xv[mt][1] = v.y;
+      } else {
+#pragma unroll
+        for (int u = 0; u < XU; ++u) {
+          const uint4 v = *reinterpret_cast<const uint4*>(unit_ptr(st, 1 + mt * XU + u, lane));
+          xv[mt][4 * u] = v.x; xv[mt][4 * u + 1] = v.y; xv[mt][4 * u + 2] = v.z; xv[mt][4 * u + 3] = v.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int sh_lo = (sb + 2 * j) * W, sh_hi = sh_lo + W;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_u8s8(xs[mt], ones, xv[mt][2 * j], xv[mt][2 * j + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t a[4] = {(w4[2 * h] >> sh_lo) & MASK, (w4[2 * h + 1] >> sh_lo) & MASK,
+                               (w4[2 * h] >> sh_hi) & MASK, (w4[2 * h + 1] >> sh_hi) & MASK};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_u8s8(dot[h][mt], a, xv[mt][2 * j], xv[mt][2 * j + 1]);
+      }
+    }
+    if (left == 1 || i + 1 == c_hi) {
+      // the group piece ends: the present kernel's terms, then restart
+      float sc[4], zc[4] = {0.f, 0.f, 0.f, 0.f};
+      read_meta(st, MU, lane, meta_f32, sc);
+      if (!mid) read_meta(st, MU + 1, lane, meta_f32, zc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int c = 2 * h + (r >> 1);
+            const int d = dot[h][mt][r], x = xs[mt][r & 1];
+            if (mid) acc[h][mt][r] += (float)(d - mid * x) * sc[c];
+            else acc[h][mt][r] += (float)d * sc[c] - (float)x * zc[c];
+            dot[h][mt][r] = 0;
+          }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) xs[mt][r] = 0;
+    }
+    if (--left == 0) left = cpg;
+    if (++stage == D) stage = 0;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every ring is drained before the partials reuse it
+
+  // the warps' partials meet in shared memory, summed in warp order
+  float (*red)[BM][QM_BN] = reinterpret_cast<float (*)[BM][QM_BN]>(smem);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        red[warp][mt * 8 + 2 * t + (r & 1)][4 * g + 2 * h + (r >> 1)] = acc[h][mt][r];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BM * QM_BN; idx += NW * 32) {
+    const int i = idx / QM_BN, c = idx % QM_BN;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) sum += red[w][i][c];
+    const int m = m0 + i, n = n0 + c;
+    if (m < M && n < N) {
+      if (scale_out) sum *= sx[m];
+      if (out_f32) static_cast<float*>(out)[(size_t)m * N + n] = sum;
+      else static_cast<bf16*>(out)[(size_t)m * N + n] = __float2bfloat16_rn(sum);
+    }
+  }
+}
+
+template <int W, int C, int MT>
+cudaError_t launch_mma_tile(const int8_t* qx, const float* sx, const void* packed,
+                            const void* scales, const void* zeros, void* out, int scale_out,
+                            int out_f32, int meta_f32, int mid, int M, int K, int N, int gs,
+                            cudaStream_t st) {
+  constexpr int RING = QM_WARPS * QM_DEPTH * stage_units<W, C, MT>() * 16 * 32;
+  constexpr int RED = QM_WARPS * MT * 8 * QM_BN * 4;  // the warps' partials
+  constexpr int SMEM = RING > RED ? RING : RED;
+  auto kern = quad_mma_kernel<W, C, MT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + QM_BN - 1) / QM_BN, (M + MT * 8 - 1) / (MT * 8));
+  cfg.blockDim = dim3(QM_WARPS * 32);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, qx, sx, static_cast<const int32_t*>(packed), scales, zeros,
+                           out, scale_out, out_f32, meta_f32, mid, M, K, N, gs);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The quantization's launch, then 8 (to m 8), 16 (to m 16) or 32 rows a
+// block on its codes.
+template <int W, int C>
+cudaError_t launch_mma(int x_dtype, const void* x, int8_t* qx, float* sx, const void* p,
+                       const void* s, const void* z, void* o, int scale_out, int out_f32,
+                       int meta_f32, int mid, int M, int K, int N, int gs, cudaStream_t st) {
+  cudaError_t err = quantize_rows<W>(x_dtype, x, qx, sx, M, K, st);
+  if (err != cudaSuccess) return err;
+#define QM_TILE(MT) \
+  launch_mma_tile<W, C, MT>(qx, sx, p, s, z, o, scale_out, out_f32, meta_f32, mid, M, K, N, gs, st)
+  if (M <= 8) return QM_TILE(1);
+  if (M <= 16) return QM_TILE(2);
+  return QM_TILE(4);
+#undef QM_TILE
+}
+
 template <int W, typename MT, typename OT>
 cudaError_t launch_quad(const int8_t* qx, const float* sx, const void* packed,
                         const void* scales, const void* zeros, void* out, int M, int K,
@@ -275,15 +686,6 @@ cudaError_t quad_by_meta(int meta_dtype, int out_dtype, const int8_t* qx, const 
   return quad_by_out<W, bf16>(out_dtype, qx, sx, p, s, z, o, M, K, N, gs, mid, st);
 }
 
-template <int W>
-cudaError_t quantize_rows(int x_dtype, const void* x, int8_t* qx, float* sx, int M, int K,
-                          cudaStream_t st) {
-  if (x_dtype == kF32)
-    quantize_rows_kernel<W, float><<<M, QA_THREADS, 0, st>>>(static_cast<const float*>(x), qx, sx, K);
-  else
-    quantize_rows_kernel<W, bf16><<<M, QA_THREADS, 0, st>>>(static_cast<const bf16*>(x), qx, sx, K);
-  return cudaGetLastError();
-}
 
 template <int W>
 cudaError_t quad_all(int x_dtype, int meta_dtype, int out_dtype, const void* x, int8_t* qx,
@@ -332,6 +734,35 @@ extern "C" int bte_quad_matmul(const void* x, void* qx, void* sx, const void* pa
     case 4: return quad_all<4>(x_dtype, meta_dtype, out_dtype, x, q, s, scale_out, packed, scales, zeros, out, M, K, N, group_size, mid, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// bte_quad_mma: the same as bte_quad_matmul on quad_mma_kernel, chunks of
+// chunk_words packed rows (1, 2 or 4, at least w_bit, dividing the group's
+// rows; ops/cuda/quad_matmul.py chunk_words picks it).
+extern "C" int bte_quad_mma(const void* x, void* qx, void* sx, const void* packed,
+                            const void* scales, const void* zeros, void* out, int M, int K, int N,
+                            int w_bit, int group_size, int chunk_words, int mid, int scale_out,
+                            int x_dtype, int meta_dtype, int out_dtype, void* stream) {
+  const int c = chunk_words;
+  if ((c != 1 && c != 2 && c != 4) || c < w_bit || N % 4 || group_size % (c * (32 / w_bit)) ||
+      K % group_size)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* q = static_cast<int8_t*>(qx);
+  float* s = static_cast<float*>(sx);
+  const int of = out_dtype == kF32, mf = meta_dtype == kF32;
+#define QM_ARGS x_dtype, x, q, s, packed, scales, zeros, out, scale_out, of, mf, mid, M, K, N, \
+                group_size, st
+  switch (w_bit * 8 + c) {
+    case 1 * 8 + 1: return launch_mma<1, 1>(QM_ARGS);
+    case 1 * 8 + 2: return launch_mma<1, 2>(QM_ARGS);
+    case 1 * 8 + 4: return launch_mma<1, 4>(QM_ARGS);
+    case 2 * 8 + 2: return launch_mma<2, 2>(QM_ARGS);
+    case 2 * 8 + 4: return launch_mma<2, 4>(QM_ARGS);
+    case 4 * 8 + 4: return launch_mma<4, 4>(QM_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef QM_ARGS
 }
 
 extern "C" const char* bte_error_string(int err) {

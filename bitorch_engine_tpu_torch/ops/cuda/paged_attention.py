@@ -2,11 +2,14 @@
 write.
 
 The counterpart of ``bitorch_engine_tpu/ops/pallas/paged_attention.py``.
-The kernels live in ``csrc/paged_attention.cu``: the write-back form with
-at most :data:`DECODE_MAX_ROWS` query rows (every decode step) runs
+The kernels live in ``csrc/paged_attention.cu``; :func:`kernel_route`
+picks one from the call's form and shape: every read-only call (the
+chunked prefill's prefix) runs ``paged_chunk_kernel`` (kernel 3's two-sweep
+``mma.sync`` body over the pages); the write-back form with at most
+:data:`DECODE_MAX_ROWS` query rows (every decode step) runs
 ``paged_decode_kernel``, the window split over a cluster of blocks per (KV
 head, slot), where :func:`decode_plan` finds a cluster size whose share of
-the window fits the kernel's shared memory; everything else
+the window fits the kernel's shared memory; the rest of the write-back form
 ``paged_attention_kernel``.  Each wrapper launches a kernel for CUDA
 tensors, raises on what it does not take, and runs the plain version beside
 it only for CPU tensors.  ``paged_prefix_attention.launches`` and
@@ -49,6 +52,15 @@ def _fn():
         "paged_attention", "bte_paged_attention",
         [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_fn():
+    return _build.function(
+        "paged_attention", "bte_paged_chunk",
+        [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     )
 
 
@@ -101,6 +113,19 @@ def decode_plan(b: int, nkv: int, rs: int, hd: int, P: int, ps: int,
             return None
         s *= 2
     return r, s
+
+
+def kernel_route(b: int, nkv: int, rs: int, hd: int, P: int, ps: int, writeback: bool,
+                 sms: int = 132) -> str:
+    """The kernel that takes a call, chosen from its form and shape:
+    ``paged_chunk_kernel`` for every read-only call (any rows, any
+    window); for the write-back form ``paged_decode_kernel`` where
+    :func:`decode_plan` places it, else ``paged_attention_kernel``."""
+    if not writeback:
+        return "paged_chunk_kernel"
+    if decode_plan(b, nkv, rs, hd, P, ps, sms) is not None:
+        return "paged_decode_kernel"
+    return "paged_attention_kernel"
 
 
 def _decode_smem_bytes(r: int, hd: int, P: int, ps: int, n_split: int) -> int:
@@ -259,15 +284,19 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, page_table, cache_len, k_new, v
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
-            page_table.data_ptr(), page_table.stride(0), clen.data_ptr(), ptr(k_new), ptr(v_new),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, nkv, rs, hd, ps, P, scale_len,
+    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
+            page_table.data_ptr(), page_table.stride(0), clen.data_ptr())
+    outs = (acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, nkv, rs, hd, ps, P, scale_len,
             int(quant))
+    args = head + (ptr(k_new), ptr(v_new)) + outs
     stream = torch.cuda.current_stream(dev).cuda_stream
-    plan = None if k_new is None else decode_plan(b, nkv, rs, hd, P, ps,
-                                                  _build.sm_count(dev.index or 0))
-    if plan is not None:
-        err = _decode_fn()(*args, *plan, float(sm_scale), stream)
+    sms = _build.sm_count(dev.index or 0)
+    kernel = kernel_route(b, nkv, rs, hd, P, ps, k_new is not None, sms)
+    if kernel == "paged_chunk_kernel":
+        err = _chunk_fn()(*head, *outs, float(sm_scale), stream)
+    elif kernel == "paged_decode_kernel":
+        err = _decode_fn()(*args, *decode_plan(b, nkv, rs, hd, P, ps, sms), float(sm_scale),
+                           stream)
     else:
         err = _fn()(*args, _rows_per_tile(rs, hd, P, ps), float(sm_scale), stream)
     _build.check("paged_attention", err, f"{what} launch")

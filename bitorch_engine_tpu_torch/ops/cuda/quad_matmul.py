@@ -9,7 +9,10 @@ row (as its jitted code computes it, a multiply by the f32 reciprocal of
 weight in f32, ``× sx``, cast.  The kernel (``csrc/quad_matmul.cu``) takes
 A8 tensors in the port's kernel form (:func:`.dequant_matmul.prepare_for_kernel`
 with ``act_bits=8``: gptq row order, symmetric zeros), quantizes the rows
-itself and dots integer codes exactly.
+itself and dots integer codes exactly, on one of two bodies that
+:func:`quad_route` picks from the shape: ``quad_mma_kernel`` (the int8
+tensor cores) where :func:`chunk_words` tiles the group, else
+``quad_matmul_kernel`` (CUDA-core ``dp4a``).
 
 The wrapper launches the kernel for CUDA tensors and raises on what it does
 not take; it runs the plain PyTorch version only for CPU tensors.
@@ -64,6 +67,35 @@ def kernel_order(qx: torch.Tensor, w_bit: int) -> torch.Tensor:
     return qx.reshape(m, k // (4 * s), 4, s).transpose(2, 3).reshape(m, k)
 
 
+def chunk_words(w_bit: int, group_size: int) -> Optional[int]:
+    """Packed rows a chunk of the tensor-core body: the largest of 4, 2, 1
+    that divides a group's packed rows and holds a whole k32 slab (at least
+    ``w_bit`` rows), or None (groups of 16 codes at w2 / w4)."""
+    rows = group_size // (32 // w_bit)
+    for c in (4, 2, 1):
+        if c >= w_bit and rows % c == 0:
+            return c
+    return None
+
+
+MMA_WARPS = 8  # warps a block of the tensor-core body, one K run each
+
+
+def mma_row_tiles(m: int) -> int:
+    """The tensor-core body's n8 row tiles a block for ``m`` rows
+    (``launch_mma`` in the source): one to m 8, two to m 16, else four."""
+    return 1 if m <= 8 else (2 if m <= 16 else 4)
+
+
+def quad_route(w_bit: int, group_size: int) -> str:
+    """Kernel 5's body on the card: ``"mma"`` (``quad_mma_kernel``) where
+    :func:`chunk_words` tiles the group (every group of 32 codes and up;
+    ``chip_smoke.py`` phase 8a measured it faster than the first body at
+    every m of the A8 regime, 1-512), else ``"dp4a"``
+    (``quad_matmul_kernel``: groups of 16 codes at w2 and w4)."""
+    return "mma" if chunk_words(w_bit, group_size) is not None else "dp4a"
+
+
 def mpq_matmul_a8_ref(
     x: torch.Tensor, qt: MPQTensor, out_dtype: Optional[torch.dtype] = None,
     accumulator: bool = False,
@@ -85,6 +117,14 @@ def _quad_fn():
     return _build.function(
         "quad_matmul", "bte_quad_matmul",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_fn():
+    return _build.function(
+        "quad_matmul", "bte_quad_mma",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     )
 
 
@@ -130,7 +170,9 @@ def mpq_matmul_a8(
     tensor ``qt`` (K, N) → ``(m, N)`` in ``out_dtype`` (default ``x.dtype``).
 
     ``accumulator=True`` returns the f32 accumulator before ``sx`` and the
-    cast (the on-card gate compares it with :func:`mpq_matmul_a8_ref`'s)."""
+    cast (the on-card gate compares it with :func:`mpq_matmul_a8_ref`'s).
+    On the card the body is the one :func:`quad_route` names; neither falls
+    back to the other."""
     if accumulator:
         out_dtype = torch.float32
     out_dtype = out_dtype or x.dtype
@@ -151,12 +193,15 @@ def mpq_matmul_a8(
         return out
     qx = torch.empty((m, k), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
-    err = _quad_fn()(
-        x.data_ptr(), qx.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(),
-        qt.scales.data_ptr(), qt.zeros.data_ptr(), out.data_ptr(), m, k, n, qt.w_bit,
-        qt.group_size, _mid(qt), int(not accumulator), _DTYPE_CODE[x.dtype],
-        _DTYPE_CODE[qt.scales.dtype], _DTYPE_CODE[out_dtype], _stream(x.device),
-    )
+    head = (x.data_ptr(), qx.data_ptr(), sx.data_ptr(), qt.packed.data_ptr(),
+            qt.scales.data_ptr(), qt.zeros.data_ptr(), out.data_ptr(), m, k, n, qt.w_bit,
+            qt.group_size)
+    tail = (_mid(qt), int(not accumulator), _DTYPE_CODE[x.dtype], _DTYPE_CODE[qt.scales.dtype],
+            _DTYPE_CODE[out_dtype], _stream(x.device))
+    if quad_route(qt.w_bit, qt.group_size) == "mma":
+        err = _mma_fn()(*head, chunk_words(qt.w_bit, qt.group_size), *tail)
+    else:
+        err = _quad_fn()(*head, *tail)
     _build.check("quad_matmul", err, "mpq_matmul_a8 launch")
     mpq_matmul_a8.launches += 1
     return out

@@ -35,7 +35,9 @@ then, failing on the first check that does not hold:
    W - 1, inactive slots on the null page 0; pools bit-equal after the
    write; a second launch bit-equal; the write-back rows on the decode
    kernel split over a cluster, timed at each cluster size; two long
-   windows checked on the route ``decode_plan`` picks for them) and times
+   windows checked on the route ``decode_plan`` picks for them; the
+   read-only rows on the chunk kernel (windows 256-1024, a bf16 pool, a
+   short last chunk), each also timed on the first kernel) and times
    them beside their bound and a gathered-window
    ``scaled_dot_product_attention`` yardstick; serves a
    mixed queue of 16 requests through ``ContinuousBatcher`` (8 slots, a
@@ -45,13 +47,18 @@ then, failing on the first check that does not hold:
    paged on the first kernels 1 and 6 at batch 8 and 64;
 6. compares prefill + 4 decode steps of a 2-layer full-width model between
    the kernel path and the plain path on the card, over dense and over
-   paged caches;
+   paged caches, and over paged caches with a 512-token prompt prefilled in
+   two 256-token chunks as the batcher does (the read-only kernel's launches
+   counted);
 7. runs the paged logits gate of ``tools/paged_gate.py`` (4 layers, hidden
    2048, 64 forced decode steps, dense against paged);
-8. the sub-4-bit slice: holds kernel 5 (the A8 int8 kernel) against its
-   plain version in f32 before ``sx`` and the cast (and its activation
-   quantization bit-equal) at the MBWQ-2.5 w2 segments and the uniform-w2
-   Llama-3-8B shapes, affine and mid_sym, and at w1 and w4; holds kernel 7
+8. the sub-4-bit slice: holds kernel 5 (the A8 int8 kernel, on the int8
+   tensor cores) against its plain version in f32 before ``sx`` and the cast
+   (max|d| = 0 at m 8 with bf16 metadata; its activation quantization
+   bit-equal) at the MBWQ-2.5 w2 segments and the uniform-w2 Llama-3-8B
+   shapes, affine and mid_sym, and at w1 and w4, the MBWQ-2.5 segments also
+   at m 1-512 and with f32 metadata, and times it there on both of its
+   bodies (the tensor cores and the first, dp4a one); holds kernel 7
    (the fused mixed-bit kernel, bf16 activations on the tensor cores)
    against its plain version at the MBWQ-2.5 A16 projections at m 1-512,
    at w8 / w1 / w2 / w4 mixes with f32 metadata and ragged N, bf16 out, and
@@ -178,7 +185,9 @@ SOURCES = {
 NKV, HD, REP, PAGE = 8, 128, 4, 64
 PAGES_PER_SLOT = CACHE // PAGE
 # (name, batch, window W, query rows rs, pool dtype, write-back); the first
-# rows of each variant are the ones the main path's pass is reckoned from
+# rows of each variant are the ones the main path's pass is reckoned from.
+# In every row slot 0 has cache_len 0 and slot 1 is an inactive slot on the
+# null page 0 (both checked exact)
 PAGED_SHAPES = (
     ("decode_b8_w512", 8, 512, REP, "int8", True),
     ("decode_b8_w256", 8, 256, REP, "int8", True),
@@ -187,6 +196,16 @@ PAGED_SHAPES = (
     ("decode_b8_w512_bf16", 8, 512, REP, "bf16", True),
     ("chunk_b8_w256_rs1024", 8, 256, REP * 256, "int8", False),
 )
+# more read-only rows, drawn from their own generator: the serving run's
+# later chunks (a wave of 8, 256 tokens of 4 query heads a KV head) at
+# windows 512 and 1024, a bf16 pool and a short last chunk
+CHUNK_SHAPES = (
+    ("chunk_b8_w512_rs1024", 8, 512, REP * 256, "int8", False),
+    ("chunk_b8_w1024_rs1024", 8, 1024, REP * 256, "int8", False),
+    ("chunk_b8_w256_rs1024_bf16", 8, 256, REP * 256, "bf16", False),
+    ("chunk_b8_w256_rs400", 8, 256, REP * 100, "int8", False),
+)
+CHUNKED_PROMPT = 512  # phase 6's chunked prefill: two chunks of SERVE["prefill_chunk"]
 SERVE = dict(num_slots=8, max_len=CACHE, kv_pages=8 * PAGES_PER_SLOT + 1, kv_page_size=PAGE,
              prefill_chunk=256, eos_id=-1)
 N_REQUESTS = 16
@@ -221,6 +240,15 @@ QUAD_SHAPES = (
        ((4096, 4096), (4096, 6144), (4096, 28672), (14336, 4096), (2048, 512))]
     + [("w1_4096x4096", 4096, 4096, 1, 128), ("w4_4096x4096", 4096, 4096, 4, 128)]
 )
+# kernel 5's further rows: the MBWQ-2.5 w2 segments at more rows of the A8
+# regime, and one shape with f32 metadata
+QUAD_CHECK_M = (1, 16, 64, 512)
+QUAD_F32_META = ("mbwq_o_w2_f32meta", 3072, 4096, 2, 128)
+# the shapes ``quad_route`` keeps on the first (dp4a) body: groups of 16
+# codes at w2 and w4.  At 256 groups the f32 sums of the group terms are no
+# longer exact in either order (the body's group order, the plain f32
+# product's), so these rows are held to rel <= 1e-4, not max|d| = 0
+QUAD_DP4A_SHAPES = (("w2_g16_4096x4096", 4096, 4096, 2, 16), ("w4_g16_4096x4096", 4096, 4096, 4, 16))
 
 # the training slice: the bench's 370M fine-tune step (bench.py:616-667)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR = 8, 2048, 24, 3, 1e-4
@@ -548,9 +576,12 @@ def paged_inputs(torch, gen, b, W, rs, pool, slot_pages=PAGES_PER_SLOT):
 def paged_route(torch, pa, a, update):
     """The kernel the wrapper picks for ``a`` and its cluster size."""
     b, nkv, rs, hd = a["q"].shape
+    P = a["table"].shape[1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = pa.decode_plan(b, nkv, rs, hd, a["table"].shape[1], PAGE, sms) if update else None
-    return ("paged_decode_kernel", plan[1]) if plan else ("paged_attention_kernel", 1)
+    kernel = pa.kernel_route(b, nkv, rs, hd, P, PAGE, update, sms)
+    if kernel == "paged_decode_kernel":
+        return kernel, pa.decode_plan(b, nkv, rs, hd, P, PAGE, sms)[1]
+    return kernel, 1
 
 
 def check_paged(torch, name, a, update):
@@ -614,14 +645,19 @@ def phase_paged_kernels(torch, gen, flush):
     versions (``check_paged``), then timed, at the serving slice's shapes;
     the write-back rows run the decode kernel split over a cluster of
     ``window_splits`` blocks, also checked at 1, 2 and 8 query rows a KV
-    head."""
+    head; the read-only rows run the chunk kernel, also timed on the first
+    kernel (``paged_attention_kernel``, through ``first_kernels``)."""
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
 
     F = torch.nn.functional
     sm = 1.0 / math.sqrt(HD)
     results = {"paged_prefix_attention": [], "paged_prefix_attention_update": []}
-    for name, b, W, rs, pool, update in PAGED_SHAPES:
-        a = paged_inputs(torch, gen, b, W, rs, pool)
+    # the rows added later draw from their own generator: the later phases
+    # keep their inputs
+    chunk_gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    for (name, b, W, rs, pool, update), row_gen in (
+            [(row, gen) for row in PAGED_SHAPES] + [(row, chunk_gen) for row in CHUNK_SHAPES]):
+        a = paged_inputs(torch, row_gen, b, W, rs, pool)
         args = (a["q"], a["kp"], a["vp"], a["ks"], a["vs"], a["table"], a["clen"])
         kernel_name, n_split = paged_route(torch, pa, a, update)
         decode = kernel_name == "paged_decode_kernel"
@@ -660,12 +696,18 @@ def phase_paged_kernels(torch, gen, flush):
             if split <= W // PAGE:
                 with mock.patch.object(pa, "window_splits", lambda *_, split=split, **__: split):
                     by_split[split] = time_ms(torch, kernel, flush=flush)
+        first_ms = None  # the read-only form on its first kernel, in turns with the chunk kernel
+        if not update:
+            with first_kernels():
+                check(paged_route(torch, pa, a, update)[0] == "paged_attention_kernel",
+                      f"paged attention {name}: first_kernels did not reroute")
+                first_ms = time_ms(torch, kernel, flush=flush)
         key = "paged_prefix_attention_update" if update else "paged_prefix_attention"
         results[key].append(dict(
             shape=name, b=b, W=W, rs=rs, pool=pool, max_abs_err=acc_err, rel_err=acc_rel,
             m_rel=m_rel, l_rel=l_rel, pools_bit_equal=pools_equal, rerun_bit_equal=rerun, pages=P,
             kernel=kernel_name, n_split=n_split,
-            ms_by_split=by_split,
+            ms_by_split=by_split, first_kernel_ms=first_ms,
             ms=time_ms(torch, kernel, flush=flush),
             plain_ms=time_ms(torch, plain, flush=flush),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -696,10 +738,14 @@ def phase_paged_kernels(torch, gen, flush):
         del a
     for name, rows in results.items():
         for r in rows:
-            log(f"time {name:30s} {r['shape']:22s} split {r['n_split']} kernel {r['ms']:.4f} ms  plain "
-                f"{r['plain_ms']:.4f} ms  sdpa-on-gathered-window {r['library_ms']:.4f} ms  "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); by cluster size " + "  ".join(
-                    f"{s}: {v * 1e3:.2f} us" for s, v in r["ms_by_split"].items()))
+            first = ("" if r["first_kernel_ms"] is None else
+                     f"; on the first kernel (paged_attention_kernel) {r['first_kernel_ms']:.4f} ms")
+            log(f"time {name:30s} {r['shape']:26s} {r['kernel']} split {r['n_split']} kernel "
+                f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  sdpa-on-gathered-window "
+                f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}){first}"
+                + ("; by cluster size " + "  ".join(f"{s}: {v * 1e3:.2f} us"
+                                                     for s, v in r["ms_by_split"].items())
+                   if r["ms_by_split"] else ""))
     torch.cuda.empty_cache()
     return results
 
@@ -745,6 +791,33 @@ def serve(torch, model, prompt, steps, on_prefill=None, forced=None, paged=False
     for i in range(steps):
         pos = PROMPT + i
         last, caches = decode_step(model, tok[:, None], caches, pos, attn_window=bucket(pos + 1, floor))
+        tok = torch.argmax(last, dim=-1) if forced is None else forced[:, i + 1]
+        toks.append(tok)
+    return last, torch.stack(toks, dim=1)
+
+
+def serve_chunked(torch, model, prompt, steps, forced=None):
+    """The batcher's chunked prefill (``ContinuousBatcher._prefill_chunked``)
+    over paged caches: chunk j of ``SERVE["prefill_chunk"]`` tokens at
+    cache_len j·C, window 0 for the first and the bucketed window of its
+    prefix after (the read-only kernel reads it), then greedy decode steps;
+    returns (last logits, generated tokens (b, steps + 1))."""
+    from bitorch_engine_tpu_torch.models.llama import decode_step
+
+    caches = paged_caches(torch, model.cfg, BATCH)
+    n, C = prompt.shape[1], SERVE["prefill_chunk"]
+    with torch.no_grad():
+        for j in range(n // C):
+            base = j * C
+            positions = (base + torch.arange(C, device="cuda")).expand(BATCH, C)
+            logits, caches = model(prompt[:, base : base + C], positions=positions, kv_caches=caches,
+                                   cache_len=base, attn_window=0 if j == 0 else bucket(base))
+    last = logits[:, -1]
+    tok = torch.argmax(last, dim=-1) if forced is None else forced[:, 0]
+    toks = [tok]
+    for i in range(steps):
+        pos = n + i
+        last, caches = decode_step(model, tok[:, None], caches, pos, attn_window=bucket(pos + 1))
         tok = torch.argmax(last, dim=-1) if forced is None else forced[:, i + 1]
         toks.append(tok)
     return last, torch.stack(toks, dim=1)
@@ -950,14 +1023,14 @@ def phase_serving(torch, model):
 @contextmanager
 def first_kernels():
     """Run kernel 1 on its first (scalar) body for bf16 activations too, and
-    kernel 6's write-back form on its first kernel (``paged_attention_kernel``,
-    no split): the paged decode path as it ran before the tensor-core body
-    and the split decode kernel."""
+    both forms of kernel 6 on its first kernel (``paged_attention_kernel``,
+    no split, f32 FMAs): the paged path as it ran before the tensor-core
+    bodies, the split decode kernel and the chunk kernel."""
     from bitorch_engine_tpu_torch.ops.cuda import dequant_matmul as dm
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
 
     with mock.patch.object(dm, "mpq_matmul_route", lambda x_dtype, qt: "scalar"), \
-            mock.patch.object(pa, "DECODE_MAX_ROWS", 0):
+            mock.patch.object(pa, "kernel_route", lambda *a, **k: "paged_attention_kernel"):
         yield
 
 
@@ -1067,24 +1140,44 @@ def plain_kernels():
 
 def phase_path_check(torch, gen):
     """Phase 6: 2 layers at full width, kernel path against plain path,
-    both fed the kernel path's tokens, over dense and over paged caches."""
+    both fed the kernel path's tokens, over dense and over paged caches
+    (a whole-prompt prefill), and over paged caches with a 512-token prompt
+    prefilled in two chunks as the batcher does (``serve_chunked``: the
+    second chunk reads its prefix through the read-only kernel); each
+    followed by 4 decode steps."""
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     model = build_model(torch, 2, SEED + 1)
     prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
+    # the chunked check's prompt from its own generator: the later phases
+    # keep their inputs
+    chunk_gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    long_prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, CHUNKED_PROMPT), device="cuda",
+                                generator=chunk_gen)
+    chunks_after_first = CHUNKED_PROMPT // SERVE["prefill_chunk"] - 1
+
+    def run(cache, forced=None):
+        if cache == "paged_chunked":
+            return serve_chunked(torch, model, long_prompt, 4, forced=forced)
+        return serve(torch, model, prompt, 4, forced=forced, paged=cache == "paged")
+
     rels = {}
-    for cache in ("dense", "paged"):
+    for cache in ("dense", "paged", "paged_chunked"):
         reset_launch_counts()
-        got, toks = serve(torch, model, prompt, 4, paged=cache == "paged")
+        got, toks = run(cache)
         launched = launch_counts()
         reset_launch_counts()
         with plain_kernels():
-            want, _ = serve(torch, model, prompt, 4, forced=toks, paged=cache == "paged")
+            want, _ = run(cache, forced=toks)
         torch.cuda.synchronize()
         check(all(n == 0 for n in launch_counts().values()), "the plain path launched a kernel")
-        if cache == "paged":
+        if cache != "dense":
             check(launched["paged_prefix_attention_update"] == 2 * 4,
-                  f"paged path check: write-back launches {launched}")
+                  f"{cache} path check: write-back launches {launched}")
+            want_ro = 2 * chunks_after_first if cache == "paged_chunked" else 0
+            check(launched["paged_prefix_attention"] == want_ro,
+                  f"{cache} path check: read-only launches {launched['paged_prefix_attention']} "
+                  f"!= {want_ro}")
         rel = ((got - want).abs().max() / want.abs().max()).item()
         log(f"path check ({cache} caches, 2 layers, prefill + 4 decode steps): "
             f"max|d logits|/max|logits| = {rel:.3e}")
@@ -1131,16 +1224,85 @@ def phase_paged_gate(torch, gen):
     torch.cuda.empty_cache()
     return dict(max_rel=max_rel, steps=steps, tol=tol)
 
+@contextmanager
+def first_quad_body():
+    """Run kernel 5 on its first body (``quad_matmul_kernel``, CUDA-core
+    dp4a) at every shape."""
+    from bitorch_engine_tpu_torch.ops.cuda import quad_matmul as qm
+
+    with mock.patch.object(qm, "quad_route", lambda *a, **k: "dp4a"):
+        yield
+
+
+def check_quad(torch, name, x, qt, exact):
+    """Kernel 5 on ``x`` against its plain version, the f32 accumulator
+    before ``sx`` and the cast: max|d|/max|ref| <= 1e-4, and max|d| = 0 and
+    the bf16 output bit-equal where ``exact``; a second launch bit-equal.
+    Returns (max|d|, rel)."""
+    from bitorch_engine_tpu_torch.ops.cuda import quad_matmul as qm
+
+    got = qm.mpq_matmul_a8(x, qt, accumulator=True)
+    want = qm.mpq_matmul_a8_ref(x, qt, accumulator=True)
+    again = torch.equal(got, qm.mpq_matmul_a8(x, qt, accumulator=True))
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    # where the accumulator is exact, the output (times sx, cast) is too
+    out_equal = not exact or torch.equal(qm.mpq_matmul_a8(x, qt), qm.mpq_matmul_a8_ref(x, qt))
+    check(rel <= 1e-4 and (err == 0 or not exact) and again and out_equal,
+          f"kernel 5 {name} m={x.shape[0]}: max|d| {err}, rel {rel}, rerun equal {again}, "
+          f"bf16 out equal {out_equal}")
+    return err, rel
+
+
 def phase_quad_kernels(torch, gen, flush):
     """Phase 8a: kernel 5 against its plain version in f32 before ``sx``
-    and the cast (max|d|/max|ref| <= 1e-4, tools/quad_gate.py's bar) with
-    its activation quantization bit-equal, affine and mid_sym, then timed
-    (the affine weights, which the MBWQ quantizer makes)."""
+    and the cast (``check_quad``: max|d|/max|ref| <= 1e-4, tools/quad_gate.py's
+    bar, and max|d| = 0 at every bf16-metadata row at m 8, where both
+    bodies are exact) with its activation quantization bit-equal, affine and
+    mid_sym, on the body ``quad_route`` picks and on the first body (dp4a),
+    then timed (the affine weights, which the MBWQ quantizer makes) on both;
+    the MBWQ-2.5 w2 segments also at ``QUAD_CHECK_M`` rows and one shape
+    with f32 metadata, checked on the routed body and timed on both; and the
+    ``QUAD_DP4A_SHAPES``, which ``quad_route`` sends to the first body,
+    checked at m 8 (rel <= 1e-4, reruns bit-equal) and timed."""
     from bitorch_engine_tpu_torch.ops.cuda import quad_matmul as qm
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, prepare_for_kernel
     from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
 
-    rows = []
+    def weights(w, w_bit, gs, meta=torch.bfloat16):
+        """The mid_sym and affine kernel-form tensors of ``w`` (mid_sym needs
+        codes on both sides of the midpoint: not at 1 bit)."""
+        out = {}
+        for mid in (True, False) if w_bit > 1 else (False,):
+            qt = prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs, mid_sym=mid),
+                                    meta, act_bits=8)
+            check(qt.act_bits == 8 and qt.zeros_mid == mid, f"kernel 5: regime {qt}")
+            out[mid] = qt
+        return out
+
+    def timed_row(name, x, qts, k, n, w_bit, gs, errs, **extra):
+        qt = qts[False]
+        meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
+        m = x.shape[0]
+        bms, bby = bound(meta + x.nbytes + m * n * 2, 2 * m * k * n, INT8_OPS_PER_S)
+        with first_quad_body():
+            first_ms = time_ms(torch, lambda: qm.mpq_matmul_a8(x, qt), flush=flush)
+        return dict(
+            shape=name, K=k, N=n, w_bit=w_bit, group_size=gs, m=m,
+            body=qm.quad_route(w_bit, gs), meta=str(qt.scales.dtype)[6:],
+            max_abs_err=max(e for e, _ in errs.values()), rel_err=max(r for _, r in errs.values()),
+            rel_err_affine=errs[False][1], rel_err_mid_sym=errs.get(True, (None, None))[1],
+            ms=time_ms(torch, lambda: qm.mpq_matmul_a8(x, qt), flush=flush),
+            first_body_ms=first_ms, **extra, bound_ms=bms, bound_by=bby,
+        )
+
+    def log_errs(name, k, n, w_bit, gs, m, errs, extra=""):
+        log(f"kernel mpq_matmul_a8 {name:18s} K={k} N={n} w{w_bit} g{gs} m={m:<3d} "
+            f"{qm.quad_route(w_bit, gs)} {extra}" + "  ".join(
+                f"{'mid_sym' if mid else 'affine'} max|d|={e:.3e} rel={r:.3e}"
+                for mid, (e, r) in sorted(errs.items())))
+
+    rows, more = [], []
     for name, k, n, w_bit, gs in QUAD_SHAPES:
         w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
         x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
@@ -1148,42 +1310,58 @@ def phase_quad_kernels(torch, gen, flush):
         rqx, rsx = qm.quantize_activations_ref(x)
         q_equal = (torch.equal(qx, qm.kernel_order(rqx, w_bit).to(torch.int8))
                    and torch.equal(sx, rsx[:, 0]))
-        errs = {}
-        # mid_sym needs codes on both sides of the midpoint: not at 1 bit;
+        check(q_equal, f"kernel 5 {name}: activation codes or sx differ")
         # affine last, the tensor that is timed
-        for mid in (True, False) if w_bit > 1 else (False,):
-            qt = prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs, mid_sym=mid),
-                                    torch.bfloat16, act_bits=8)
-            check(qt.act_bits == 8 and qt.zeros_mid == mid, f"kernel 5 {name}: regime {qt}")
-            got = qm.mpq_matmul_a8(x, qt, accumulator=True)
-            want = qm.mpq_matmul_a8_ref(x, qt, accumulator=True)
-            err = (got - want).abs().max().item()
-            errs[mid] = (err, err / want.abs().max().item())
-        log(f"kernel mpq_matmul_a8 {name:18s} K={k} N={n} w{w_bit} g{gs} m=8  qx/sx bit-equal="
-            f"{q_equal}  " + "  ".join(f"{'mid_sym' if mid else 'affine'} max|d|={e:.3e} rel={r:.3e}"
-                                       for mid, (e, r) in sorted(errs.items())))
-        check(q_equal and all(r <= 1e-4 for _, r in errs.values()),
-              f"kernel 5 {name}: quantization equal {q_equal}, rel {errs}")
-        w_bf16 = dequant_mpq_ref(qt, torch.bfloat16)
-        meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
-        bms, bby = bound(meta + x.nbytes + 8 * n * 2, 2 * 8 * k * n, INT8_OPS_PER_S)
-        rows.append(dict(
-            shape=name, K=k, N=n, w_bit=w_bit, group_size=gs, m=8, qx_bit_equal=q_equal,
-            max_abs_err=max(e for e, _ in errs.values()), rel_err=max(r for _, r in errs.values()),
-            rel_err_affine=errs[False][1], rel_err_mid_sym=errs.get(True, (None, None))[1],
-            ms=time_ms(torch, lambda: qm.mpq_matmul_a8(x, qt), flush=flush),
-            plain_ms=time_ms(torch, lambda: qm.mpq_matmul_a8_ref(x, qt), flush=flush),
+        qts = weights(w, w_bit, gs)
+        errs = {mid: check_quad(torch, name, x, qt, exact=True) for mid, qt in qts.items()}
+        log_errs(name, k, n, w_bit, gs, 8, errs, f"qx/sx bit-equal={q_equal}  ")
+        with first_quad_body():  # the first body at the same bar
+            first_errs = {mid: check_quad(torch, name, x, qt, exact=True) for mid, qt in qts.items()}
+            log_errs(name, k, n, w_bit, gs, 8, first_errs)
+        w_bf16 = dequant_mpq_ref(qts[False], torch.bfloat16)
+        rows.append(timed_row(
+            name, x, qts, k, n, w_bit, gs, errs, qx_bit_equal=q_equal,
+            first_body_max_abs_err=max(e for e, _ in first_errs.values()),
+            plain_ms=time_ms(torch, lambda: qm.mpq_matmul_a8_ref(x, qts[False]), flush=flush),
             library_ms=None,
-            yardstick_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
-            bound_ms=bms, bound_by=bby,
-        ))
-        del w, qt, w_bf16
-    for r in rows:
-        log(f"time mpq_matmul_a8 {r['shape']:18s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-            f"yardstick torch.matmul(bf16 weight) {r['yardstick_ms']:.4f} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            yardstick_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush)))
+        del w, qts, w_bf16
+    # the further rows draw from their own generator: the later phases keep
+    # their inputs
+    quad_gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    further = [(f"mbwq_{p}_w2", k2, n, 2, 128, torch.bfloat16, QUAD_CHECK_M)
+               for p, (_, n, _, k2) in MBWQ_PROJ.items()]
+    name, k, n, w_bit, gs = QUAD_F32_META
+    further.append((name, k, n, w_bit, gs, torch.float32, (8,) + QUAD_CHECK_M))
+    for name, k, n, w_bit, gs, meta, ms_ in further:
+        qts = weights(torch.randn(k, n, device="cuda", generator=quad_gen) * 0.02, w_bit, gs, meta)
+        for m in ms_:
+            x = torch.randn(m, k, device="cuda", generator=quad_gen).to(torch.bfloat16)
+            errs = {mid: check_quad(torch, name, x, qt, exact=False) for mid, qt in qts.items()}
+            log_errs(name, k, n, w_bit, gs, m, errs)
+            more.append(timed_row(name, x, qts, k, n, w_bit, gs, errs))
+        del qts
+    for name, k, n, w_bit, gs in QUAD_DP4A_SHAPES:
+        check(qm.quad_route(w_bit, gs) == "dp4a", f"kernel 5 {name}: routed to {qm.quad_route(w_bit, gs)}")
+        qts = weights(torch.randn(k, n, device="cuda", generator=quad_gen) * 0.02, w_bit, gs)
+        x = torch.randn(8, k, device="cuda", generator=quad_gen).to(torch.bfloat16)
+        errs = {mid: check_quad(torch, name, x, qt, exact=False) for mid, qt in qts.items()}
+        log_errs(name, k, n, w_bit, gs, 8, errs)
+        more.append(timed_row(name, x, qts, k, n, w_bit, gs, errs))
+        del qts
+    for r in rows + more:
+        extra = ("" if "plain_ms" not in r else
+                 f"  plain {r['plain_ms']:.4f} ms  yardstick torch.matmul(bf16 weight) "
+                 f"{r['yardstick_ms']:.4f} ms")
+        log(f"time mpq_matmul_a8 {r['shape']:18s} m={r['m']:<3d} {r['meta']:8s} {r['body']} "
+            f"{r['ms'] * 1e3:.2f} us  first body (dp4a) {r['first_body_ms'] * 1e3:.2f} us{extra}  "
+            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    # where the tensor-core body takes the call, it must not lose to the first body
+    slower = [(r["shape"], r["m"]) for r in rows + more
+              if r["body"] == "mma" and r["ms"] > r["first_body_ms"]]
+    log(f"kernel 5: rows where the tensor-core body is slower than the first body: {slower}")
     torch.cuda.empty_cache()
-    return rows
+    return rows, more
 
 
 def mbwq_weight(torch, gen, k, n):
@@ -1998,7 +2176,7 @@ def main() -> int:
 
     # the sub-4-bit slice
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    per_shape["mpq_matmul_a8"] = phase_quad_kernels(torch, gen, flush)
+    per_shape["mpq_matmul_a8"], quad_more = phase_quad_kernels(torch, gen, flush)
     per_shape["mbwq_matmul"], mbwq_checks, k7_wins = phase_mbwq_kernels(torch, gen, flush)
     del flush
     torch.cuda.empty_cache()
@@ -2045,7 +2223,11 @@ def main() -> int:
     checks["paged_prefix_attention_update"] = checks["paged_prefix_attention"] + \
         "; pools bit-equal after the write (but the null page 0)"
     checks["mpq_matmul_a8"] = ("f32 accumulator before sx and the cast, max|d|/max|ref| <= 1e-4 "
-                               "per shape, affine and mid_sym; activation codes and sx bit-equal")
+                               "per shape and per check (m 1-512, f32 metadata), affine and "
+                               "mid_sym, and max|d| = 0 at every g128 bf16-metadata shape at m 8 on "
+                               "both bodies (the g16 shapes on the dp4a body, which takes them, "
+                               "rel only); a "
+                               "second launch bit-equal; activation codes and sx bit-equal")
     checks["mbwq_matmul"] = ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check "
                              "(m 1-512, w1/w2/w4/w8 mixes, f32 metadata, ragged N, f32 activations); "
                              "a second launch bit-equal; the bf16 out the f32 out cast")
@@ -2099,6 +2281,9 @@ def main() -> int:
                        checks["mpq_matmul_a8"])
     line["yardstick_ms"] = sum(w * shape_row(rows, s)["yardstick_ms"] for s, w in a8_weights.items())
     line["yardstick"] = "torch.matmul on the bf16 dequantized weight (no PyTorch call computes A8)"
+    line["first_body_ms"] = sum(w * shape_row(rows, s)["first_body_ms"] for s, w in a8_weights.items())
+    line["per_launch_us"] = {s: shape_row(rows, s)["ms"] * 1e3 for s in a8_weights}
+    line["further_rows"] = quad_more
     kernels.append(line)
     line = kernel_line("mbwq_matmul", per_shape["mbwq_matmul"],
                        mbwq["a16"]["launches"]["mbwq_matmul"], {p: LAYERS for p in MBWQ_PROJ},

@@ -1,7 +1,8 @@
-// PTX wrappers shared by the tensor-core kernels (flash_attention.cu,
-// mbwq_matmul.cu, paged_attention.cu, quad_matmul.cu): asynchronous copies
-// into shared memory, ldmatrix and its lane addresses, the bf16
-// mma.sync.m16n8k16 and the bf16 packing of two floats.  Each source
+// PTX wrappers shared by the tensor-core kernels (binary_gemm.cu,
+// flash_attention.cu, mbwq_matmul.cu, paged_attention.cu, quad_matmul.cu):
+// asynchronous copies into shared memory, ldmatrix and its lane addresses,
+// the bf16 mma.sync.m16n8k16, the int8 m16n8k32 and the 1-bit m16n8k256
+// products, and the bf16 packing of two floats.  Each source
 // compiles its own copy into its library (an anonymous namespace); an edit
 // here rebuilds all of them (the build hashes every csrc/*.cuh).
 
@@ -63,6 +64,28 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8, s32) += a (16 x 32, u8, row) * b (32 x 8, s8, col): exact
+__device__ __forceinline__ void mma_u8s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8, s32) += popc(a (16 x 256 bits, row) AND b (256 x 8 bits, col))
+// per output, exact.  Lane (g, t) holds row g's bits (a[0], a[2]) and row
+// g + 8's (a[1], a[3]) at k 32 t .. 32 t + 31 (a[0], a[1]) and 128 + 32 t ..
+// (a[2], a[3]), column g's at the k of a[0] (b0) and a[2] (b1), and D as
+// the 8-bit m16n8k32 does.
+__device__ __forceinline__ void mma_b1_and(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -357,15 +357,6 @@ quad_matmul_kernel(const int8_t* __restrict__ qx, const float* __restrict__ sx,
 // ---------------------------------------------------------------------------
 // quad_mma_kernel: the same function on the int8 tensor cores.
 
-// c (16 x 8, s32) += a (16 x 32, u8, row) * b (32 x 8, s8, col): exact
-__device__ __forceinline__ void mma_u8s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 constexpr int QM_DEPTH = 3;  // ring stages a warp: two chunks in flight beside the one in use
 
 // The f32 value of 4 consecutive metadata values at unit u (f32 or bf16).

@@ -7,11 +7,13 @@ Forward, by the weight's form:
 
 * QAT (int8 ``(N, K)``): an f32 product of the ±1 matrices (exact
   integers);
-* packed (int32 sign words): on the card kernel 8 (``xnor_gemm``) at
-  ``m <= XNOR_MAX_ROWS`` rows, else the signs unpacked to bf16 and one
-  ``torch.mm`` with f32 output, as the JAX package's TPU branches; on the
-  CPU ``xnor_popcount_mm``, as its CPU branch.  All three give the same
-  integers.
+* packed (int32 sign words): on the card, where ``xnor_route`` says
+  ``"kernel"``, kernel 8's fused entry (``binary_packed_linear``: the sign
+  of ``x + bias_a``, the ±1 dot on the tensor cores' 1-bit products and
+  the scales in one launch), else the JAX package's TPU branch (the signs unpacked to
+  bf16 and one ``torch.mm`` with f32 output); on the CPU the fused entry's
+  plain version, ``xnor_popcount_mm`` as the JAX package's CPU branch.
+  All give the same integers and the same scaled outputs.
 
 Backward (``_binary_linear_bwd`` of the JAX package): ``grad_input = g @
 sign(W) · scale_w``, masked to ``|x / scale_a| <= 1``; ``grad_scale_a =
@@ -29,13 +31,22 @@ import torch
 
 from ..qtensor import BinaryQTensor
 from . import packing
-from .cuda.binary_gemm import xnor_gemm, xnor_popcount_mm
+from .cuda.binary_gemm import DTYPES, binary_packed_linear, fits
 from .mpq_linear import needs_grad
 from .quant import _recip, nv_tensor_quant
 
-# rows up to which a packed weight takes kernel 8 on the card: the JAX
-# package's TPU crossover; the card's own is measured by chip_smoke.py
-XNOR_MAX_ROWS = 16
+
+def xnor_route(m: int, k: int, n: int, dtypes=(torch.float32,)) -> str:
+    """The packed forward's branch on the card at ``m`` rows of ``k``
+    features and ``n`` outputs, with x, bias_a and the scales of
+    ``dtypes``: ``"kernel"`` (kernel 8's fused entry) wherever its shared
+    memory holds the rows' sign words and it reads every dtype (f32, bf16,
+    f16), else ``"unpack"`` (the signs unpacked to bf16 and ``torch.mm``).  No row
+    limit: the fused kernel was faster than the unpack branch at every m
+    chip_smoke.py phase 14 measures (1024^2 and 4096^2, m 1-2048) on
+    "NVIDIA H100 80GB HBM3, 700.00 W", where the JAX package's TPU branch
+    switches above 16 rows."""
+    return "kernel" if fits(m, -(-k // 32)) and set(dtypes) <= DTYPES.keys() else "unpack"
 
 
 def sign_pm1(x: torch.Tensor) -> torch.Tensor:
@@ -48,25 +59,20 @@ def _sign_mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
-def _packed_dot(x2d: torch.Tensor, qt: BinaryQTensor) -> torch.Tensor:
-    k = qt.logical_shape[1]
-    if x2d.device.type == "cuda" and x2d.shape[0] > XNOR_MAX_ROWS:
-        w_sign = packing.unpack_signs(qt.data, torch.bfloat16)[:, :k]
-        return _sign_mm_f32(sign_pm1(x2d).to(torch.bfloat16), w_sign.T)
-    xp, _ = packing.pad_to_multiple(x2d, 1, 32, value=-1.0)
-    x_words = packing.pack_signs(xp)
-    if x2d.device.type == "cuda":
-        return xnor_gemm(x_words, qt.data, k)
-    kw = qt.data.shape[1]
-    return xnor_popcount_mm(x_words, qt.data, kw * 32) - (kw * 32 - k)
-
-
-def _forward(x, qt: BinaryQTensor, scale_a, bias_a):
+def _forward(x, qt: BinaryQTensor, scale_a, bias_a, save_xs: bool = False):
+    """The forward's output, and ``(x + bias_a).float()`` where the
+    backward saves it (``save_xs``) or the unpack branch computes it."""
+    k = x.shape[-1]
+    dtypes = (x.dtype, bias_a.dtype, scale_a.dtype, qt.scale_w.dtype)
+    if qt.packed and (x.device.type == "cpu"
+                      or xnor_route(x.numel() // max(1, k), k, qt.data.shape[0], dtypes) == "kernel"):
+        out = binary_packed_linear(x.contiguous(), qt.data, scale_a, bias_a, qt.scale_w, k)
+        return out, ((x + bias_a).float() if save_xs else None)
     xs = (x + bias_a).float()
-    k = xs.shape[-1]
     x2d = xs.reshape(-1, k)
     if qt.packed:
-        y = _packed_dot(x2d, qt)
+        w_sign = packing.unpack_signs(qt.data, torch.bfloat16)[:, :k]
+        y = _sign_mm_f32(sign_pm1(x2d).to(torch.bfloat16), w_sign.T)
     else:
         y = sign_pm1(x2d) @ sign_pm1(qt.data).T
     y = y.reshape(*xs.shape[:-1], -1)
@@ -76,7 +82,7 @@ def _forward(x, qt: BinaryQTensor, scale_a, bias_a):
 class _BinaryLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shadow, scale_a, bias_a, qt):
-        out, xs = _forward(x, qt, scale_a, bias_a)
+        out, xs = _forward(x, qt, scale_a, bias_a, save_xs=True)
         ctx.save_for_backward(xs, scale_a)
         ctx.qt = qt
         ctx.x_dtype = x.dtype

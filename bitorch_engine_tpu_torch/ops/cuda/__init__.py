@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .binary_gemm import xnor_gemm
+from .binary_gemm import binary_packed_linear, xnor_gemm
 from .dequant_matmul import dequant_mpq, mpq_matmul
 from .flash_attention import flash_attention, flash_attention_bwd
 from .mbwq_matmul import mbwq_matmul
@@ -26,6 +26,7 @@ KERNELS = {
     "mbwq_matmul": mbwq_matmul,
     "flash_attention_bwd": flash_attention_bwd,
     "xnor_gemm": xnor_gemm,
+    "binary_packed_linear": binary_packed_linear,
 }
 
 

@@ -73,9 +73,11 @@ then, failing on the first check that does not hold:
    in the A16 regime, checks the launch counts per step and profiles a few
    steps of each regime;
 10. compares prefill + 4 decode steps of a 2-layer MBWQ-2.5 model between
-    the kernel path and the plain path on the card, in both regimes, and
-    prints (not gated) the A8 check on four more prompts with kernel 1 on
-    either body;
+    the kernel path and the plain path on the card, in both regimes, then
+    the A8 regime once more per layer (every kernel-5 call bit-equal to its
+    plain version on the same input, every kernel-1 call within f32 rel
+    1e-5), and prints (not gated) the A8 check on four more prompts with
+    kernel 1 on either body;
 11. the training slice: holds kernel 4 (the flash-attention backward, dq and
     dk / dv) against its plain version at the training shape (b8, 16 MHA
     heads, s 2048, d 64, causal), a Llama-3-8B GQA shape (32 / 8 heads, d
@@ -91,24 +93,31 @@ then, failing on the first check that does not hold:
 13. compares one train step of a 2-layer full-width model between the
     kernel path and the plain path on the card (loss, every grad shadow and
     fp gradient), both from the same weights;
-14. the binary / QAT slice: holds kernel 8 (the XNOR-popcount GEMM) bit for
-    bit against its plain version at the packed MLP's 1024² (m 1, 8, 16),
-    4096² (m 1-128), 8192² (m 8) and a ragged shape, and times it beside its
-    bound (bytes, or 32-bit popcounts at 16 per clock per SM), its plain
-    version, the bf16 sign matmul it stands in for (``torch.mm`` of the ±1
-    operands with f32 output) and the port's own m > 16 branch (unpack +
-    that matmul), and prints the m where the matmul overtakes it;
+14. the binary / QAT slice: holds kernel 8 (the XNOR-popcount GEMM, on the
+    tensor cores' 1-bit products) bit for bit against its plain versions,
+    both entries (the sign words; the packed binary linear fused with the
+    sign of x + bias_a and the scales, in f32, bf16 and f16, with ties x ==
+    -bias_a), at the packed MLP's 1024² (m 1-2048), 4096² (m 1-2048), 8192²
+    (m 8) and a ragged shape (K 1000, N 70), measures the 1-bit product's
+    issue rate against the int8 one's, and times both entries beside their
+    bounds (bytes, or 1-bit operations at 8x the int8 rate; the int8 and
+    the first body's popc bounds beside), their plain versions, the bf16 sign matmul
+    (``torch.mm`` of the ±1 operands with f32 output) and the packed
+    forward's unpack branch as it runs (unpack + that matmul + the scales),
+    and prints the m where that branch overtakes the kernel;
 15. trains the MNIST example's ``QuantMLP`` (784 → 1024 → 1024 → 10) at 1,
     4 and 8 bits with DiodeMix (lr 1e-3, batch 128, 20 steps on seeded
     synthetic digits; losses finite and falling, the accuracy the train
     step returns), packs it with ``prepare_for_inference`` and serves it at
-    batch 8 (kernel 8: exactly one launch per forward at 1 bit) and batch
-    128 (none), with one profiled train step; trains ``QuantConvNet`` (widths
+    batch 8 and 128 (kernel 8's fused entry: exactly one launch per forward
+    at 1 bit where ``xnor_route`` takes it; ms, kernel-8 launches and device
+    kernels a forward, beside the same forwards on the unpack branch), with
+    one profiled train step; trains ``QuantConvNet`` (widths
     64-128-128-256, 32×32×3, batch 128) at 1 and 4 bits for 5 steps, with
     the peak memory.  cuDNN's TF32 flag is on during phases 15-16: the
     port's convolutions must turn it off themselves;
 16. the packed MLP's logits through kernel 8 against the plain path on the
-    card (bit-equal), and one binary-MLP train step and one conv-net step
+    card at batch 8 and 128 (bit-equal), and one binary-MLP train step and one conv-net step
     at 1 and 4 bits on the card against the same step on the CPU from the
     same weights and optimizer state.
 
@@ -120,6 +129,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import importlib
 import json
 import math
@@ -137,6 +147,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+# no 1-bit rate is published: the 1-bit product (m16n8k256) does 8x the k of
+# the int8 one (m16n8k32), and phase 14's probe measures their issue rates
+B1_K_PER_INT8_K = 8
 
 SEED = 0
 BATCH, PROMPT, CACHE, DECODE_STEPS = 8, 256, 1024, 32
@@ -282,14 +295,21 @@ MLP_HIDDEN, MLP_BATCH, MLP_STEPS, MLP_LR = 1024, 128, 20, 1e-3
 SERVE_BATCH, SERVE_REPS = 8, 20
 CNN_BATCH, CNN_STEPS, CNN_HW = 128, 5, 32
 POPC_PER_CLOCK_PER_SM = 16  # 32-bit popc, compute capability 9.0 (CUDA C++ guide)
-# kernel 8's shapes (name, m, K, N): the packed MLP's serving forward first
-# (the row the main path is reckoned from), then the A/B shape list of
-# BENCH_NOTES.md:817-835 and a ragged one
+# kernel 8's shapes (name, m, K, N): the packed MLP's serving forwards first
+# (b8 is the row the main path is reckoned from), then the A/B shape list
+# of BENCH_NOTES.md:817-835 to m 2048 and a ragged one (K and N)
 XNOR_SHAPES = (
-    [("mlp_1024_m8", 8, 1024, 1024), ("mlp_1024_m1", 1, 1024, 1024), ("mlp_1024_m16", 16, 1024, 1024)]
-    + [(f"4096_m{m}", m, 4096, 4096) for m in (1, 8, 16, 32, 64, 128)]
+    [("mlp_1024_m8", 8, 1024, 1024), ("mlp_1024_m1", 1, 1024, 1024), ("mlp_1024_m16", 16, 1024, 1024),
+     ("mlp_1024_m128", 128, 1024, 1024)]
+    + [(f"1024_m{m}", m, 1024, 1024) for m in (256, 512, 2048)]
+    + [(f"4096_m{m}", m, 4096, 4096) for m in (1, 8, 16, 32, 64, 128, 256, 512, 2048)]
     + [("8192_m8", 8, 8192, 8192), ("ragged_m3_k1000_n70", 3, 1000, 70)]
 )
+# kernel 8's first (SIMT popcount) body, µs a launch, as PR 10's run read it
+# on the H100 (PERF.md §6 row 8; the body is gone): printed in phase 14's
+# log beside this run's times, and in no JSON line
+XNOR_SIMT_US = {"mlp_1024_m8": 6.768, "4096_m32": 15.8, "4096_m64": 24.7}
+XNOR_FORWARD_MS_BEFORE = {8: 0.63}  # the packed MLP's ms a forward at b8 on the first body (PR 10)
 
 
 class CheckFailed(RuntimeError):
@@ -1114,10 +1134,10 @@ def plain_kernels():
     """Route the model's and the optimizer's nine kernel calls to their
     plain versions (the flash forward and backward inside the autograd
     Function, the dequant in the linears' backward and in DiodeMix, the
-    packed binary linear's XNOR GEMM)."""
+    packed binary linear's fused XNOR GEMM)."""
     from bitorch_engine_tpu_torch.models import llama
     from bitorch_engine_tpu_torch.ops import binary_linear, mbwq_linear, mpq_linear
-    from bitorch_engine_tpu_torch.ops.cuda.binary_gemm import xnor_gemm_ref
+    from bitorch_engine_tpu_torch.ops.cuda.binary_gemm import binary_packed_linear_ref
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, mpq_matmul_ref
     from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul_ref
@@ -1134,7 +1154,7 @@ def plain_kernels():
             mock.patch.object(llama, "paged_prefix_attention", pa.paged_prefix_attention_ref), \
             mock.patch.object(llama, "paged_prefix_attention_update",
                               pa.paged_prefix_attention_update_ref), \
-            mock.patch.object(binary_linear, "xnor_gemm", xnor_gemm_ref):
+            mock.patch.object(binary_linear, "binary_packed_linear", binary_packed_linear_ref):
         yield
 
 
@@ -1626,10 +1646,51 @@ def phase_mbwq_path_check(torch, gen):
             f"max|d logits|/max|logits| = {rel:.3e}")
         check(rel <= 2e-2, f"MBWQ path check {regime}: {rel} > 2e-2")
         rels[regime] = rel
+    rels["a8_layers"] = a8_layer_check(torch, model, prompt)
     rels["a8_spread"] = a8_spread(torch, model, prompt)
     del model
     torch.cuda.empty_cache()
     return rels
+
+
+def a8_layer_check(torch, model, prompt):
+    """The A8 path check per layer: the gated prompt served once more in the
+    A8 regime with every call of kernel 5 (the w2 segments) and kernel 1
+    (the w4 segments and the head) also run through its plain version on
+    the same input.  Kernel 5's outputs must be bit-equal, kernel 1's f32
+    outputs within max|d|/max|ref| <= 1e-5: the end-to-end check's error
+    then comes from the next layer's int8 codes, not from a kernel."""
+    from bitorch_engine_tpu_torch.ops import mpq_linear
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import mpq_matmul_ref
+    from bitorch_engine_tpu_torch.ops.cuda.quad_matmul import mpq_matmul_a8_ref
+
+    kernel5, kernel1 = mpq_linear.mpq_matmul_a8, mpq_linear.mpq_matmul
+    k5_diffs, k1_rels = [], []
+
+    def kernel5_checked(x, qt, *args, **kwargs):
+        out = kernel5(x, qt, *args, **kwargs)
+        k5_diffs.append((out.float() - mpq_matmul_a8_ref(x, qt, *args, **kwargs).float()).abs().max().item())
+        return out
+
+    def kernel1_checked(x, qt, *args, **kwargs):
+        got = kernel1(x, qt, out_dtype=torch.float32)
+        want = mpq_matmul_ref(x, qt, out_dtype=torch.float32)
+        k1_rels.append(((got - want).abs().max() / want.abs().max()).item())
+        return kernel1(x, qt, *args, **kwargs)
+
+    set_regime(torch, model, 8)
+    with mock.patch.object(mpq_linear, "mpq_matmul_a8", kernel5_checked), \
+            mock.patch.object(mpq_linear, "mpq_matmul", kernel1_checked):
+        serve(torch, model, prompt, 4, floor=MBWQ_WINDOW_FLOOR)
+    out = dict(kernel5_calls=len(k5_diffs), kernel5_max_abs_diff=max(k5_diffs, default=None),
+               kernel1_calls=len(k1_rels), kernel1_max_rel=max(k1_rels, default=None))
+    log(f"MBWQ path check (a8) per layer: kernel 5 {out['kernel5_calls']} calls, max|d| "
+        f"{out['kernel5_max_abs_diff']} (bar 0); kernel 1 {out['kernel1_calls']} calls, f32 max "
+        f"rel {out['kernel1_max_rel']:.3e} (bar 1e-5)")
+    check(out["kernel5_calls"] > 0 and out["kernel1_calls"] > 0, f"A8 per-layer check: {out}")
+    check(out["kernel5_max_abs_diff"] == 0, f"A8 per-layer check: kernel 5 differs {out}")
+    check(out["kernel1_max_rel"] <= 1e-5, f"A8 per-layer check: kernel 1 {out}")
+    return out
 
 
 def a8_spread(torch, model, prompt):
@@ -1865,13 +1926,50 @@ def phase_train_path_check(torch, gen):
                 worst=worst, grad_rel=grad_rel, packed_equal=codes_equal)
 
 
+def b1_rate(torch, sms, flush):
+    """The 1-bit products' peak for kernel 8's operation bound: the card's
+    issue rate of ``mma...m16n8k256.b1.and.popc`` against that of the int8
+    ``m16n8k32`` (``csrc/binary_gemm.cu`` ``bte_mma_rate_probe``, 8 warps a
+    block, 4 blocks an SM), times 8 (its k per product) and the published
+    int8 rate; a ratio under 1 is taken as 1, so the bound never rests on
+    a rate below the int8 one's per k."""
+    from bitorch_engine_tpu_torch.ops.cuda import _build
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import _stream
+
+    probe = _build.function("binary_gemm", "bte_mma_rate_probe",
+                            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_void_p])
+    blocks, iters = 4 * sms, 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    per_s = {}
+    for kind, b1 in (("int8", 0), ("b1", 1)):
+        def launch():
+            _build.check("binary_gemm", probe(b1, blocks, iters, out.data_ptr(),
+                                              _stream(out.device)), "mma rate probe")
+        per_s[kind] = blocks * 8 * iters * 8 / (time_ms(torch, launch, reps=5, flush=flush) / 1e3)
+    ratio = per_s["b1"] / per_s["int8"]
+    rate = dict(int8_mma_per_s=per_s["int8"], b1_mma_per_s=per_s["b1"], b1_vs_int8_issue=ratio,
+                b1_ops_per_s=B1_K_PER_INT8_K * INT8_OPS_PER_S * max(1.0, ratio))
+    log(f"mma issue rate probe: int8 m16n8k32 {per_s['int8'] / 1e12:.4f} T products/s "
+        f"({per_s['int8'] * 2 * 16 * 8 * 32 / 1e12:.1f} TOP/s), b1 m16n8k256 and.popc "
+        f"{per_s['b1'] / 1e12:.4f} T products/s ({per_s['b1'] * 2 * 16 * 8 * 256 / 1e12:.1f} TOP/s): "
+        f"b1 / int8 issue {ratio:.4f}; the 1-bit bound's rate {rate['b1_ops_per_s'] / 1e12:.0f} TOP/s")
+    return rate
+
+
 def phase_xnor_kernels(torch, gen, flush):
-    """Phase 14: kernel 8 bit for bit against its plain version, then timed
-    beside its bound, its plain version, the bf16 sign matmul and the
-    port's m > 16 branch."""
-    from bitorch_engine_tpu_torch.ops import packing
-    from bitorch_engine_tpu_torch.ops.binary_linear import _packed_dot, sign_pm1
-    from bitorch_engine_tpu_torch.ops.cuda.binary_gemm import xnor_gemm, xnor_gemm_ref
+    """Phase 14: kernel 8's two entries bit for bit against their plain
+    versions (the words entry, and the fused packed linear in f32, bf16
+    and f16 with ties x == -bias_a), then timed beside their bounds (bytes,
+    or 1-bit operations at the rate ``b1_rate`` sets; the int8 and the
+    first body's popc bounds beside), the plain version, the bare bf16
+    sign matmul and the packed forward's unpack branch as it runs; the m
+    where that branch overtakes the kernel."""
+    from bitorch_engine_tpu_torch.ops import binary_linear, packing
+    from bitorch_engine_tpu_torch.ops.binary_linear import sign_pm1
+    from bitorch_engine_tpu_torch.ops.cuda.binary_gemm import (
+        binary_packed_linear, binary_packed_linear_ref, xnor_gemm, xnor_gemm_ref, xnor_plan,
+    )
     from bitorch_engine_tpu_torch.qtensor import BinaryQTensor
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1879,53 +1977,104 @@ def phase_xnor_kernels(torch, gen, flush):
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60).stdout.split()[0])
     popc_per_s = sms * POPC_PER_CLOCK_PER_SM * clock_mhz * 1e6
-    log(f"kernel 8 bound: {sms} SMs x {POPC_PER_CLOCK_PER_SM} popc/clock x {clock_mhz:.0f} MHz = "
-        f"{popc_per_s / 1e12:.3f} Tpopc/s; bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    rate = b1_rate(torch, sms, flush)
+    b1_per_s = rate["b1_ops_per_s"]
+    log(f"kernel 8 bounds: 1-bit products {b1_per_s / 1e12:.0f} TOP/s (2 m N K operations), bytes at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; beside them int8 {INT8_OPS_PER_S / 1e12:.0f} TOP/s and "
+        f"the first body's popc {sms} SMs x {POPC_PER_CLOCK_PER_SM}/clock x {clock_mhz:.0f} MHz = "
+        f"{popc_per_s / 1e12:.3f} Tpopc/s")
     rows = []
     for name, m, k, n in XNOR_SHAPES:
         x = torch.randn(m, k, device="cuda", generator=gen)
         w = torch.randn(n, k, device="cuda", generator=gen)
+        bias = torch.randn(k, device="cuda", generator=gen) * 0.1
+        x[0, : k // 2] = -bias[: k // 2]  # sign(0) = +1
+        sa = torch.rand((), device="cuda", generator=gen) + 0.5
+        sw = torch.rand((), device="cuda", generator=gen) * 0.1
         xw = packing.pack_signs(packing.pad_to_multiple(x, 1, 32, value=-1.0)[0])
         ww = packing.pack_signs(packing.pad_to_multiple(w, 1, 32, value=-1.0)[0])
-        got = xnor_gemm(xw, ww, k)
-        want = xnor_gemm_ref(xw, ww, k)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        equal = bool(torch.equal(got, want))
-        log(f"kernel xnor_gemm {name:20s} m={m} K={k} N={n}  bit-equal={equal} max|d|={err}")
-        check(equal, f"xnor_gemm {name}: not bit-equal to the plain version")
+        got, want = xnor_gemm(xw, ww, k), xnor_gemm_ref(xw, ww, k)
+        fused, fused_want = (binary_packed_linear(x, ww, sa, bias, sw, k),
+                             binary_packed_linear_ref(x, ww, sa, bias, sw, k))
+        equal = dict(words=bool(torch.equal(got, want)), fused=bool(torch.equal(fused, fused_want)))
+        err = max((got - want).abs().max().item(), (fused - fused_want).abs().max().item())
+        for dt in (torch.bfloat16, torch.float16):  # activations, bias_a and scales in dt
+            args = (x.to(dt), ww, sa.to(dt), bias.to(dt), sw.to(dt), k)
+            lo, lo_want = binary_packed_linear(*args), binary_packed_linear_ref(*args)
+            equal[f"fused_{str(dt)[6:]}"] = bool(torch.equal(lo, lo_want))
+            err = max(err, (lo.float() - lo_want.float()).abs().max().item())
+        equal["rerun"] = bool(torch.equal(xnor_gemm(xw, ww, k), got))
+        plan = xnor_plan(m, n, ww.shape[1], sms, True)
+        log(f"kernel xnor_gemm {name:20s} m={m} K={k} N={n}  plan {plan}  bit-equal {equal} "
+            f"max|d|={err}")
+        check(all(equal.values()), f"kernel 8 {name}: not bit-equal to the plain version {equal}")
         kw = ww.shape[1]
         t_bytes = (xw.nbytes + ww.nbytes + m * n * 4) / HBM_BYTES_PER_S * 1e3
-        t_ops = m * n * kw / popc_per_s * 1e3
+        t_ops = 2 * m * n * k / b1_per_s * 1e3
+        # the fused entry reads x, bias_a, the scales and the words once, writes out in x's dtype
+        t_fused_bytes = (x.nbytes + bias.nbytes + 8 + ww.nbytes + m * n * 4) / HBM_BYTES_PER_S * 1e3
         x_bf = sign_pm1(x).to(torch.bfloat16)
         w_bf = packing.unpack_signs(ww, torch.bfloat16)[:, :k].contiguous()
-        qt = BinaryQTensor(data=ww, scale_w=torch.ones((), device="cuda"), packed=True, in_features=k)
+        qt = BinaryQTensor(data=ww, scale_w=sw, packed=True, in_features=k)
+
+        def unpack_branch():  # the packed forward's TPU branch, as binary_linear runs it
+            with mock.patch.object(binary_linear, "xnor_route", lambda *args: "unpack"):
+                return binary_linear.binary_linear(x, qt, sa, bias)
+
+        unpack_out = unpack_branch()
+        check(bool(torch.equal(unpack_out, fused)), f"kernel 8 {name}: the unpack branch differs")
+        # a BinaryLinear(dtype=float16)'s forward: the route takes the fused entry
+        half = (x.half(), qt, sa.half(), bias.half())
+        before = binary_packed_linear.launches
+        lo = binary_linear.binary_linear(*half)
+        check(binary_packed_linear.launches == before + 1, f"kernel 8 {name}: f16 not routed to it")
+        with mock.patch.object(binary_linear, "xnor_route", lambda *args: "unpack"):
+            check(bool(torch.equal(lo, binary_linear.binary_linear(*half))),
+                  f"kernel 8 {name}: the f16 unpack branch differs")
         rows.append(dict(
-            shape=name, m=m, K=k, N=n, max_abs_err=err, rel_err=err, bit_equal=equal,
+            shape=name, m=m, K=k, N=n, plan=plan, max_abs_err=err, rel_err=err, bit_equal=equal,
             ms=time_ms(torch, lambda: xnor_gemm(xw, ww, k), flush=flush),
+            fused_ms=time_ms(torch, lambda: binary_packed_linear(x, ww, sa, bias, sw, k), flush=flush),
             plain_ms=time_ms(torch, lambda: xnor_gemm_ref(xw, ww, k), reps=5, flush=flush),
+            fused_plain_ms=time_ms(torch, lambda: binary_packed_linear_ref(x, ww, sa, bias, sw, k),
+                                   reps=5, flush=flush),
             library_ms=None,
             yardstick_ms=time_ms(torch, lambda: torch.mm(x_bf, w_bf.T, out_dtype=torch.float32),
                                  flush=flush),
-            fallback_ms=(time_ms(torch, lambda: _packed_dot(x, qt), flush=flush)
-                         if m > 16 else None),
+            unpack_ms=time_ms(torch, unpack_branch, reps=5, flush=flush),
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bound_bytes_ms=t_bytes, bound_popc_ms=t_ops,
+            bound_bytes_ms=t_bytes, bound_b1_ms=t_ops,
+            bound_int8_ms=2 * m * n * k / INT8_OPS_PER_S * 1e3,
+            bound_popc_ms=m * n * kw / popc_per_s * 1e3,
+            fused_bound_ms=max(t_fused_bytes, t_ops),
+            fused_bound_by="bytes" if t_fused_bytes >= t_ops else "operations",
         ))
-        del x, w, xw, ww, x_bf, w_bf, got, want
+        del x, w, xw, ww, x_bf, w_bf, got, want, fused, lo, lo_want, unpack_out
     torch.cuda.empty_cache()
+    one = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(torch, lambda: one.add_(1), flush=flush)
+    log(f"kernel 8 at small m is a launch's fixed cost: one 1-element add timed the same way "
+        f"takes {floor_ms:.4f} ms")
     for r in rows:
-        fb = "n/a" if r["fallback_ms"] is None else f"{r['fallback_ms']:.4f}"
-        log(f"time xnor_gemm {r['shape']:20s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-            f"bf16 sign matmul {r['yardstick_ms']:.4f} ms  m>16 branch {fb} ms  bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.4f}, popc "
-            f"{r['bound_popc_ms']:.4f})")
-    big = [r for r in rows if r["shape"].startswith("4096_m")]
-    over = [r["m"] for r in big if r["yardstick_ms"] < r["ms"]]
-    crossover = min(over) if over else None
-    log(f"kernel 8 at 4096^2: the bf16 sign matmul overtakes it at m = {crossover} "
-        f"(m tried: {[r['m'] for r in big]}; the port switches above m = 16)")
-    return rows, crossover
+        simt = (f"  first body {XNOR_SIMT_US[r['shape']] / 1e3:.6f} ms (PR 10's run)"
+                if r["shape"] in XNOR_SIMT_US else "")
+        log(f"time xnor_gemm {r['shape']:20s} words {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.0%} of "
+            f"bound)  fused {r['fused_ms']:.4f} ms ({r['fused_bound_ms'] / r['fused_ms']:.0%})  "
+            f"plain {r['plain_ms']:.4f} / {r['fused_plain_ms']:.4f} ms{simt}  bf16 sign matmul "
+            f"{r['yardstick_ms']:.4f} ms  unpack branch {r['unpack_ms']:.4f} ms  bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}; bytes {r['bound_bytes_ms']:.5f}, 1-bit "
+            f"{r['bound_b1_ms']:.5f}, int8 {r['bound_int8_ms']:.5f}, popc {r['bound_popc_ms']:.5f}; "
+            f"fused {r['fused_bound_ms']:.5f} ({r['fused_bound_by']}))")
+    crossover = {}
+    for side in ("1024", "4096"):
+        big = sorted((r for r in rows if r["N"] == int(side) and r["K"] == int(side)),
+                     key=lambda r: r["m"])
+        over = [r["m"] for r in big if r["unpack_ms"] < r["fused_ms"]]
+        crossover[side] = min(over) if over else None
+        log(f"kernel 8 at {side}^2: the unpack branch overtakes the fused kernel at m = "
+            f"{crossover[side]} (m tried: {[r['m'] for r in big]}; xnor_route takes the kernel "
+            f"for every m whose rows fit)")
+    return rows, dict(unpack_overtakes_at_m=crossover, launch_floor_ms=floor_ms, b1_rate=rate)
 
 
 def synthetic_batches(torch, gen, shape, n_batches, batch, noise):
@@ -1970,6 +2119,8 @@ def phase_qat_e2e(torch, gen):
 
     from bitorch_engine_tpu_torch.models.cnn import QuantConvNet
     from bitorch_engine_tpu_torch.models.mlp import QuantMLP
+    from bitorch_engine_tpu_torch.ops import binary_linear
+    from bitorch_engine_tpu_torch.ops.binary_linear import xnor_route
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from bitorch_engine_tpu_torch.utils.convert import prepare_for_inference, prepare_for_training
 
@@ -2006,20 +2157,57 @@ def phase_qat_e2e(torch, gen):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / SERVE_REPS
             counts = launch_counts()
-            want = counts_with(xnor_gemm=SERVE_REPS if bits == 1 and batch <= 16 else 0)
+            # the packed forward takes kernel 8's fused entry where the route says so
+            fused = bits == 1 and xnor_route(batch, MLP_HIDDEN, MLP_HIDDEN) == "kernel"
+            want = counts_with(binary_packed_linear=SERVE_REPS if fused else 0)
             check(counts == want, f"MLP w{bits} serving b{batch}: launches {counts} != {want}")
             check(logits.shape == (batch, 10) and bool(torch.isfinite(logits).all()),
                   f"MLP w{bits} b{batch} logits")
-            serve[batch] = dict(ms_per_forward=ms, launches=counts["xnor_gemm"])
+            serve[batch] = dict(ms_per_forward=ms, launches=counts["binary_packed_linear"],
+                                words_launches=counts["xnor_gemm"])
+            if bits == 1:  # the packed forward's device kernels, all of them
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(SERVE_REPS):
+                        model(x)
+                    torch.cuda.synchronize()
+                fwd = _device_summary(torch, prof, time.perf_counter() - t0, SERVE_REPS, top=4)
+                serve[batch].update(device_launches_per_forward=fwd["launches_per_call"],
+                                    device_busy_ms_per_forward=fwd["device_busy_ms_per_call"])
+                # the same forwards on the unpack branch (the port's route above
+                # 16 rows with the first body), for the same-run comparison
+                with mock.patch.object(binary_linear, "xnor_route", lambda *args: "unpack"):
+                    model(x)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(SERVE_REPS):
+                        model(x)
+                    torch.cuda.synchronize()
+                    serve[batch]["unpack_ms_per_forward"] = (time.perf_counter() - t0) * 1e3 / SERVE_REPS
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        for _ in range(SERVE_REPS):
+                            model(x)
+                        torch.cuda.synchronize()
+                fwd = _device_summary(torch, prof, time.perf_counter() - t0, SERVE_REPS, top=4)
+                serve[batch]["unpack_device_launches_per_forward"] = fwd["launches_per_call"]
         acc = float((model(x128).argmax(-1) == data[-1][1]).float().mean())
         out["mlp"][bits] = dict(losses=losses, train_acc=accs, step_ms=step_ms,
                                 ms_per_step=statistics.median(step_ms), peak_train_gib=peak_train,
                                 serve=serve, packed_acc_b128=acc, profile=prof_summary)
         log(f"QuantMLP w{bits}: {statistics.median(step_ms):.3f} ms/step (median of {MLP_STEPS}), "
-            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, train acc {accs[-1]:.3f}; packed "
-            f"forward b8 {serve[SERVE_BATCH]['ms_per_forward']:.4f} ms ({serve[SERVE_BATCH]['launches']} "
-            f"kernel-8 launches in {SERVE_REPS}), b128 {serve[MLP_BATCH]['ms_per_forward']:.4f} ms; "
-            f"acc on a held-out batch {acc:.3f}; peak {peak_train:.3f} GiB")
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, train acc {accs[-1]:.3f}; acc on a held-out "
+            f"batch {acc:.3f}; peak {peak_train:.3f} GiB")
+        for batch, r in serve.items():
+            before = XNOR_FORWARD_MS_BEFORE.get(batch) if bits == 1 else None
+            profiled = ("" if bits != 1 else
+                        f" and {r['device_launches_per_forward']:.1f} device kernels a forward, "
+                        f"device busy {r['device_busy_ms_per_forward']:.4f} ms a forward (profiled); "
+                        f"on the unpack branch {r['unpack_ms_per_forward']:.4f} ms and "
+                        f"{r['unpack_device_launches_per_forward']:.1f} device kernels a forward")
+            log(f"  packed forward b{batch}: {r['ms_per_forward']:.4f} ms a forward"
+                f"{'' if before is None else f' (on the first body: {before} ms)'}, "
+                f"{r['launches'] / SERVE_REPS:g} kernel-8 launches a forward{profiled}")
         if prof_summary is not None:
             log(f"profile QuantMLP w1 train step: wall {prof_summary['wall_ms_per_call']:.3f} ms "
                 f"(profiled), device busy {prof_summary['device_busy_ms_per_call']:.3f} ms, idle share "
@@ -2046,7 +2234,7 @@ def phase_qat_e2e(torch, gen):
 
 def phase_qat_path_check(torch, gen):
     """Phase 16: the packed MLP's logits through kernel 8 against the plain
-    path on the card (bit-equal); one train step of the binary MLP and of
+    path on the card at b8 and b128 (bit-equal); one train step of the binary MLP and of
     the conv net at 1 and 4 bits on the card against the same step on the
     CPU from the same weights and optimizer state (the MLP: loss rel <=
     1e-4; the conv nets: loss rel <= 1e-2 at 1 bit, where LayerNorm ties
@@ -2061,17 +2249,20 @@ def phase_qat_path_check(torch, gen):
     res = {}
     (x, y), = synthetic_batches(torch, gen, (28, 28), 1, MLP_BATCH, 0.8)
     model = prepare_for_inference(QuantMLP(hidden=MLP_HIDDEN, bits=1, seed=SEED + 5, sample=x))
-    reset_launch_counts()
-    got = model(x[:SERVE_BATCH])
-    check(launch_counts() == counts_with(xnor_gemm=1), f"packed path check launches {launch_counts()}")
-    with plain_kernels():
-        want = model(x[:SERVE_BATCH])
-    torch.cuda.synchronize()
-    check(launch_counts() == counts_with(xnor_gemm=1), "the plain packed path launched a kernel")
-    res["packed_logits_bit_equal"] = bool(torch.equal(got, want))
-    log(f"path check packed binary MLP b{SERVE_BATCH}: kernel 8 vs plain logits bit-equal "
-        f"{res['packed_logits_bit_equal']}")
-    check(res["packed_logits_bit_equal"], "packed MLP logits: kernel 8 differs from the plain path")
+    for batch in (SERVE_BATCH, MLP_BATCH):
+        reset_launch_counts()
+        got = model(x[:batch])
+        one = counts_with(binary_packed_linear=1)
+        check(launch_counts() == one, f"packed path check b{batch} launches {launch_counts()}")
+        with plain_kernels():
+            want = model(x[:batch])
+        torch.cuda.synchronize()
+        check(launch_counts() == one, "the plain packed path launched a kernel")
+        res[f"packed_logits_bit_equal_b{batch}"] = bool(torch.equal(got, want))
+        log(f"path check packed binary MLP b{batch}: kernel 8 vs plain logits bit-equal "
+            f"{res[f'packed_logits_bit_equal_b{batch}']}")
+        check(res[f"packed_logits_bit_equal_b{batch}"],
+              f"packed MLP logits b{batch}: kernel 8 differs from the plain path")
 
     def card_vs_cpu(name, model, batch, bar):
         cpu_model = copy.deepcopy(model).to("cpu")
@@ -2200,13 +2391,13 @@ def main() -> int:
 
     # the binary / QAT slice
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    per_shape["xnor_gemm"], crossover = phase_xnor_kernels(torch, gen, flush)
+    per_shape["xnor_gemm"], xnor_more = phase_xnor_kernels(torch, gen, flush)
     del flush
     torch.backends.cudnn.allow_tf32 = True  # the port's convs must not rely on the caller's flag
     qat = phase_qat_e2e(torch, gen)
     qat["path_check"] = phase_qat_path_check(torch, gen)
     torch.backends.cudnn.allow_tf32 = False
-    qat["xnor_crossover_m_4096"] = crossover
+    qat["xnor"] = xnor_more
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -2233,7 +2424,10 @@ def main() -> int:
                              "a second launch bit-equal; the bf16 out the f32 out cast")
     checks["flash_attention_bwd"] = ("max|d|/max|ref| <= 1e-2 for each of dq, dk, dv (bf16 out) per "
                                      "shape")
-    checks["xnor_gemm"] = "bit-equal (f32 integers) per shape"
+    checks["xnor_gemm"] = ("bit-equal per shape: the words entry (f32 integers, and a second launch), "
+                           "the fused packed linear in f32, bf16 and f16 (ties x == -bias_a), and the "
+                           "unpack branch's output equal to the fused entry's (f32, and f16 routed "
+                           "through binary_linear)")
     kernels = []
     for name in ("mpq_matmul", "dequant_mpq"):
         rows = per_shape[name]
@@ -2304,14 +2498,26 @@ def main() -> int:
                        checks["flash_attention_bwd"])
     line["library"] = "scaled_dot_product_attention backward (forward + backward less forward)"
     kernels.append(line)
-    # the binary path (phase 15): one launch per packed forward of the
-    # binary MLP at batch 8, reckoned at 1024 x 1024, m 8
-    line = kernel_line("xnor_gemm", per_shape["xnor_gemm"], qat["mlp"][1]["serve"][SERVE_BATCH]["launches"],
-                       {"mlp_1024_m8": 1}, "one packed forward of the binary MLP at batch 8",
+    # the binary path (phase 15): one launch of kernel 8 (its fused entry,
+    # binary_packed_linear) per packed forward of the binary MLP at batch 8,
+    # reckoned at 1024 x 1024, m 8
+    xr = per_shape["xnor_gemm"]
+    path_serve = qat["mlp"][1]["serve"][SERVE_BATCH]
+    path_launches = path_serve["launches"]
+    line = kernel_line("xnor_gemm", xr, path_launches, {"mlp_1024_m8": 1},
+                       "one packed forward of the binary MLP at batch 8 (the fused entry)",
                        checks["xnor_gemm"])
-    line["yardstick_ms"] = shape_row(per_shape["xnor_gemm"], "mlp_1024_m8")["yardstick_ms"]
+    row8 = shape_row(xr, "mlp_1024_m8")  # the path's call: the fused entry
+    line.update(ms=row8["fused_ms"], plain_ms=row8["fused_plain_ms"], bound_ms=row8["fused_bound_ms"],
+                bound_by=row8["fused_bound_by"])
+    line["entries"] = {"binary_packed_linear": path_launches, "xnor_gemm": path_serve["words_launches"]}
+    line["words_entry_ms"] = row8["ms"]
+    line["b1_rate"] = xnor_more["b1_rate"]
+    line["yardstick_ms"] = row8["yardstick_ms"]
     line["yardstick"] = ("torch.mm of the bf16 +-1 activations by the unpacked bf16 +-1 weight, f32 out "
                          "(no PyTorch call computes an XNOR-popcount GEMM)")
+    line["unpack_branch_ms"] = row8["unpack_ms"]
+    line["launch_floor_ms"] = xnor_more["launch_floor_ms"]
     kernels.append(line)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,

@@ -31,19 +31,27 @@ def lecun_normal(shape: Tuple[int, ...], fan_in: int, generator: Optional[torch.
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias``, kernel ``(in, out)``."""
+    """flax ``nn.Dense``: ``x @ kernel + bias``, kernel ``(in, out)``; with
+    ``dtype`` (flax's computation dtype) the input, kernel and bias are cast
+    to it first, the parameters stay f32."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         device = resolve_device(device)
+        self.dtype = dtype
         self.kernel = nn.Parameter(lecun_normal((in_features, features), in_features, generator,
                                                 device))
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        kernel, bias = self.kernel, self.bias
+        if self.dtype is not None:
+            x, kernel = x.to(self.dtype), kernel.to(self.dtype)
+            bias = None if bias is None else bias.to(self.dtype)
+        y = x @ kernel
+        return y if bias is None else y + bias
 
 
 class Conv(nn.Module):

@@ -1,15 +1,18 @@
 """Llama family with weight-only quantized projections, in PyTorch.
 
 The counterpart of ``bitorch_engine_tpu/models/llama.py`` for the serving
-path: MPQ or mixed-bit MBWQ projections (``mbwq_strategy``), in the A16
+path: MPQ or mixed-bit MBWQ projections (``mbwq_strategy``), or fp
+projections (``quantized=False``: flax ``Dense`` layers), in the A16
 or the A8 regime (``utils.convert.prepare_params_for_cuda``'s
 ``act_bits_map``), optionally fused q|k|v and gate|up, RoPE,
 RMSNorm and SwiGLU, dense or paged bf16 / int8 KV caches, a bf16 / int8 /
 w4 head.  Parameters live in the modules (``LlamaModel(cfg, device)`` builds
-random ones from a seeded ``torch.Generator``; ``utils.convert`` loads the
-JAX package's); the entry points are :func:`prefill`, :func:`decode_step`
-and ``models.generate.generate`` for serving, and a plain call under
-autograd for training (``training.make_train_step``).
+random ones from a seeded ``torch.Generator``, or on the ``meta`` device
+none, a skeleton for a loader to fill; ``utils.convert`` loads the JAX
+package's, ``models.llama_loader`` HF checkpoints); the entry points are
+:func:`prefill`, :func:`decode_step` and ``models.generate.generate`` for
+serving, and a plain call under autograd for training
+(``training.make_train_step``).
 
 Attention reads the dense cache in one of four ways, as the reference does:
 no cache (full causal attention over the tokens), full read (window None or
@@ -29,8 +32,8 @@ the card runs the differentiable flash attention (kernel 3 forward, kernel
 4 backward); ``cfg.remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``), as the JAX package's ``nn.remat``.
 
-Outside the slices ported so far: fp (unquantized) projections, MoE and
-sequence parallelism raise ``NotImplementedError``.
+Outside the slices ported so far: MoE and sequence parallelism raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..layers.basic import Dense
 from ..layers.linear import MBWQLinear, MPQLinear
 from ..ops.cuda.flash_attention import HEAD_DIMS, flash_attention_diff
 from ..ops.cuda.paged_attention import (
@@ -193,10 +197,6 @@ def _check_slice(cfg: LlamaConfig) -> None:
     later = {
         "moe_num_experts": (cfg.moe_num_experts > 0, "the MoE slice"),
         "sequence_parallel": (cfg.sequence_parallel is not None, "the parallel-layouts slice"),
-        "quantized": (
-            not cfg.quantized,
-            "the checkpoint slice (fp projections; the training slice trains quantized ones)",
-        ),
     }
     for field, (set_, slice_) in later.items():
         if set_:
@@ -238,7 +238,11 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.
 
 
 def _proj(cfg: LlamaConfig, in_features: int, out_features: int, device, generator,
-          use_bias: bool = False) -> Union[MPQLinear, MBWQLinear]:
+          use_bias: bool = False) -> Union[MPQLinear, MBWQLinear, Dense]:
+    if not cfg.quantized:
+        # flax nn.Dense in the model dtype; proj_pad_to pads quantized ones only
+        dense = Dense(in_features, out_features, use_bias, device, generator, dtype=cfg.dtype)
+        return dense.requires_grad_(False)
     out_slice = None
     if cfg.proj_pad_to and out_features % cfg.proj_pad_to and not use_bias:
         out_slice = out_features
@@ -674,7 +678,9 @@ class LlamaModel(nn.Module):
         _check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = None  # a meta skeleton draws nothing
+        if self.device.type != "meta":
+            gen = torch.Generator(device=self.device).manual_seed(seed)
         table = torch.randn(
             cfg.vocab_size, cfg.hidden_size, generator=gen, device=self.device
         ) * 0.02
@@ -793,6 +799,17 @@ def prefill(model: LlamaModel, tokens, kv_caches):
 
 def _fuse_group(parent: nn.Module, names: Sequence[str], fused_name: str) -> None:
     parts = [getattr(parent, n) for n in names]
+    if all(isinstance(p, Dense) for p in parts):
+        kernel = torch.cat([p.kernel for p in parts], dim=1)
+        fused = Dense(*kernel.shape, all(p.bias is not None for p in parts), device="meta",
+                      dtype=parts[0].dtype)
+        fused.kernel = nn.Parameter(kernel, requires_grad=False)
+        if fused.bias is not None:
+            fused.bias = nn.Parameter(torch.cat([p.bias for p in parts]), requires_grad=False)
+        for n in names:
+            delattr(parent, n)
+        setattr(parent, fused_name, fused)
+        return
     if any(isinstance(p, MBWQLinear) for p in parts):
         raise ValueError(
             f"cannot fuse {names}: MBWQ projections permute their rows per projection; "
@@ -813,7 +830,9 @@ def _fuse_group(parent: nn.Module, names: Sequence[str], fused_name: str) -> Non
 def fuse_llama_params(model: LlamaModel, fuse_qkv: bool = True, fuse_gate_up: bool = True):
     """Rewrite an unfused model in place into the ``fuse_qkv`` /
     ``fuse_gate_up`` form: q|k|v and gate|up concatenate along the output
-    features (``concat_mpq``), which leaves the logits unchanged.  Returns
+    features (``concat_mpq``; fp kernels and biases by ``torch.cat``), which
+    leaves the logits unchanged.  Act-order parts (``q_perm`` / ``g_idx``)
+    raise, as in the JAX package: such a checkpoint loads unfused.  Returns
     the model.  MBWQ projections raise (the JAX package's ``concat_mpq``
     cannot take them either): build such a model fused."""
     cfg = model.cfg.replace(

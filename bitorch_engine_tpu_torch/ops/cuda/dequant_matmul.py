@@ -101,7 +101,10 @@ def _check_weight(qt: MPQTensor, device: torch.device, act_bits=(16,)) -> None:
     if qt.act_bits not in act_bits:
         raise ValueError(f"this kernel takes act_bits in {act_bits}, the tensor has {qt.act_bits}")
     if qt.g_idx is not None or qt.q_perm is not None:
-        raise NotImplementedError("act-order g_idx/q_perm tensors arrive with the checkpoint slice")
+        raise ValueError(
+            "the kernels take a tensor's stored rows: ops.mpq_linear gathers the activations "
+            "by q_perm (or scatters kernel 2's rows) and sends a ragged g_idx past the kernels"
+        )
     if qt.w_bit not in packing.SUPPORTED_BITS:
         raise ValueError(f"w_bit={qt.w_bit} unsupported")
     k, n = qt.logical_shape

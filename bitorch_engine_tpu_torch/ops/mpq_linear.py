@@ -17,6 +17,16 @@ Two regimes, as in the JAX package:
 The regime is chosen from the tensor, the device and the shape up front;
 nothing catches a kernel's error to fall back.
 
+Act-order tensors follow the JAX package's branch rules.  A tensor with
+``q_perm`` (a canonicalized act-order GPTQ checkpoint: rows stored sorted by
+group) runs kernels 1 and 5 on its stored rows after a gather of the
+activations, ``x[..., q_perm]``, and kernel 2 on its stored rows followed by
+a scatter of the weight's rows back by ``q_perm``.  A tensor with a ragged
+``g_idx`` passes both kernels, as in the JAX package: the plain dequantize
+(on the card too) and ``torch.matmul``, or in the A8 regime the JAX
+package's simulation of its A8 kernel.  :data:`act_order_counts` counts the
+gathers, scatters and plain reconstructions.
+
 The backward (``_mpq_bwd`` of the JAX package) runs when the input or the
 tensor's grad shadow needs a gradient: ``grad_input = g @ Wᵀ`` with the
 weight reconstructed again (kernel 2 on the card), and the full-rank
@@ -30,8 +40,8 @@ import torch
 
 from ..qtensor import MPQTensor
 from .cuda.dequant_matmul import dequant_mpq, mpq_matmul
-from .cuda.quad_matmul import mpq_matmul_a8
-from .quant import dequantize_mpq
+from .cuda.quad_matmul import mpq_matmul_a8, mpq_matmul_a8_ref
+from .quant import _unpermute, dequantize_mpq
 
 # The A8 regime's row limit, the crossover the JAX package measured on a
 # TPU v5e.  It decides whether the activations are quantized to int8, so
@@ -44,14 +54,40 @@ MAX_FUSED_ROWS = 512
 # same cut-off and uses it (ops/mbwq_linear.py).
 MAX_FUSED_ROWS_A16 = 64
 
+# the act-order routes taken, by kind: "gather" (activations gathered by
+# q_perm for kernel 1 or 5), "scatter" (kernel 2's rows scattered back by
+# q_perm, on the card) and "plain" (a ragged g_idx tensor through the plain
+# dequantize); the caller resets them
+act_order_counts = {"gather": 0, "scatter": 0, "plain": 0}
+
+
+def _stored(qt: MPQTensor) -> MPQTensor:
+    """The tensor as its rows are stored (no ``q_perm``): what the kernels
+    take."""
+    return qt if qt.q_perm is None else qt.replace(q_perm=None)
+
+
+def _gather(x2d: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
+    """Activations in the tensor's stored row order, ``x[:, q_perm]``."""
+    if qt.q_perm is None:
+        return x2d
+    act_order_counts["gather"] += 1
+    return x2d.index_select(1, qt.q_perm)
+
 
 def reconstruct_weight(qt: MPQTensor, dtype: torch.dtype) -> torch.Tensor:
-    """Logical fp weight ``(K, N)``: kernel 2 on the card (which raises on
-    act-order ``g_idx`` / ``q_perm`` tensors), the plain dequantize on the
-    CPU."""
-    if qt.device.type != "cuda":
+    """Logical fp weight ``(K, N)``: on the card kernel 2 on the stored rows,
+    scattered back by ``q_perm`` where the tensor has one, or the plain
+    dequantize for a ragged ``g_idx``; on the CPU the plain dequantize."""
+    if qt.g_idx is not None:
+        act_order_counts["plain"] += 1
+    if qt.device.type != "cuda" or qt.g_idx is not None:
         return dequantize_mpq(qt, dtype)
-    return dequant_mpq(qt, dtype)
+    w = dequant_mpq(_stored(qt), dtype)
+    if qt.q_perm is None:
+        return w
+    act_order_counts["scatter"] += 1
+    return _unpermute(w, qt.q_perm)
 
 
 def weight_grad(x2d: torch.Tensor, g2d: torch.Tensor) -> torch.Tensor:
@@ -101,15 +137,31 @@ def mpq_linear(x: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
     return _mpq_forward(x, qt)
 
 
+def mpq_route(qt: MPQTensor, m: int, device_type: str) -> str:
+    """The forward's route for ``m`` rows on ``device_type``: ``"a8"``
+    (kernel 5, its plain version on the CPU), ``"a8_plain"`` (the A8
+    regime's plain simulation, for a ragged ``g_idx``), ``"a16"`` (kernel
+    1, on the card only) or ``"reconstruct"`` (the weight, then
+    ``torch.matmul``)."""
+    if qt.act_bits == 8 and m <= MAX_FUSED_ROWS:
+        return "a8_plain" if qt.g_idx is not None else "a8"
+    if device_type == "cuda" and m <= MAX_FUSED_ROWS_A16 and qt.g_idx is None:
+        return "a16"
+    return "reconstruct"
+
+
 def _mpq_forward(x: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2d = x.reshape(-1, k)
-    m = x2d.shape[0]
-    if qt.act_bits == 8 and m <= MAX_FUSED_ROWS:
-        out = mpq_matmul_a8(x2d.contiguous(), qt)
-    elif x.device.type == "cuda" and m <= MAX_FUSED_ROWS_A16:
-        out = mpq_matmul(x2d.contiguous(), qt)
+    route = mpq_route(qt, x2d.shape[0], x.device.type)
+    if route == "a8_plain":
+        act_order_counts["plain"] += 1
+        out = mpq_matmul_a8_ref(x2d, qt)
+    elif route == "a8":
+        out = mpq_matmul_a8(_gather(x2d, qt).contiguous(), _stored(qt))
+    elif route == "a16":
+        out = mpq_matmul(_gather(x2d, qt).contiguous(), _stored(qt))
     else:
         w = reconstruct_weight(qt, x.dtype)
         out = torch.matmul(x2d, w)

@@ -1,6 +1,6 @@
 """Quantization math in PyTorch: the per-tensor quantizers, the binary and
-n-bit QAT initialisers, and MPQ (GPTQ/GBA) quantize, dequantize,
-concatenate and slice.
+n-bit QAT initialisers, MPQ (GPTQ/GBA) quantize, dequantize,
+concatenate and slice, and the GBA checkpoints' scale decompression.
 
 The counterpart of ``bitorch_engine_tpu/ops/quant.py``, bit-exact with its
 jitted functions: both sides compute in float32 with the same operations
@@ -34,10 +34,12 @@ def _group_index(qt: MPQTensor, k: int) -> torch.Tensor:
 
 
 def _unpermute(w: torch.Tensor, q_perm: torch.Tensor) -> torch.Tensor:
-    """Rows stored permuted: scatter row i back to ``q_perm[i]``."""
-    out = torch.zeros_like(w)
-    out[q_perm.long()] = w
-    return out
+    """Rows stored permuted: row i goes back to row ``q_perm[i]`` (a
+    permutation), as a gather of rows by its inverse (one pass over ``w``)."""
+    perm = q_perm.long()
+    inverse = torch.empty_like(perm)
+    inverse[perm] = torch.arange(perm.numel(), device=perm.device)
+    return w.index_select(0, inverse)
 
 
 def dequantize_mpq(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -317,3 +319,59 @@ def repack_mpq(
     else:
         q = torch.round((w + qt.zeros[g].float()) / scales)
     return packing.pack_rows(torch.clamp(q, 0, maxq).to(torch.int32), qt.w_bit)
+
+
+# ---------------------------------------------------------------------------
+# GBA double-quantization decompression
+# ---------------------------------------------------------------------------
+
+
+def _apply_scale_affine(qscales, zeros, scales, g, out_channels, dq_mode, dtype):
+    """Affine-dequantize 4-bit scale codes, ``(q - z) * s`` in ``dtype``.
+
+    ``dq_mode=2`` (LLaMA-2/3 GBA checkpoints): the pair is per (group,
+    dq-group), ``(G, N/dqg, 1)`` against ``(G, N/dqg, dqg)`` codes;
+    ``dq_mode=1`` (LLaMA-1-era GBA): per output channel, ``(1, N, 1)``,
+    applied to the codes flattened to ``(G, N)``.
+    """
+    if dq_mode == 1:
+        q2d = qscales.reshape(g, out_channels)
+        return (q2d - zeros.to(dtype).reshape(1, out_channels)) * scales.to(dtype).reshape(
+            1, out_channels
+        )
+    return ((qscales - zeros.to(dtype)) * scales.to(dtype)).reshape(g, out_channels)
+
+
+def decompress_gba_sym(
+    qstatistic: torch.Tensor, qzeros_zeros: torch.Tensor, qzeros_scales: torch.Tensor,
+    qscales_zeros: torch.Tensor, qscales_scales: torch.Tensor, out_channels: int,
+    dtype: torch.dtype = torch.float32, dq_mode: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GBA double-quantized scales and zeros (symmetric mode) → ``(G, N)``
+    each: ``qstatistic`` uint8 ``(G, N/dqg, dqg)`` holds the 4-bit scale
+    code in its high nibble and the 4-bit zero code in its low nibble, each
+    dequantized by its own (zero, scale) pair; ``dq_mode`` picks the scale
+    pair's layout (:func:`_apply_scale_affine`), the zeros pair is per
+    dq-group in both modes."""
+    qs = qstatistic.to(torch.uint8)
+    qscales = (qs >> 4).to(dtype)
+    qzeros = (qs & 0x0F).to(dtype)
+    g = qs.shape[0]
+    zeros = ((qzeros - qzeros_zeros.to(dtype)) * qzeros_scales.to(dtype)).reshape(g, out_channels)
+    scales = _apply_scale_affine(qscales, qscales_zeros, qscales_scales, g, out_channels,
+                                 dq_mode, dtype)
+    return scales, zeros
+
+
+def decompress_gba_asym(
+    qscales: torch.Tensor, qscales_zeros: torch.Tensor, qscales_scales: torch.Tensor,
+    out_channels: int, w_bit: int, dtype: torch.dtype = torch.float32, dq_mode: int = 2,
+) -> torch.Tensor:
+    """GBA double-quantized scales (asymmetric mode) → ``(G, N)``; the zeros
+    stay the packed int32 ``qzeros``.  At w_bit 2 a 2-d ``qscales`` gets a
+    trailing axis first."""
+    qsc = qscales.to(dtype)
+    if w_bit == 2 and qsc.dim() == 2:
+        qsc = qsc[..., None]
+    return _apply_scale_affine(qsc, qscales_zeros, qscales_scales, qsc.shape[0], out_channels,
+                               dq_mode, dtype)

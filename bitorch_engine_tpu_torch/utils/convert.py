@@ -6,7 +6,10 @@ moments and paged KV caches into the port.
 ``jax.tree_util.tree_map(np.asarray, params)``: nested dicts of numpy
 arrays, with each quantized weight still a record object whose fields are
 numpy arrays.  It recognises such a record by its attributes and never
-imports the JAX package.
+imports the JAX package.  It takes the same tree with torch tensors and the
+port's records, as :func:`params_tree` makes it from a model and
+``utils.checkpoint.load_checkpoint`` restores it, and fills a skeleton
+model built on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..layers.basic import Dense
-from ..layers.linear import BinaryLinear, MBWQLinear, MPQLinear, QuantLayer
+from ..layers.linear import MBWQLinear, MPQLinear, QuantLayer
 from ..models.paged_kv import PagedKV
 from ..ops.cuda.dequant_matmul import prepare_for_kernel
 from ..ops.quant import pack_binary_weight, quantize_mpq
@@ -35,6 +38,7 @@ from ..qtensor import (
     with_grad_shadow,
     without_grad_shadow,
 )
+from .ingest import as_tensor
 
 _MPQ_FIELDS = ("packed", "scales", "zeros", "w_bit", "group_size", "asym", "layout")
 _MBWQ_FIELDS = ("segments", "q_perm", "channel_scale", "block_perm", "perm_block")
@@ -138,17 +142,23 @@ def prepare_for_training(model: nn.Module) -> nn.Module:
     return model
 
 
+def inference_record(qt):
+    """A quantized record as inference mode holds it: no grad shadow, and a
+    binary linear's weight (the 2-d QAT form) packed to sign words.  A binary
+    conv's weight (4-d) stays int8: neither package has a packed conv (the
+    JAX package's packing of a conv weight would pack the wrong axis)."""
+    qt = without_grad_shadow(qt)
+    if isinstance(qt, BinaryQTensor) and qt.data.dim() == 2:
+        qt = pack_binary_weight(qt)
+    return qt
+
+
 def prepare_for_inference(model: nn.Module) -> nn.Module:
-    """Inference mode: drop the grad shadows, pack the binary linears'
-    weights to sign words (one bit a weight; kernel 8 reads them) and freeze
-    every parameter.  Binary convs keep their int8 weights: neither package
-    has a packed conv (the JAX package's packing of a conv weight would
-    pack the wrong axis).  Works in place; returns the model."""
+    """Inference mode: every quantized record as :func:`inference_record`
+    leaves it (binary linears' weights packed to sign words, which kernel 8
+    reads) and every parameter frozen.  Works in place; returns the model."""
     for mod in quantized_layers(model):
-        qt = without_grad_shadow(mod.qweight)
-        if isinstance(mod, BinaryLinear):
-            qt = pack_binary_weight(qt)
-        mod.set_qweight(qt)
+        mod.set_qweight(inference_record(mod.qweight))
     for p in model.parameters():
         p.requires_grad_(False)
     return model
@@ -179,17 +189,6 @@ def prepare_params_for_cuda(
     return model
 
 
-def _tensor(a, device) -> Optional[torch.Tensor]:
-    if a is None:
-        return None
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: carry the bits over
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
-    if a.dtype == np.uint32:  # packed words: the same bits as int32
-        a = a.view(np.int32)
-    return torch.from_numpy(a.copy()).to(device)
-
-
 def _is_mpq(leaf: Any) -> bool:
     return all(hasattr(leaf, f) for f in _MPQ_FIELDS)
 
@@ -197,12 +196,12 @@ def _is_mpq(leaf: Any) -> bool:
 def _mpq(leaf: Any, device) -> MPQTensor:
     code_bits = getattr(leaf, "code_bits", None)
     return MPQTensor(
-        grad_shadow=_tensor(getattr(leaf, "grad_shadow", None), device),
-        packed=_tensor(leaf.packed, device),
-        scales=_tensor(leaf.scales, device),
-        zeros=_tensor(leaf.zeros, device),
-        g_idx=_tensor(getattr(leaf, "g_idx", None), device),
-        q_perm=_tensor(getattr(leaf, "q_perm", None), device),
+        grad_shadow=as_tensor(getattr(leaf, "grad_shadow", None), device),
+        packed=as_tensor(leaf.packed, device),
+        scales=as_tensor(leaf.scales, device),
+        zeros=as_tensor(leaf.zeros, device),
+        g_idx=as_tensor(getattr(leaf, "g_idx", None), device),
+        q_perm=as_tensor(getattr(leaf, "q_perm", None), device),
         w_bit=int(leaf.w_bit),
         group_size=int(leaf.group_size),
         asym=bool(leaf.asym),
@@ -219,28 +218,28 @@ def _is_mbwq(leaf: Any) -> bool:
 
 def _mbwq(leaf: Any, device) -> MBWQTensor:
     return MBWQTensor(
-        grad_shadow=_tensor(getattr(leaf, "grad_shadow", None), device),
+        grad_shadow=as_tensor(getattr(leaf, "grad_shadow", None), device),
         segments=tuple(_mpq(seg, device) for seg in leaf.segments),
-        q_perm=_tensor(leaf.q_perm, device),
-        channel_scale=_tensor(leaf.channel_scale, device),
-        block_perm=_tensor(leaf.block_perm, device),
+        q_perm=as_tensor(leaf.q_perm, device),
+        channel_scale=as_tensor(leaf.channel_scale, device),
+        block_perm=as_tensor(leaf.block_perm, device),
         perm_block=int(leaf.perm_block),
     )
 
 
 def _qat_record(leaf: Any, device):
     """A binary, IntQ or binary-embedding record, or ``None``."""
-    shadow = _tensor(getattr(leaf, "grad_shadow", None), device)
+    shadow = as_tensor(getattr(leaf, "grad_shadow", None), device)
     if all(hasattr(leaf, f) for f in ("data", "scale_w", "packed", "in_features")):
-        return BinaryQTensor(data=_tensor(leaf.data, device), scale_w=_tensor(leaf.scale_w, device),
+        return BinaryQTensor(data=as_tensor(leaf.data, device), scale_w=as_tensor(leaf.scale_w, device),
                              grad_shadow=shadow, packed=bool(leaf.packed),
                              in_features=int(leaf.in_features))
     if all(hasattr(leaf, f) for f in ("data", "scale_w", "w_bit")):
-        return IntQTensor(data=_tensor(leaf.data, device), scale_w=_tensor(leaf.scale_w, device),
+        return IntQTensor(data=as_tensor(leaf.data, device), scale_w=as_tensor(leaf.scale_w, device),
                           w_bit=int(leaf.w_bit), grad_shadow=shadow)
     if all(hasattr(leaf, f) for f in ("data", "scale", "dim")):
-        return BinaryEmbeddingQTensor(data=_tensor(leaf.data, device),
-                                      scale=_tensor(leaf.scale, device), grad_shadow=shadow,
+        return BinaryEmbeddingQTensor(data=as_tensor(leaf.data, device),
+                                      scale=as_tensor(leaf.scale, device), grad_shadow=shadow,
                                       dim=int(leaf.dim))
     return None
 
@@ -279,14 +278,20 @@ def _load_into(module: nn.Module, tree: Mapping[str, Any], path: str, device) ->
             continue
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"{where}: no such tensor in {type(module).__name__}")
-        src = _tensor(val, device)
+        src = as_tensor(val, device)
         if tuple(src.shape) != tuple(target.shape):
             raise ValueError(f"{where}: shape {tuple(src.shape)} != {tuple(target.shape)}")
-        target.copy_(src)
+        if not target.is_meta:
+            target.copy_(src)
+        elif key in module._parameters:
+            module._parameters[key] = nn.Parameter(src.to(target.dtype),
+                                                   requires_grad=target.requires_grad)
+        else:
+            module._buffers[key] = src.to(target.dtype)
 
 
 @torch.no_grad()
-def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+def load_jax_params(model: nn.Module, tree: Mapping[str, Any], device=None) -> nn.Module:
     """Copy the JAX package's parameters (Llama, ``QuantMLP``,
     ``QuantConvNet``, the QAT layers) into the port's model.
 
@@ -304,12 +309,48 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     until :func:`prepare_params_for_cuda` converts it; a record that carries
     a ``grad_shadow`` (a tree after the JAX package's
     ``prepare_for_training``) gives its layer that shadow, of the port's
-    full shape for a binary conv.  Returns the model."""
+    full shape for a binary conv.
+
+    ``device`` defaults to the model's.  A skeleton built on the ``meta``
+    device (``LlamaModel(cfg, device="meta")``) takes the tree's tensors on
+    ``device`` in place of its own, and every tensor must be given: one
+    left on ``meta`` raises.  Returns the model."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    device = next(itertools.chain(model.buffers(), model.parameters())).device
+    if device is None:
+        device = next(itertools.chain(model.buffers(), model.parameters())).device
+    device = torch.device(device)
     _load_into(model, tree, "", device)
+    if getattr(model, "device", None) == torch.device("meta"):
+        model.device = device
+    left = [name for name, t in itertools.chain(model.named_parameters(), model.named_buffers())
+            if t.is_meta]
+    if left:
+        raise ValueError(f"the tree gave no value for {left}")
     return model
+
+
+def params_tree(model: nn.Module) -> Dict[str, Any]:
+    """The model's parameters as the JAX package's flax tree, the inverse of
+    :func:`load_jax_params`: nested dicts by flax path, each quantized
+    layer's weight as its record under ``qweight`` (MBWQ segments inside
+    it), every other parameter and buffer as a tensor (no copies)."""
+    out: Dict[str, Any] = {}
+    skip = set()
+    if isinstance(model, (QuantLayer, MBWQLinear)):
+        out["qweight"] = model.qweight
+        skip = {"grad_shadow", "segments", "q_perm", "channel_scale", "block_perm"}
+        skip |= set(getattr(model, "_BUFFERS", ()))
+    for name, t in itertools.chain(model.named_parameters(recurse=False),
+                                   model.named_buffers(recurse=False)):
+        if name not in skip:
+            out[name] = t.detach()
+    for name, child in model.named_children():
+        if name not in skip:
+            sub = params_tree(child)
+            if sub:
+                out[name] = sub
+    return out
 
 
 @torch.no_grad()
@@ -342,7 +383,7 @@ def load_jax_diode_state(optimizer, state: Any) -> None:
         mine = optimizer.state[name]
         for key in ("exp_avg_l", "exp_avg_s"):
             if key in moments:
-                src = _tensor(moments[key], mine[key].device)
+                src = as_tensor(moments[key], mine[key].device)
                 if tuple(src.shape) != tuple(mine[key].shape):
                     raise ValueError(f"{name}/{key}: shape {tuple(src.shape)} != "
                                      f"{tuple(mine[key].shape)}")
@@ -358,11 +399,11 @@ def paged_kv_from_jax(caches: Sequence[Any], device=None) -> List[PagedKV]:
     device = resolve_device(device)
     return [
         PagedKV(
-            k_pool=_tensor(c.k_pool, device),
-            v_pool=_tensor(c.v_pool, device),
-            k_scale=_tensor(c.k_scale, device),
-            v_scale=_tensor(c.v_scale, device),
-            page_table=_tensor(c.page_table, device),
+            k_pool=as_tensor(c.k_pool, device),
+            v_pool=as_tensor(c.v_pool, device),
+            k_scale=as_tensor(c.k_scale, device),
+            v_scale=as_tensor(c.v_scale, device),
+            page_table=as_tensor(c.page_table, device),
             kv_heads=int(c.kv_heads),
         )
         for c in caches

@@ -119,7 +119,35 @@ then, failing on the first check that does not hold:
 16. the packed MLP's logits through kernel 8 against the plain path on the
     card at batch 8 and 128 (bit-equal), and one binary-MLP train step and one conv-net step
     at 1 and 4 bits on the card against the same step on the CPU from the
-    same weights and optimizer state.
+    same weights and optimizer state;
+17. the checkpoint slice, in a temporary directory removed at its end:
+    writes a GPTQ export of Llama-3-8B (HF names, unfused projections, w4
+    g128 asym, an act-order ``g_idx`` on every projection, fp16 scales,
+    embedding, head and norms; random from a seed) with the port's
+    safetensors writer, loads it with ``load_llama_from_safetensors`` into
+    the unfused serving configuration (int8 embedding, w4 head padded to
+    2048), ``prepare_params_for_cuda(model, bf16)``, runs a 256-token
+    prefill of 8 prompts and 32 greedy decode steps (kernel 1 on the
+    gathered activations, kernel 2 with its rows scattered back: the
+    launches, gathers and scatters counted) and holds the last logits
+    against the plain path on the card (2e-2: every projection as ``x @
+    dequantize_mpq(qt)`` on its logical weight, so the gather and the
+    scatter are held too); times a decode step of the same model with its
+    ``q_perm`` stripped and of a freshly built unfused model beside it, and
+    profiles the host's Python over decode steps of each; saves the model with
+    ``save_checkpoint`` and restores it with ``load_checkpoint`` +
+    ``load_jax_params`` into a skeleton on ``meta`` (logits bit-equal);
+    holds the act-order routes per layer against their plain versions:
+    kernel 1 (m 1, 8, 64; f32 rel <= 1e-3), kernel 2 + the scatter
+    (bit-equal), kernel 5 on a w2 tensor in A8 (max|d| = 0), kernel 7 on an
+    exl2 tensor with 2-6-bit groups and a random ``q_invperm`` (f32 rel <=
+    1e-3), each timed beside the same kernel without the gather; drives
+    kernel 5's act-order route through ``mpq_linear`` and kernel 7's exl2
+    tensor through an ``MBWQLinear`` layer, launches counted; shows a
+    ragged ``g_idx`` on the plain route; and runs the perplexity gate
+    (``run_ppl_gate``: a byte-level Llama trained on the card, quantized in
+    every configuration of the JAX package's gate) within
+    ``tests/test_ppl_gate.py``'s bounds.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -310,6 +338,21 @@ XNOR_SHAPES = (
 # log beside this run's times, and in no JSON line
 XNOR_SIMT_US = {"mlp_1024_m8": 6.768, "4096_m32": 15.8, "4096_m64": 24.7}
 XNOR_FORWARD_MS_BEFORE = {8: 0.63}  # the packed MLP's ms a forward at b8 on the first body (PR 10)
+
+# the checkpoint slice (phase 17): Llama-3-8B as a GPTQ export writes it (HF
+# names, unfused projections (K, N), w4 g128 asym, act-order g_idx)
+CKPT_LAYERS = 32
+GPTQ_GROUP = 128
+CKPT_PROJ = {"q_proj": (4096, 4096), "k_proj": (4096, 1024), "v_proj": (4096, 1024),
+             "o_proj": (4096, 4096), "gate_proj": (4096, 14336), "up_proj": (4096, 14336),
+             "down_proj": (14336, 4096)}
+# the act-order per-layer checks: two projection shapes, kernel 1 at these rows
+ACT_ORDER_SHAPES = (("up_4096x14336", 4096, 14336), ("down_14336x4096", 14336, 4096))
+ACT_ORDER_M = (1, 8, 64)
+# an exl2 export of Llama-2-7B's gate|up: groups of 128 rows, (bits, groups)
+EXL2_SHAPE, EXL2_GROUP = (4096, 22016), 128
+EXL2_LAYOUT = ((6, 2), (5, 4), (4, 8), (3, 8), (2, 10))
+PPL_GATE = dict(hidden=128, layers=2, steps=250, seq_len=128)  # tests/test_ppl_gate.py's
 
 
 class CheckFailed(RuntimeError):
@@ -2295,6 +2338,610 @@ def phase_qat_path_check(torch, gen):
     return res
 
 
+def gptq_projection(torch, gen, perm_gen, k, n, w_bit=4, gs=GPTQ_GROUP):
+    """A GPTQ export of one projection (K, N), HF layout: random code words,
+    packed zero points within 2 of the middle code, fp16 scales of about
+    2 / sqrt(K) over the code range, and an act-order ``g_idx``, a seeded
+    permutation of ``arange(K) // gs``."""
+    from bitorch_engine_tpu_torch.ops import packing
+
+    g = k // gs
+    qweight = torch.randint(-2**31, 2**31, (k * w_bit // 32, n), device="cuda", generator=gen,
+                            dtype=torch.int64).to(torch.int32)
+    mid = 2 ** (w_bit - 1)
+    zeros = torch.randint(mid - 1, mid + 3, (g, n), device="cuda", generator=gen, dtype=torch.int32)
+    step = 2.0 / math.sqrt(k) / 2 ** w_bit
+    scales = ((0.5 + torch.rand(g, n, device="cuda", generator=gen)) * step).to(torch.float16)
+    g_idx = (torch.arange(k) // gs)[torch.randperm(k, generator=perm_gen)].to(torch.int32)
+    return dict(qweight=qweight, qzeros=packing.pack_cols(zeros, w_bit), scales=scales,
+                g_idx=g_idx.cuda())
+
+
+def write_gptq_checkpoint(torch, path, layers, seed):
+    """Llama-3-8B as a GPTQ export (HF names, unfused projections, w4 g128
+    asym, act-order on every projection, fp16 embedding, head and norms), all
+    drawn from ``seed``, written with the port's safetensors writer.
+    Returns its bytes."""
+    from bitorch_engine_tpu_torch.utils.ingest import save_safetensors
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    perm_gen = torch.Generator().manual_seed(seed)
+    h, vocab = 4096, 128256
+    t = {"model.embed_tokens.weight": (torch.randn(vocab, h, device="cuda", generator=gen)
+                                       * 0.02).half(),
+         "lm_head.weight": (torch.randn(vocab, h, device="cuda", generator=gen) * 0.02).half(),
+         "model.norm.weight": (1 + 0.05 * torch.randn(h, device="cuda", generator=gen)).half()}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        for name, (k, n) in CKPT_PROJ.items():
+            block = "self_attn" if name in ("q_proj", "k_proj", "v_proj", "o_proj") else "mlp"
+            for field, v in gptq_projection(torch, gen, perm_gen, k, n).items():
+                t[f"{p}{block}.{name}.{field}"] = v
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            t[f"{p}{norm}.weight"] = (1 + 0.05 * torch.randn(h, device="cuda", generator=gen)).half()
+    save_safetensors(path, t, metadata={"format": "pt", "quant": "gptq w4 g128 desc_act"})
+    return sum(v.numel() * v.element_size() for v in t.values())
+
+
+def ckpt_counts():
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts
+    from bitorch_engine_tpu_torch.ops.mpq_linear import act_order_counts
+
+    return {**launch_counts(), **{f"act_order_{k}": v for k, v in act_order_counts.items()}}
+
+
+def reset_ckpt_counts():
+    from bitorch_engine_tpu_torch.ops.cuda import reset_launch_counts
+    from bitorch_engine_tpu_torch.ops.mpq_linear import act_order_counts
+
+    reset_launch_counts()
+    for key in act_order_counts:
+        act_order_counts[key] = 0
+
+
+@contextmanager
+def plain_mpq_forward():
+    """Every MPQ projection's forward as ``x @ dequantize_mpq(qt)`` in f32 on
+    the logical weight, cast: the route, the gather and the scatter
+    bypassed."""
+    import torch
+    from bitorch_engine_tpu_torch.ops import mpq_linear
+    from bitorch_engine_tpu_torch.ops.quant import dequantize_mpq
+
+    def plain(x, qt):
+        return (x.float() @ dequantize_mpq(qt, torch.float32)).to(x.dtype)
+
+    with mock.patch.object(mpq_linear, "_mpq_forward", plain):
+        yield
+
+
+def decode_step_ms(torch, model, prompt):
+    """Wall ms a greedy decode step, over ``DECODE_STEPS`` steps after the
+    prefill of ``prompt``."""
+    marks = {}
+
+    def at_prefill(_logits):
+        torch.cuda.synchronize()
+        marks["t"] = time.perf_counter()
+
+    serve(torch, model, prompt, DECODE_STEPS, on_prefill=at_prefill)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - marks["t"]) * 1e3 / DECODE_STEPS
+
+
+def host_profile(torch, model, prompt, steps=PROFILE_STEPS):
+    """``cProfile`` over ``steps`` greedy decode steps after an unprofiled
+    prefill: the wall ms a step under the profiler and, per Python
+    function, its calls, own ms and cumulative ms a step."""
+    import cProfile
+    import pstats
+
+    from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
+
+    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda")
+    logits, caches = prefill(model, prompt, caches)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for i in range(steps):
+        pos = PROMPT + i
+        last, caches = decode_step(model, tok[:, None], caches, pos, attn_window=bucket(pos + 1))
+        tok = torch.argmax(last, dim=-1)
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    stats = pstats.Stats(prof).stats
+    return wall, {f"{pathlib.Path(f).name}:{line}({fn})": (nc / steps, tt * 1e3 / steps,
+                                                            ct * 1e3 / steps)
+                  for (f, line, fn), (_cc, nc, tt, ct, _callers) in stats.items()}
+
+
+# the projection's host path, read per call in the decode step's profile:
+# the layer's forward, the route, the act-order gather, kernel 1's wrapper
+HOST_PATH = ("linear.py", "mpq_linear.py", "dequant_matmul.py:176(mpq_matmul)",
+             "mbwq_matmul.py:157(launch_mma)", "index_select")
+
+
+def host_cost(prof, pairs, top=10):
+    """Host profiles side by side (``prof``: name -> :func:`host_profile`'s
+    result): per run the wall and the Python's own ms a step and the
+    projection's host path (:data:`HOST_PATH`) per call, and for each
+    ``(base, other)`` of ``pairs`` the functions whose own time a step grows
+    most from ``base`` to ``other``."""
+    none = (0, 0, 0)
+    out = {name: dict(wall_ms_per_step=w,
+                      python_own_ms_per_step=sum(r[1] for r in rows.values()),
+                      path={fn: dict(calls=r[0], own_ms=r[1], cum_ms=r[2],
+                                     cum_us_per_call=r[2] * 1e3 / r[0])
+                            for fn, r in rows.items()
+                            if r[0] and any(key in fn for key in HOST_PATH)})
+           for name, (w, rows) in prof.items()}
+    for name, r in out.items():
+        log(f"host profile {name}: {r['wall_ms_per_step']:.2f} ms/step under cProfile, "
+            f"Python own time {r['python_own_ms_per_step']:.2f} ms/step; the projection's path "
+            "(calls a step, cumulative ms a step, us a call):")
+        for fn, p in sorted(r["path"].items(), key=lambda kv: -kv[1]["cum_ms"]):
+            log(f"  {p['calls']:6.0f} {p['cum_ms']:8.3f} ms {p['cum_us_per_call']:8.2f} us  {fn}")
+    for base, other in pairs:
+        a, b = prof[base][1], prof[other][1]
+        grew = sorted(set(a) | set(b), key=lambda fn: b.get(fn, none)[1] - a.get(fn, none)[1],
+                      reverse=True)[:top]
+        rows = [dict(fn=fn, calls=(a.get(fn, none)[0], b.get(fn, none)[0]),
+                     own_ms=(a.get(fn, none)[1], b.get(fn, none)[1])) for fn in grew]
+        out[f"grew_{base}_to_{other}"] = rows
+        log(f"host profile: the functions whose own time a step grew most, {base} -> {other}")
+        for r in rows:
+            log(f"  {r['own_ms'][0]:8.3f} -> {r['own_ms'][1]:8.3f} ms, calls {r['calls'][0]:.0f} -> "
+                f"{r['calls'][1]:.0f}  {r['fn']}")
+    return out
+
+
+@contextmanager
+def q_perm_stripped(model):
+    """Every MPQ projection of ``model`` without its ``q_perm`` (the stored
+    rows as they are: other numbers, the same kernels and bytes), restored
+    on exit."""
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+
+    saved = [(mod, mod.qweight) for mod in model.modules()
+             if isinstance(mod, MPQLinear) and mod.q_perm is not None]
+    try:
+        for mod, qt in saved:
+            mod.set_qweight(qt.replace(q_perm=None))
+        yield model
+    finally:
+        for mod, qt in saved:
+            mod.set_qweight(qt)
+
+
+def phase_ckpt_e2e(torch, gen, tmp):
+    """Phase 17a: the act-order Llama-3-8B checkpoint written, loaded with
+    ``load_llama_from_safetensors`` into the unfused serving configuration,
+    ``prepare_params_for_cuda(model, bf16)``, then prefill 8 x 256 + 32
+    greedy decode steps with the launch, gather and scatter counts, and a
+    profiled prefill + ``PROFILE_STEPS`` decode steps as phase 4's; the
+    kernel path's last logits against the plain path on the same weights
+    (forced tokens) at phase 6's 2e-2, the plain path's projections
+    through :func:`plain_mpq_forward`; the decode step timed beside the same
+    model without ``q_perm`` and a freshly built unfused model, each
+    profiled on the host.  Returns the model and the run's numbers."""
+    from bitorch_engine_tpu_torch.models.llama import LlamaModel, llama3_8b_serving, tiny_llama
+    from bitorch_engine_tpu_torch.models.llama_loader import load_llama_from_safetensors
+    from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
+
+    # the process's first model built on ``meta`` imports torch's meta
+    # kernels (seconds, once): paid here, outside the timed load
+    t0 = time.perf_counter()
+    LlamaModel(tiny_llama(), device="meta")
+    log(f"first meta-device build: {time.perf_counter() - t0:.1f} s")
+    path = str(pathlib.Path(tmp) / "llama3_8b_gptq_act_order.safetensors")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = write_gptq_checkpoint(torch, path, CKPT_LAYERS, SEED + 17)
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    cfg = llama3_8b_serving(fuse_qkv=False, fuse_gate_up=False, max_seq_len=CACHE,
+                            num_layers=CKPT_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_llama_from_safetensors(path, cfg, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prepare_params_for_cuda(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0 - load_s
+    gib = torch.cuda.memory_allocated() / 2**30
+    qt = model.layer_0.mlp.down_proj.qweight
+    check(qt.q_perm is not None and qt.g_idx is None and qt.scales.dtype == torch.bfloat16,
+          "the loaded projections are not canonicalized act-order tensors in kernel form")
+    log(f"checkpoint: Llama-3-8B GPTQ w4 g128 act-order, {CKPT_LAYERS} layers, "
+        f"{nbytes / 2**30:.2f} GiB written in {write_s:.1f} s ({tmp}); loaded in {load_s:.1f} s "
+        f"+ prepare_params_for_cuda {prepare_s:.1f} s, {gib:.2f} GiB allocated "
+        f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f})")
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
+    serve(torch, model, prompt, 2)  # warm-up
+    torch.cuda.synchronize()
+    marks = {}
+
+    def at_prefill(logits):
+        torch.cuda.synchronize()
+        marks["t"] = time.perf_counter()
+        marks["counts"] = ckpt_counts()
+        check(bool(torch.isfinite(logits).all()), "act-order prefill logits are not finite")
+
+    reset_ckpt_counts()
+    t0 = time.perf_counter()
+    last, toks = serve(torch, model, prompt, DECODE_STEPS, on_prefill=at_prefill)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    run = ckpt_counts()
+    pre = marks["counts"]
+    dec = {k: run[k] - pre[k] for k in run}
+    proj = 7 * CKPT_LAYERS
+    log(f"checkpoint e2e counts at prefill {pre}; per decode step "
+        f"{ {k: v / DECODE_STEPS for k, v in dec.items() if v} }")
+    check(pre == {**counts_with(dequant_mpq=proj + 1, flash_attention=CKPT_LAYERS),
+                  "act_order_gather": 0, "act_order_scatter": proj, "act_order_plain": 0},
+          f"act-order prefill counts {pre}")
+    check(dec == {**counts_with(mpq_matmul=(proj + 1) * DECODE_STEPS),
+                  "act_order_gather": proj * DECODE_STEPS, "act_order_scatter": 0,
+                  "act_order_plain": 0}, f"act-order decode counts {dec}")
+    check(bool(torch.isfinite(last).all()), "act-order decode logits are not finite")
+    prefill_ms = (marks["t"] - t0) * 1e3
+    step_ms = (t_end - marks["t"]) * 1e3 / DECODE_STEPS
+    profiled = profile_serve(torch, model, prompt, PROFILE_STEPS)
+    profiled["decode"]["idle_share_estimate_unprofiled"] = (
+        1.0 - profiled["decode"]["device_busy_ms_per_call"] / step_ms)
+    decode = decode_breakdown(torch, model, prompt, cfg)
+    reset_ckpt_counts()
+    with plain_kernels(), plain_mpq_forward():
+        want, _ = serve(torch, model, prompt, DECODE_STEPS, forced=toks)
+    torch.cuda.synchronize()
+    check(all(n == 0 for n in ckpt_counts().values()),
+          f"the plain path launched a kernel or took an act-order route {ckpt_counts()}")
+    rel = ((last - want).abs().max() / want.abs().max()).item()
+    log(f"checkpoint e2e: prefill {prefill_ms:.2f} ms, decode {step_ms:.3f} ms/step (batch {BATCH}); "
+        f"path check (prefill + {DECODE_STEPS} decode steps, {CKPT_LAYERS} layers): "
+        f"max|d logits|/max|logits| = {rel:.3e}")
+    check(rel <= 2e-2, f"act-order path check: {rel} > 2e-2")
+    out = dict(layers=CKPT_LAYERS, checkpoint_gib=nbytes / 2**30, write_s=write_s, load_s=load_s,
+               prepare_s=prepare_s, allocated_gib=gib, prefill_ms=prefill_ms,
+               decode_ms_per_step=step_ms, path_check_rel=rel, profile=profiled,
+               decode_breakdown=decode,
+               per_prefill={k: v for k, v in pre.items() if v},
+               per_step={k: v / DECODE_STEPS for k, v in dec.items() if v})
+    return model, prompt, out
+
+
+def decode_breakdown(torch, model, prompt, cfg):
+    """The act-order decode step's wall time taken apart, in one run: the
+    loaded model (``act_order``), the same model with ``q_perm`` stripped
+    (``stripped``: no gathers, the same kernels and bytes) and a freshly
+    built unfused model of the same configuration (``built``), timed in the
+    order act_order, stripped, built, built, stripped, act_order; then each
+    profiled on the host."""
+    from bitorch_engine_tpu_torch.models.llama import LlamaModel
+    from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
+
+    built = prepare_params_for_cuda(LlamaModel(cfg, device="cuda", seed=SEED + 19), torch.bfloat16)
+    runs = {"act_order": [], "stripped": [], "built": []}
+    for name in ("act_order", "stripped", "built", "built", "stripped", "act_order"):
+        if name == "stripped":
+            with q_perm_stripped(model):
+                runs[name].append(decode_step_ms(torch, model, prompt))
+        else:
+            runs[name].append(decode_step_ms(torch, built if name == "built" else model, prompt))
+    out = {name: dict(runs_ms=r, ms=statistics.median(r)) for name, r in runs.items()}
+    log("act-order decode taken apart, ms/step (runs in the order act_order, stripped, built, "
+        "built, stripped, act_order): " + "; ".join(
+            f"{k} {v['ms']:.2f} {[round(x, 2) for x in v['runs_ms']]}" for k, v in out.items()))
+    prof = {"act_order": host_profile(torch, model, prompt)}
+    with q_perm_stripped(model):
+        prof["stripped"] = host_profile(torch, model, prompt)
+    prof["built"] = host_profile(torch, built, prompt)
+    out["host"] = host_cost(prof, (("stripped", "act_order"), ("built", "stripped")))
+    del built
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ckpt_roundtrip(torch, model, prompt, tmp):
+    """Phase 17c: ``save_checkpoint`` of the loaded model, ``load_checkpoint``
+    (no template) into a skeleton on ``meta`` through ``load_jax_params``:
+    the prefill's last logits and one decode step's bit-equal."""
+    from bitorch_engine_tpu_torch.models.llama import (
+        LlamaModel, decode_step, init_kv_caches, prefill,
+    )
+    from bitorch_engine_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from bitorch_engine_tpu_torch.utils.convert import load_jax_params
+
+    def logits_of(m):
+        caches = init_kv_caches(m.cfg, BATCH, CACHE, device="cuda")
+        logits, caches = prefill(m, prompt, caches)
+        last = logits[:, -1]
+        tok = torch.argmax(last, dim=-1)[:, None]
+        step, _ = decode_step(m, tok, caches, PROMPT, attn_window=bucket(PROMPT + 1))
+        return last, step
+
+    before = logits_of(model)
+    path = str(pathlib.Path(tmp) / "ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(path, model)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = load_jax_params(LlamaModel(model.cfg, device="meta"), load_checkpoint(path),
+                               device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    after = logits_of(restored)
+    equal = all(torch.equal(a, b) for a, b in zip(before, after))
+    log(f"checkpoint round trip: saved in {save_s:.1f} s, loaded into a meta skeleton in "
+        f"{load_s:.1f} s; prefill and decode logits bit-equal: {equal}")
+    check(equal, "checkpoint round trip: logits differ")
+    del restored
+    torch.cuda.empty_cache()
+    return dict(save_s=save_s, load_s=load_s, bit_equal=equal)
+
+
+def record_bytes(qt):
+    """The bytes of an MPQ record's tensors (codes, metadata, row map)."""
+    return sum(t.nbytes for t in (qt.packed, qt.scales, qt.zeros, qt.q_perm, qt.g_idx)
+               if t is not None)
+
+
+def act_order_tensor(torch, gen, perm_gen, k, n, w_bit, act_bits=16):
+    """An ingested act-order GPTQ tensor in kernel form (bf16 metadata)."""
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import prepare_for_kernel
+    from bitorch_engine_tpu_torch.utils.ingest import mpq_from_gptq
+
+    qt = mpq_from_gptq(**gptq_projection(torch, gen, perm_gen, k, n, w_bit), device="cuda")
+    check(qt.q_perm is not None, "the act-order tensor was not canonicalized")
+    return prepare_for_kernel(qt, torch.bfloat16, act_bits)
+
+
+def exl2_tensor(torch, gen, k, n):
+    """An exl2 export (K, N): groups of EXL2_GROUP rows at the widths of
+    ``EXL2_LAYOUT``, random code words and scale codes, a random
+    ``q_invperm``, ingested by ``mbwq_from_exl2``."""
+    from bitorch_engine_tpu_torch.utils.ingest import mbwq_from_exl2
+
+    groups = sum(ng for _, ng in EXL2_LAYOUT)
+    check(groups * EXL2_GROUP == k, "exl2 layout does not cover K")
+    q_groups, qrow = [], 0
+    for bits, ng in EXL2_LAYOUT:
+        for _ in range(ng):
+            q_groups += [bits, qrow]
+            qrow += EXL2_GROUP * bits // 32
+    q_weight = torch.randint(-2**31, 2**31, (qrow, n), device="cuda", generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+    q_scale = torch.randint(-2**31, 2**31, (groups, n // 8), device="cuda", generator=gen,
+                            dtype=torch.int64).to(torch.int32)
+    q_scale_max = (0.5 + torch.rand(groups, device="cuda", generator=gen)) * 0.02 / math.sqrt(k)
+    invperm = torch.randperm(k, device="cuda", generator=gen).to(torch.int32)
+    return mbwq_from_exl2(q_weight, q_scale, q_scale_max, torch.tensor(q_groups), invperm,
+                          device="cuda")
+
+
+def phase_ckpt_kernels(torch, gen, flush):
+    """Phase 17b: the act-order routes per layer, each against its plain
+    version on the card: kernel 1 on the gathered activations (f32 rel <=
+    1e-3 before the cast), kernel 2 + the scatter (bit-equal to
+    ``dequantize_mpq``), kernel 5 on a w2 tensor in A8 (max|d| = 0), kernel 7
+    on an exl2 tensor with odd widths and a random ``q_invperm`` (f32 rel <=
+    1e-3), each timed beside the same kernel on the tensor without
+    ``q_perm`` (the gather or scatter is the difference); a ragged ``g_idx``
+    shown to take the plain route.  Kernel 5's act-order route and kernel
+    7's exl2 tensor are also driven through their entry points
+    (``mpq_linear``, an ``MBWQLinear`` layer), the counts set to 0 just
+    before and read just after: ``route_launches``."""
+    from bitorch_engine_tpu_torch.layers.linear import MBWQLinear
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
+        dequant_mpq, mpq_matmul, mpq_matmul_ref, prepare_for_kernel,
+    )
+    from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul, mbwq_matmul_ref
+    from bitorch_engine_tpu_torch.ops.cuda.quad_matmul import mpq_matmul_a8, mpq_matmul_a8_ref
+    from bitorch_engine_tpu_torch.ops import mpq_linear as ml
+    from bitorch_engine_tpu_torch.ops.mbwq_linear import dequantize_mbwq, gather_activations
+    from bitorch_engine_tpu_torch.ops.quant import dequantize_mpq
+    from bitorch_engine_tpu_torch.utils.ingest import mpq_from_gptq
+
+    perm_gen = torch.Generator().manual_seed(SEED + 18)
+    out = {"mpq_matmul": [], "dequant_mpq": [], "mpq_matmul_a8": [], "mbwq_matmul": [],
+           "route_launches": {"mpq_matmul_a8": 0, "mbwq_matmul": 0}}
+    for name, k, n in ACT_ORDER_SHAPES:
+        qt = act_order_tensor(torch, gen, perm_gen, k, n, 4)
+        stored = ml._stored(qt)
+        for m in ACT_ORDER_M:
+            x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+            got = mpq_matmul(ml._gather(x, qt), stored, torch.float32)
+            want = mpq_matmul_ref(x, qt, torch.float32)
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            row = dict(shape=name, m=m, max_abs_err=err, rel_err=rel)
+            if m == 8:
+                w_bf16 = dequantize_mpq(qt, torch.bfloat16)
+                bms, bby = bound(record_bytes(qt) + x.nbytes + m * n * 2, 2 * m * k * n)
+                row.update(
+                    ms=time_ms(torch, lambda: mpq_matmul(ml._gather(x, qt), stored), flush=flush),
+                    kernel_ms=time_ms(torch, lambda: mpq_matmul(x, stored), flush=flush),
+                    gather_ms=time_ms(torch, lambda: ml._gather(x, qt), flush=flush),
+                    plain_ms=time_ms(torch, lambda: mpq_matmul_ref(x, qt), flush=flush),
+                    library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
+                    bound_ms=bms, bound_by=bby)
+                del w_bf16
+            out["mpq_matmul"].append(row)
+            log(f"act-order kernel 1 {name} m={m}: max|d|={err:.3e} rel={rel:.3e}" + (
+                f"; gather + kernel {row['ms'] * 1e3:.2f} us, kernel alone {row['kernel_ms'] * 1e3:.2f}"
+                f" us, gather {row['gather_ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.1f} us, "
+                f"torch.matmul {row['library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us"
+                if m == 8 else ""))
+            check(rel <= 1e-3, f"act-order kernel 1 {name} m={m}: rel {rel} > 1e-3")
+        for dtype in (torch.bfloat16, torch.float32):
+            got = ml.reconstruct_weight(qt, dtype)
+            equal = torch.equal(got, dequantize_mpq(qt, dtype))
+            row = dict(shape=name, dtype=str(dtype)[6:], bit_equal=equal, max_abs_err=0.0 if equal
+                       else (got.float() - dequantize_mpq(qt, torch.float32)).abs().max().item())
+            if dtype == torch.bfloat16:
+                bms, bby = bound(record_bytes(qt) + k * n * 2, 0)
+                row.update(ms=time_ms(torch, lambda: ml.reconstruct_weight(qt, dtype), flush=flush),
+                           kernel_ms=time_ms(torch, lambda: dequant_mpq(stored, dtype), flush=flush),
+                           plain_ms=time_ms(torch, lambda: dequantize_mpq(qt, dtype), flush=flush),
+                           library_ms=None, bound_ms=bms, bound_by=bby)
+            out["dequant_mpq"].append(row)
+            log(f"act-order kernel 2 + scatter {name} {row['dtype']}: bit-equal {equal}" + (
+                f"; {row['ms'] * 1e3:.2f} us, kernel alone {row['kernel_ms'] * 1e3:.2f} us, plain "
+                f"{row['plain_ms'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.2f} us"
+                if "ms" in row else ""))
+            check(equal, f"act-order kernel 2 {name} {dtype}: not bit-equal to dequantize_mpq")
+        del qt, stored
+        q8 = act_order_tensor(torch, gen, perm_gen, k, n, 2, act_bits=8)
+        check(q8.act_bits == 8, "the w2 act-order tensor is not in the A8 regime")
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        got = mpq_matmul_a8(ml._gather(x, q8), ml._stored(q8), accumulator=True)
+        want = mpq_matmul_a8_ref(x, q8, accumulator=True)
+        err = (got - want).abs().max().item()
+        bms, bby = bound(record_bytes(q8) + x.nbytes + 8 * n * 2, 2 * 8 * k * n, INT8_OPS_PER_S)
+        out["mpq_matmul_a8"].append(dict(
+            shape=name, m=8, max_abs_err=err, rel_err=err / want.abs().max().item(),
+            ms=time_ms(torch, lambda: mpq_matmul_a8(ml._gather(x, q8), ml._stored(q8)), flush=flush),
+            kernel_ms=time_ms(torch, lambda: mpq_matmul_a8(x, ml._stored(q8)), flush=flush),
+            plain_ms=time_ms(torch, lambda: mpq_matmul_a8_ref(x, q8), flush=flush),
+            library_ms=None, bound_ms=bms, bound_by=bby))
+        r5 = out["mpq_matmul_a8"][-1]
+        log(f"act-order kernel 5 (w2 g128 A8) {name} m=8: max|d| = {err:.3e} (bar 0); "
+            f"gather + kernel {r5['ms'] * 1e3:.2f} us, kernel alone {r5['kernel_ms'] * 1e3:.2f} us, "
+            f"plain {r5['plain_ms'] * 1e3:.1f} us, bound {r5['bound_ms'] * 1e3:.2f} us")
+        check(err == 0, f"act-order kernel 5 {name}: max|d| {err} != 0")
+        # the route a user's call takes: mpq_linear gathers, then kernel 5
+        reset_ckpt_counts()
+        y = ml.mpq_linear(x, q8)
+        counts = {key: v for key, v in ckpt_counts().items() if v}
+        check(counts == {"mpq_matmul_a8": 1, "act_order_gather": 1},
+              f"act-order A8 mpq_linear {name}: counts {counts}")
+        check(torch.equal(y, mpq_matmul_a8(ml._gather(x, q8), ml._stored(q8))),
+              f"act-order A8 mpq_linear {name}: not the gathered kernel-5 output")
+        out["route_launches"]["mpq_matmul_a8"] += counts["mpq_matmul_a8"]
+        del q8
+    k, n = EXL2_SHAPE
+    qt = exl2_tensor(torch, gen, k, n)
+    widths = tuple((s.quant_bits, s.w_bit) for s in qt.segments)
+    check(qt.q_perm is not None and {b for b, _ in widths} == {2, 3, 4, 5, 6},
+          f"the exl2 tensor's segments {widths}")
+    for meta in (torch.float32, torch.bfloat16):
+        qk = qt.replace(segments=tuple(prepare_for_kernel(s, meta) for s in qt.segments))
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        got = mbwq_matmul(gather_activations(x, qk), qk, torch.float32)
+        want = x.float() @ dequantize_mbwq(qk, torch.float32)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        row = dict(shape=f"exl2_gate_up_{k}x{n}", meta=str(meta)[6:], m=8, segments=widths,
+                   max_abs_err=err, rel_err=rel)
+        if meta == torch.bfloat16:
+            w_bf16 = dequantize_mbwq(qk, torch.bfloat16)
+            nbytes = sum(record_bytes(s) for s in qk.segments) + qk.q_perm.nbytes
+            bms, bby = bound(nbytes + x.nbytes + 8 * n * 2, 2 * 8 * k * n)
+            row.update(ms=time_ms(torch, lambda: mbwq_matmul(gather_activations(x, qk), qk),
+                                  flush=flush),
+                       kernel_ms=time_ms(torch, lambda: mbwq_matmul(x, qk), flush=flush),
+                       plain_ms=time_ms(torch, lambda: mbwq_matmul_ref(gather_activations(x, qk), qk),
+                                        flush=flush),
+                       library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
+                       bound_ms=bms, bound_by=bby)
+            del w_bf16
+        out["mbwq_matmul"].append(row)
+        log(f"exl2 kernel 7 {k}x{n} {row['meta']} metadata, segments (bits, container) {widths}, "
+            f"m=8: max|d|={err:.3e} rel={rel:.3e}" + (
+                f"; gather + kernel {row['ms'] * 1e3:.2f} us, kernel alone {row['kernel_ms'] * 1e3:.2f} us, "
+                f"plain {row['plain_ms'] * 1e3:.1f} us, torch.matmul {row['library_ms'] * 1e3:.2f} us, "
+                f"bound {row['bound_ms'] * 1e3:.2f} us" if "ms" in row else ""))
+        check(rel <= 1e-3, f"exl2 kernel 7 ({meta}): rel {rel} > 1e-3")
+    # the route a user's call takes: an MBWQLinear layer holding the exl2
+    # tensor (bf16 metadata) gathers by q_perm, then kernel 7
+    layer = MBWQLinear(k, n, dtype=torch.bfloat16, qweight=qk)
+    reset_ckpt_counts()
+    y = layer(x)
+    counts = {key: v for key, v in ckpt_counts().items() if v}
+    check(counts == {"mbwq_matmul": 1}, f"exl2 MBWQLinear: counts {counts}")
+    check(torch.equal(y, mbwq_matmul(gather_activations(x, qk), qk)),
+          "exl2 MBWQLinear: not the gathered kernel-7 output")
+    out["route_launches"]["mbwq_matmul"] += counts["mbwq_matmul"]
+    log(f"entry-point routes: act-order A8 mpq_linear and exl2 MBWQLinear at m 8, launches "
+        f"{out['route_launches']}")
+    del qt, qk, layer
+    # a ragged g_idx: past both kernels, the plain dequantize on the card
+    tensors = gptq_projection(torch, gen, perm_gen, 4096, 4096)
+    g_idx = torch.arange(4096, device="cuda") // GPTQ_GROUP
+    g_idx[GPTQ_GROUP : GPTQ_GROUP + 4] = 0
+    tensors["g_idx"] = g_idx[torch.randperm(4096, generator=perm_gen).cuda()].to(torch.int32)
+    ragged = mpq_from_gptq(**tensors, device="cuda")
+    check(ragged.g_idx is not None and ragged.q_perm is None, "the ragged tensor kept no g_idx")
+    x = torch.randn(8, 4096, device="cuda", generator=gen).to(torch.bfloat16)
+    reset_ckpt_counts()
+    y = ml.mpq_linear(x, ragged)
+    counts = {k: v for k, v in ckpt_counts().items() if v}
+    log(f"ragged g_idx, m 8: counts {counts} (the plain route)")
+    check(counts == {"act_order_plain": 1}, f"ragged g_idx counts {counts}")
+    check(bool(torch.isfinite(y).all()), "ragged g_idx output not finite")
+    out["ragged_counts"] = counts
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ppl_gate(torch):
+    """Phase 17d: the port's perplexity gate on the card
+    (``run_ppl_gate(hidden=128, layers=2, steps=250, seq_len=128)``), held to
+    ``tests/test_ppl_gate.py``'s bounds."""
+    from bitorch_engine_tpu_torch.models.eval import run_ppl_gate
+
+    reset_ckpt_counts()
+    t0 = time.perf_counter()
+    out = run_ppl_gate(**PPL_GATE, device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in ckpt_counts().items() if v}
+    log(f"perplexity gate ({seconds:.1f} s, launches {counts}):")
+    for key, v in out.items():
+        log(f"  {key} {v:.5f}")
+    bounds = {
+        "ppl_fp < 30": out["ppl_fp"] < 30,
+        "rel_delta_w4g64 < 0.15": out["rel_delta_w4g64"] < 0.15,
+        "rel_delta_w2g32 < 1.0": out["rel_delta_w2g32"] < 1.0,
+        "rel_delta_mbwq_2p5 < 0.8": out["rel_delta_mbwq_2p5"] < 0.8,
+        "0 < w4g64 < mbwq_2p5 < w2g32": 0.0 < out["rel_delta_w4g64"] < out["rel_delta_mbwq_2p5"]
+        < out["rel_delta_w2g32"],
+        "|bf16meta - w4g64| < 0.02": abs(out["rel_delta_w4g64_bf16meta"]
+                                         - out["rel_delta_w4g64"]) < 0.02,
+    }
+    for what, ok in bounds.items():
+        check(ok, f"perplexity gate: {what} does not hold")
+    check(counts.get("dequant_mpq", 0) > 0 and counts.get("mpq_matmul_a8", 0) > 0,
+          f"the gate's quantized arms launched kernels {counts}")
+    return dict(out, seconds=seconds, launches=counts)
+
+
+def phase_ckpt(torch, gen):
+    """Phase 17, the checkpoint slice: 17a-d in a temporary directory that is
+    removed at the end, whatever the outcome."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        model, prompt, e2e = phase_ckpt_e2e(torch, gen, tmp)
+        e2e["roundtrip"] = phase_ckpt_roundtrip(torch, model, prompt, tmp)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    kernels = phase_ckpt_kernels(torch, gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    e2e["ppl_gate"] = phase_ppl_gate(torch)
+    return e2e, kernels
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -2398,6 +3045,9 @@ def main() -> int:
     qat["path_check"] = phase_qat_path_check(torch, gen)
     torch.backends.cudnn.allow_tf32 = False
     qat["xnor"] = xnor_more
+
+    # the checkpoint slice
+    ckpt, act_rows = phase_ckpt(torch, gen)
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -2519,9 +3169,33 @@ def main() -> int:
     line["unpack_branch_ms"] = row8["unpack_ms"]
     line["launch_floor_ms"] = xnor_more["launch_floor_ms"]
     kernels.append(line)
+    # the act-order routes (phase 17): launches in the act-order 8B run
+    # (kernels 1 and 2), and through the entry points (kernel 5: an
+    # act-order A8 projection through mpq_linear; kernel 7: an exl2
+    # MBWQLinear), each counted from 0; every per-layer row.  The perplexity
+    # gate's launches (no act-order tensor) stand beside, outside act_order
+    by_name = {line["name"]: line for line in kernels}
+    routes = act_rows["route_launches"]
+    act_launches = {
+        "mpq_matmul": (ckpt["per_step"]["mpq_matmul"] * DECODE_STEPS,
+                       f"{DECODE_STEPS} decode steps of the act-order 8B run"),
+        "dequant_mpq": (ckpt["per_prefill"]["dequant_mpq"], "one prefill of the act-order 8B run"),
+        "mpq_matmul_a8": (routes["mpq_matmul_a8"], "mpq_linear on an act-order w2 A8 projection, "
+                          "m 8, once at each of the two per-layer shapes"),
+        "mbwq_matmul": (routes["mbwq_matmul"], "one MBWQLinear forward of the exl2 tensor, m 8"),
+    }
+    for name, n in ckpt["ppl_gate"]["launches"].items():
+        if name in by_name:
+            by_name[name]["ppl_gate_launches"] = n
+    for name, (launches, per) in act_launches.items():
+        rows = act_rows[name]
+        by_name[name]["act_order"] = dict(
+            launches=launches, per=per, max_abs_err=max(r["max_abs_err"] for r in rows),
+            max_rel_err=max(r.get("rel_err", 0.0) for r in rows), rows=rows)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
-                    "qat": qat, "seconds": time.perf_counter() - t_start}))
+                    "qat": qat, "checkpoint": ckpt, "ragged_g_idx": act_rows["ragged_counts"],
+                    "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

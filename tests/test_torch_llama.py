@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from bitorch_engine_tpu.models import llama as jl
+from bitorch_engine_tpu_torch.layers.basic import Dense
 from bitorch_engine_tpu_torch.models import llama as tl
 from bitorch_engine_tpu_torch.utils.convert import load_jax_params, prepare_params_for_cuda
 
@@ -192,10 +193,15 @@ def test_out_of_slice_configs_raise(field, value, slice_):
     """Configurations of a slice still to port raise, naming it; those of a
     slice that has landed build (the sub-4-bit slice: MBWQ projections,
     whose parity is in test_torch_llama_mbwq.py; the training slice: remat,
-    whose gradients test_torch_training.py checks).  fp projections moved
-    to the checkpoint slice; the message says that training takes quantized
-    ones."""
+    whose gradients test_torch_training.py checks; the checkpoint slice: fp
+    projections, flax ``Dense`` layers, whose parity is in
+    test_torch_llama_loader.py)."""
     cfg = tl.tiny_llama(dtype=torch.float32, **{field: value})
+    if field == "quantized":
+        model = tl.LlamaModel(cfg, device="cpu")
+        assert isinstance(model.layer_0.attn.q_proj, Dense)
+        assert model(torch.tensor([[1, 2, 3]]))[0].shape == (1, 3, cfg.vocab_size)
+        return
     if slice_ == "sub-4-bit":
         model = tl.LlamaModel(cfg, device="cpu")
         assert model.layer_0.attn.q_proj.qweight.bit_widths == (4, 2)

@@ -32,7 +32,12 @@ the card runs the differentiable flash attention (kernel 3 forward, kernel
 4 backward); ``cfg.remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``), as the JAX package's ``nn.remat``.
 
-Outside the slices ported so far: MoE and sequence parallelism raise
+MoE (``moe_num_experts > 0``, Mixtral): every block's MLP is a
+:class:`QuantMoEMLP`, quantized SwiGLU experts behind a top-k router
+(``ops/moe.py``); :func:`moe_losses` reads each layer's load-balance term
+and dropped share from the last forward.
+
+Outside the slices ported so far: sequence parallelism raises
 ``NotImplementedError``.
 """
 
@@ -57,6 +62,7 @@ from ..ops.cuda.paged_attention import (
     paged_prefix_attention_update,
 )
 from ..ops.mbwq_linear import strategy_dict
+from ..ops.moe import EXPERT_PROJS, init_moe_experts, moe_mlp
 from ..ops.quant import concat_mpq
 from .paged_kv import PagedKV, paged_write_positions
 
@@ -88,7 +94,13 @@ class LlamaConfig:
     quant_mid_sym: bool = False
     remat: bool = False  # recompute each block in the backward pass
     sequence_parallel: Optional[str] = None  # parallel-layouts slice
-    moe_num_experts: int = 0  # MoE slice
+    # Mixtral-style MoE MLPs: > 0 experts a block, each token routed to its
+    # top k; capacity None is drop-free (C = T), a float the Switch capacity;
+    # renormalize: the k gates sum to 1 (Mixtral)
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: Optional[float] = None
+    moe_renormalize: bool = True
     kv_cache_dtype: str = "bf16"
     quantize_embed: bool = False
     head_w_bit: Optional[int] = None
@@ -139,6 +151,30 @@ def qwen2_7b(**overrides) -> LlamaConfig:
     )
     defaults.update(overrides)
     return LlamaConfig(**defaults)
+
+
+def mixtral_8x7b(**overrides) -> LlamaConfig:
+    """Mixtral-8x7B: llama blocks with 8-expert top-2 MoE MLPs."""
+    defaults = dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
+        num_heads=32, num_kv_heads=8, rope_theta=1e6, moe_num_experts=8, moe_top_k=2,
+    )
+    defaults.update(overrides)
+    return LlamaConfig(**defaults)
+
+
+def mixtral_8x7b_serving(**overrides) -> LlamaConfig:
+    """Mixtral-8x7B in the MoE serving form of the JAX package's bench
+    (``bench.py:380-396``) at Mixtral's own width: w4 g128 projections and
+    experts, fused q|k|v (the experts are never fused), int8 KV cache,
+    int8 embedding, w4 head padded to 2048, bf16, a 1024-position cache,
+    drop-free capacity."""
+    defaults = dict(
+        dtype=torch.bfloat16, max_seq_len=1024, kv_cache_dtype="int8", quantize_embed=True,
+        head_w_bit=4, head_pad_to=2048, fuse_qkv=True, fuse_gate_up=True,
+    )
+    defaults.update(overrides)
+    return mixtral_8x7b(**defaults)
 
 
 def llama3_8b_serving(**overrides) -> LlamaConfig:
@@ -194,13 +230,9 @@ def tiny_llama(**overrides) -> LlamaConfig:
 
 
 def _check_slice(cfg: LlamaConfig) -> None:
-    later = {
-        "moe_num_experts": (cfg.moe_num_experts > 0, "the MoE slice"),
-        "sequence_parallel": (cfg.sequence_parallel is not None, "the parallel-layouts slice"),
-    }
-    for field, (set_, slice_) in later.items():
-        if set_:
-            raise NotImplementedError(f"LlamaConfig.{field} arrives with {slice_} of the port")
+    if cfg.sequence_parallel is not None:
+        raise NotImplementedError(
+            "LlamaConfig.sequence_parallel arrives with the parallel-layouts slice of the port")
     if cfg.kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {cfg.kv_cache_dtype!r}")
 
@@ -629,13 +661,66 @@ class LlamaMLP(nn.Module):
         return self.down_proj(h)
 
 
+class MoEExpert(nn.Module):
+    """One quantized SwiGLU expert: ``gate``, ``up`` and ``down``
+    ``MPQLinear`` layers built around its records."""
+
+    def __init__(self, records, dtype):
+        super().__init__()
+        for name in EXPERT_PROJS:
+            qt = records[name]
+            setattr(self, name, MPQLinear(qt.in_features, qt.out_features, dtype=dtype, qweight=qt))
+
+    def records(self):
+        """``{"gate", "up", "down"}`` → each layer's record (grad shadow
+        included): an expert as the JAX package's parameters hold it."""
+        return {name: getattr(self, name).qweight for name in EXPERT_PROJS}
+
+
+class QuantMoEMLP(nn.Module):
+    """Mixtral-style MoE MLP: a f32 ``router`` (hidden, E) drawn ``normal ×
+    0.02`` and ``E`` quantized SwiGLU ``experts`` at ``w_bit`` /
+    ``group_size`` (the JAX experts' form: no fusing, padding, asym or
+    mid_sym).  ``aux`` and ``dropped`` hold the last forward's load-balance
+    term and dropped share (the JAX package's sown ``moe_aux`` /
+    ``moe_dropped``; :func:`moe_losses`)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        h, e = cfg.hidden_size, cfg.moe_num_experts
+        router = torch.randn(h, e, generator=generator, device=device) * 0.02
+        self.router = nn.Parameter(router, requires_grad=False)
+        experts = init_moe_experts(generator, e, h, cfg.intermediate_size, w_bit=cfg.w_bit,
+                                   group_size=cfg.group_size, stack=False, device=device)
+        self.experts = nn.ModuleList(MoEExpert(rec, cfg.dtype) for rec in experts)
+        self.aux = self.dropped = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        y, self.aux, self.dropped = moe_mlp(
+            x, self.router, tuple(e.records() for e in self.experts), top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, renormalize=cfg.moe_renormalize,
+        )
+        return y
+
+
+def moe_losses(model: "LlamaModel") -> dict:
+    """``{"moe_aux": [...], "moe_dropped": [...]}``: each MoE layer's values
+    from the model's last forward, in layer order (0-d f32 tensors; ``aux``
+    keeps its graph, so a training loss may add it)."""
+    mlps = [layer.mlp for layer in model.layers if isinstance(layer.mlp, QuantMoEMLP)]
+    return {"moe_aux": [m.aux for m in mlps], "moe_dropped": [m.dropped for m in mlps]}
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, generator=None):
         super().__init__()
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, device)
         self.attn = LlamaAttention(cfg, device, generator)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, device)
-        self.mlp = LlamaMLP(cfg, device, generator)
+        mlp_cls = QuantMoEMLP if cfg.moe_num_experts else LlamaMLP
+        self.mlp = mlp_cls(cfg, device, generator)
 
     def forward(self, x, positions, kv_cache=None, cache_len=None, attn_window=None):
         h, new_cache = self.attn(self.input_norm(x), positions, kv_cache, cache_len, attn_window)
@@ -834,7 +919,8 @@ def fuse_llama_params(model: LlamaModel, fuse_qkv: bool = True, fuse_gate_up: bo
     leaves the logits unchanged.  Act-order parts (``q_perm`` / ``g_idx``)
     raise, as in the JAX package: such a checkpoint loads unfused.  Returns
     the model.  MBWQ projections raise (the JAX package's ``concat_mpq``
-    cannot take them either): build such a model fused."""
+    cannot take them either): build such a model fused.  MoE MLPs are left
+    alone (the JAX package fuses only where gate and up are present)."""
     cfg = model.cfg.replace(
         fuse_qkv=model.cfg.fuse_qkv or fuse_qkv,
         fuse_gate_up=model.cfg.fuse_gate_up or fuse_gate_up,
@@ -842,7 +928,7 @@ def fuse_llama_params(model: LlamaModel, fuse_qkv: bool = True, fuse_gate_up: bo
     for layer in model.layers:
         if fuse_qkv and not layer.attn.cfg.fuse_qkv:
             _fuse_group(layer.attn, ("q_proj", "k_proj", "v_proj"), "qkv_proj")
-        if fuse_gate_up and not layer.mlp.cfg.fuse_gate_up:
+        if fuse_gate_up and isinstance(layer.mlp, LlamaMLP) and not layer.mlp.cfg.fuse_gate_up:
             _fuse_group(layer.mlp, ("gate_proj", "up_proj"), "gate_up_proj")
         layer.attn.cfg = layer.mlp.cfg = cfg
     model.cfg = cfg

@@ -105,6 +105,8 @@ def _packed(tree):
     :func:`~.convert.inference_record` makes it."""
     if isinstance(tree, dict):
         return {k: _packed(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # MoE experts
+        return tuple(_packed(v) for v in tree)
     if dataclasses.is_dataclass(tree) and hasattr(tree, "grad_shadow"):
         return inference_record(tree)
     return tree

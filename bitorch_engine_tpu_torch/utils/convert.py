@@ -26,6 +26,7 @@ from torch import nn
 from ..device import resolve_device
 from ..layers.basic import Dense
 from ..layers.linear import MBWQLinear, MPQLinear, QuantLayer
+from ..models.llama import MoEExpert
 from ..models.paged_kv import PagedKV
 from ..ops.cuda.dequant_matmul import prepare_for_kernel
 from ..ops.quant import pack_binary_weight, quantize_mpq
@@ -244,6 +245,12 @@ def _qat_record(leaf: Any, device):
     return None
 
 
+def _is_record(leaf: Any) -> bool:
+    """A quantized record (the JAX package's or the port's), not an array
+    or a subtree."""
+    return dataclasses.is_dataclass(leaf) and hasattr(leaf, "grad_shadow")
+
+
 def _load_qweight(module: nn.Module, val: Any, where: str, device) -> None:
     if isinstance(module, MPQLinear) and _is_mpq(val):
         module.set_qweight(_mpq(val, device))
@@ -271,6 +278,18 @@ def _load_into(module: nn.Module, tree: Mapping[str, Any], path: str, device) ->
             _load_qweight(module, val, where, device)
             continue
         target = getattr(module, key, None)
+        if isinstance(target, (QuantLayer, MBWQLinear)) and _is_record(val):
+            # a record in the layer's place (an MoE expert's gate, up, down)
+            _load_qweight(target, val, where, device)
+            continue
+        if isinstance(val, (tuple, list)):
+            # a tuple of subtrees (MoE experts) fills a ModuleList in order
+            if not isinstance(target, nn.ModuleList) or len(target) != len(val):
+                raise KeyError(f"{where}: a sequence of {len(val)} needs a ModuleList of as many "
+                               f"in {type(module).__name__}")
+            for i, (sub, subtree) in enumerate(zip(target, val)):
+                _load_into(sub, subtree, f"{where}/{i}", device)
+            continue
         if isinstance(val, Mapping):
             if not isinstance(target, nn.Module):
                 raise KeyError(f"{where}: no such submodule in {type(module).__name__}")
@@ -300,22 +319,26 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any], device=None) -> n
     ``embed`` (or ``embed/{data,scale}`` with ``quantize_embed``),
     ``final_norm/weight``, ``lm_head/qweight``, ``Dense_0/kernel``,
     ``BinaryLinear_0/scale_a``, ``qconv_0/qweight``, ``LayerNorm_1/scale``,
-    ... .  The port's ``Dense``, ``Conv`` and ``LayerNorm`` keep flax's
-    layouts (kernels ``(in, out)`` and HWIO), so fp leaves copy as they
-    are.  A quantized weight (an MPQ record, an MBWQ record with its
-    segments, ``q_perm``, ``block_perm``, ``perm_block`` and
-    ``channel_scale``, a binary, IntQ or binary-embedding record, uint32
-    words as int32) keeps its layout and regime (TPU layouts included)
-    until :func:`prepare_params_for_cuda` converts it; a record that carries
-    a ``grad_shadow`` (a tree after the JAX package's
-    ``prepare_for_training``) gives its layer that shadow, of the port's
-    full shape for a binary conv.
+    ... .  An MoE layer's ``mlp/router`` is a tensor and ``mlp/experts`` a
+    tuple of ``{"gate", "up", "down"}`` dicts of records (no ``qweight``
+    key), as the JAX package's ``QuantMoEMLP`` holds them.  The port's
+    ``Dense``, ``Conv`` and ``LayerNorm`` keep flax's layouts (kernels
+    ``(in, out)`` and HWIO), so fp leaves copy as they are.  A quantized
+    weight (an MPQ record, an MBWQ record with its segments, ``q_perm``,
+    ``block_perm``, ``perm_block`` and ``channel_scale``, a binary, IntQ or
+    binary-embedding record, uint32 words as int32) keeps its layout and
+    regime (TPU layouts included) until :func:`prepare_params_for_cuda`
+    converts it; a record that carries a ``grad_shadow`` (a tree after the
+    JAX package's ``prepare_for_training``) gives its layer that shadow, of
+    the port's full shape for a binary conv.
 
     ``device`` defaults to the model's.  A skeleton built on the ``meta``
     device (``LlamaModel(cfg, device="meta")``) takes the tree's tensors on
     ``device`` in place of its own, and every tensor must be given: one
     left on ``meta`` raises.  Returns the model."""
-    if set(tree) == {"params"}:
+    if "params" in tree:
+        # flax variables: the other collections (an MoE model's sown
+        # ``losses``) hold no parameters
         tree = tree["params"]
     if device is None:
         device = next(itertools.chain(model.buffers(), model.parameters())).device
@@ -334,7 +357,10 @@ def params_tree(model: nn.Module) -> Dict[str, Any]:
     """The model's parameters as the JAX package's flax tree, the inverse of
     :func:`load_jax_params`: nested dicts by flax path, each quantized
     layer's weight as its record under ``qweight`` (MBWQ segments inside
-    it), every other parameter and buffer as a tensor (no copies)."""
+    it), MoE experts as a tuple of ``{"gate", "up", "down"}`` records, every
+    other parameter and buffer as a tensor (no copies)."""
+    if isinstance(model, MoEExpert):
+        return model.records()
     out: Dict[str, Any] = {}
     skip = set()
     if isinstance(model, (QuantLayer, MBWQLinear)):
@@ -346,10 +372,14 @@ def params_tree(model: nn.Module) -> Dict[str, Any]:
         if name not in skip:
             out[name] = t.detach()
     for name, child in model.named_children():
-        if name not in skip:
+        if name in skip:
+            continue
+        if isinstance(child, nn.ModuleList):  # MoE experts
+            sub = tuple(params_tree(c) for c in child)
+        else:
             sub = params_tree(child)
-            if sub:
-                out[name] = sub
+        if sub:
+            out[name] = sub
     return out
 
 

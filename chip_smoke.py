@@ -147,7 +147,20 @@ then, failing on the first check that does not hold:
     ragged ``g_idx`` on the plain route; and runs the perplexity gate
     (``run_ppl_gate``: a byte-level Llama trained on the card, quantized in
     every configuration of the JAX package's gate) within
-    ``tests/test_ppl_gate.py``'s bounds.
+    ``tests/test_ppl_gate.py``'s bounds;
+18. the MoE slice: holds kernels 1 (m 8) and 2 against their plain
+    versions at Mixtral-8x7B's expert shapes (4096 × 14336, 14336 × 4096)
+    and its head (4096 × 32768), w4 g128 bf16 metadata, and times them;
+    builds ``mixtral_8x7b_serving()`` at full width (32 layers of 8 w4
+    experts, top 2, drop-free; random weights from seed 0) and runs phase
+    4's serving path and profile on it (833 kernel-1 launches a decode
+    step, 833 kernel-2 and 32 kernel-3 launches a prefill, checked exactly;
+    no route dropped in any layer of any forward), with the decode step's
+    bytes bound and the prefill's operations bound; serves a queue of 8
+    requests (prompts 32-256, 16-32 new tokens) through phase 5b's batcher
+    run; compares 2 layers between the kernel and the plain path (2e-2),
+    counts the routes whose top-k set differs between them, and runs each
+    MoE MLP call of the kernel path on the plain path from the same input.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -354,6 +367,18 @@ EXL2_SHAPE, EXL2_GROUP = (4096, 22016), 128
 EXL2_LAYOUT = ((6, 2), (5, 4), (4, 8), (3, 8), (2, 10))
 PPL_GATE = dict(hidden=128, layers=2, steps=250, seq_len=128)  # tests/test_ppl_gate.py's
 
+# the MoE slice (phase 18): Mixtral-8x7B in the bench's MoE serving form at
+# its own width.  Kernels 1 and 2 at its expert projections (K, N) and its
+# w4 head (vocab 32000 padded to 32768); q|k|v and o are phase 2's shapes
+MOE_SHAPES = {"moe_up": (4096, 14336), "moe_down": (14336, 4096), "moe_head": (4096, 32768)}
+MOE_EXPERTS = 8
+# launches of each shape per decode step (kernel 1) or per prefill (kernel
+# 2): every expert runs on every row (drop-free capacity), gate and up at
+# the up shape
+MOE_PER_PASS = {"qkv": LAYERS, "o": LAYERS, "moe_up": 2 * MOE_EXPERTS * LAYERS,
+                "moe_down": MOE_EXPERTS * LAYERS, "moe_head": 1}
+MOE_QUEUE = dict(n_requests=8, prompt_lens=(32, 256), new_tokens=(16, 32))  # phase 18c
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -438,6 +463,51 @@ def check_mpq(torch, name, x, qt):
                 max_abs_err=err, rel_err=rel)
 
 
+def mpq_weight(torch, gen, k, n, w_bit=4, gs=128, meta=None):
+    """A random ``normal × 0.02`` (K, N) weight from ``gen``, quantized and
+    brought to the kernels' form with ``meta`` (default bf16) metadata."""
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import prepare_for_kernel
+    from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
+
+    w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
+    return prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs), meta or torch.bfloat16)
+
+
+def mpq_kernel_rows(torch, name, x, qt, flush):
+    """Kernel 1 on ``x`` and kernel 2 at one (K, N): each against its plain
+    version (``check_mpq``; kernel 2 bit-equal in bf16), then timed beside
+    its plain version, ``torch.matmul`` on the bf16 weight (kernel 1) and
+    its bound.  Returns (kernel 1's check, its row, kernel 2's row)."""
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
+        dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_ref,
+    )
+
+    (k, n), m = qt.logical_shape, x.shape[0]
+    main = check_mpq(torch, f"{name} K={k} N={n}", x, qt)
+    w_bf16 = dequant_mpq_ref(qt, torch.bfloat16)
+    equal = torch.equal(dequant_mpq(qt, torch.bfloat16), w_bf16)
+    log(f"kernel dequant_mpq {name:8s} K={k} N={n}  bit-equal={equal}")
+    check(equal, f"dequant_mpq {name}: not bit-equal to the plain version")
+    meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
+    b1, by1 = bound(meta + x.nbytes + m * n * 2, 2 * m * k * n)
+    ms = time_ms(torch, lambda: mpq_matmul(x, qt), flush=flush)
+    row1 = dict(
+        shape=name, K=k, N=n, m=m, max_abs_err=main["max_abs_err"], rel_err=main["rel_err"],
+        ms=ms, per_launch_us=ms * 1e3,
+        plain_ms=time_ms(torch, lambda: mpq_matmul_ref(x, qt), flush=flush),
+        library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
+        bound_ms=b1, bound_by=by1,
+    )
+    b2, by2 = bound(meta + k * n * 2, 2 * k * n)
+    row2 = dict(
+        shape=name, K=k, N=n, max_abs_err=0.0, rel_err=0.0,
+        ms=time_ms(torch, lambda: dequant_mpq(qt), flush=flush),
+        plain_ms=time_ms(torch, lambda: dequant_mpq_ref(qt), flush=flush),
+        library_ms=None, bound_ms=b2, bound_by=by2,
+    )
+    return main, row1, row2
+
+
 def split_sweep(torch, mbwq_mm, x, segs, flush):
     """The tensor-core body on ``x`` and ``segs`` timed unsplit and as a
     cluster of 2 along K, through its launcher (no wrapper, so no launch
@@ -451,8 +521,7 @@ def phase_kernels(torch, gen, flush):
     """Phases 2 and 3: every kernel against its plain version, then timed;
     kernel 1's A16 crossover against kernel 2 + ``torch.matmul``."""
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
-        dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_ref, mpq_matmul_route,
-        prepare_for_kernel,
+        dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_route,
     )
     from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (
         flash_attention, flash_attention_ref,
@@ -461,7 +530,6 @@ def phase_kernels(torch, gen, flush):
 
     # the module (the package's ``mbwq_matmul`` attribute is the wrapper)
     mbwq_mm = importlib.import_module("bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul")
-    from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
 
     F = torch.nn.functional
     results = {name: [] for name in TPU_KERNELS}
@@ -471,41 +539,23 @@ def phase_kernels(torch, gen, flush):
     # were added (the MBWQ A8 path check moves with its prompt)
     k1_gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
 
-    def weight(k, n, w_bit, gs=128, meta=torch.bfloat16, g=gen):
-        w = torch.randn(k, n, device="cuda", generator=g) * 0.02
-        return prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs), meta)
-
     # kernel 1 and 2 at the serving shapes (w4 g128, bf16 metadata, m = 8;
     # kernel 1 also at KERNEL1_CHECK_M rows, and timed against kernel 2 +
     # torch.matmul at CROSSOVER_M rows)
     for name, (k, n) in PROJ_SHAPES.items():
-        qt = weight(k, n, 4)
+        qt = mpq_weight(torch, gen, k, n, 4)
         check(mpq_matmul_route(torch.bfloat16, qt) == "mma", f"kernel 1 {name}: not the mma body")
         x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
-        main = check_mpq(torch, f"{name} K={k} N={n}", x, qt)
-        err, rel = main["max_abs_err"], main["rel_err"]
+        main, row1, row2 = mpq_kernel_rows(torch, name, x, qt, flush)
         kernel1_checks.append(main)
         for m in KERNEL1_CHECK_M:
             xm = torch.randn(m, k, device="cuda", generator=k1_gen).to(torch.bfloat16)
             kernel1_checks.append(check_mpq(torch, f"{name} K={k} N={n}", xm, qt))
         if name == "o":  # the f32-activation route: the scalar body
             kernel1_checks.append(check_mpq(torch, f"{name} K={k} N={n} (f32 x)", x.float(), qt))
-        w_bf16 = dequant_mpq_ref(qt, torch.bfloat16)
-        got_w = dequant_mpq(qt, torch.bfloat16)
-        equal = torch.equal(got_w, w_bf16)
-        log(f"kernel dequant_mpq {name:8s} K={k} N={n}  bit-equal={equal}")
-        check(equal, f"dequant_mpq {name}: not bit-equal to the plain version")
-
-        meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
-        b1, by1 = bound(meta + x.nbytes + 8 * n * 2, 2 * 8 * k * n)
-        ms = time_ms(torch, lambda: mpq_matmul(x, qt), flush=flush)
-        results["mpq_matmul"].append(dict(
-            shape=name, K=k, N=n, m=8, n_split=1, max_abs_err=err, rel_err=rel,
-            ms=ms, per_launch_us=ms * 1e3, ms_by_split=split_sweep(torch, mbwq_mm, x, (qt,), flush),
-            plain_ms=time_ms(torch, lambda: mpq_matmul_ref(x, qt), flush=flush),
-            library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
-            bound_ms=b1, bound_by=by1,
-        ))
+        row1.update(n_split=1, ms_by_split=split_sweep(torch, mbwq_mm, x, (qt,), flush))
+        results["mpq_matmul"].append(row1)
+        results["dequant_mpq"].append(row2)
         crossover[name] = {}
         for m in CROSSOVER_M:
             xm = torch.randn(m, k, device="cuda", generator=k1_gen).to(torch.bfloat16)
@@ -513,18 +563,11 @@ def phase_kernels(torch, gen, flush):
                 kernel1_ms=time_ms(torch, lambda: mpq_matmul(xm, qt), flush=flush),
                 kernel2_matmul_ms=time_ms(torch, lambda: torch.matmul(xm, dequant_mpq(qt)),
                                           flush=flush))
-        b2, by2 = bound(meta + k * n * 2, 2 * k * n)
-        results["dequant_mpq"].append(dict(
-            shape=name, K=k, N=n, max_abs_err=0.0, rel_err=0.0,
-            ms=time_ms(torch, lambda: dequant_mpq(qt), flush=flush),
-            plain_ms=time_ms(torch, lambda: dequant_mpq_ref(qt), flush=flush),
-            library_ms=None, bound_ms=b2, bound_by=by2,
-        ))
-        del qt, w_bf16, got_w
+        del qt
 
     # kernel 1 and 2 at the other container widths, one small shape each
     for w_bit in (1, 2, 8):
-        qt = weight(1024, 512, w_bit)
+        qt = mpq_weight(torch, gen, 1024, 512, w_bit)
         x = torch.randn(8, 1024, device="cuda", generator=gen).to(torch.bfloat16)
         kernel1_checks.append(check_mpq(torch, f"w{w_bit}g128 K=1024 N=512", x, qt))
         equal = torch.equal(dequant_mpq(qt), dequant_mpq_ref(qt))
@@ -533,7 +576,7 @@ def phase_kernels(torch, gen, flush):
     # and kernel 1 at every width, bf16 and f32 metadata, a ragged N, m 1-512
     for w_bit, gs in KERNEL1_WIDTHS:
         for meta in (torch.bfloat16, torch.float32):
-            qt = weight(1024, 516, w_bit, gs, meta, g=k1_gen)
+            qt = mpq_weight(torch, k1_gen, 1024, 516, w_bit, gs, meta)
             for m in KERNEL1_CHECK_M:
                 x = torch.randn(m, 1024, device="cuda", generator=k1_gen).to(torch.bfloat16)
                 kernel1_checks.append(check_mpq(
@@ -813,12 +856,14 @@ def phase_paged_kernels(torch, gen, flush):
     return results
 
 
-def build_model(torch, num_layers, seed):
-    from bitorch_engine_tpu_torch.models.llama import LlamaModel, llama3_8b_serving
+def build_model(torch, num_layers, seed, config="llama3_8b_serving"):
+    """A serving model (``config`` names its factory in ``models.llama``) at
+    ``num_layers``, random from ``seed``, in the kernels' form."""
+    from bitorch_engine_tpu_torch.models import llama
     from bitorch_engine_tpu_torch.utils.convert import prepare_params_for_cuda
 
-    cfg = llama3_8b_serving(max_seq_len=CACHE, num_layers=num_layers)
-    model = LlamaModel(cfg, device="cuda", seed=seed)
+    cfg = getattr(llama, config)(max_seq_len=CACHE, num_layers=num_layers)
+    model = llama.LlamaModel(cfg, device="cuda", seed=seed)
     return prepare_params_for_cuda(model, meta_dtype=torch.bfloat16)
 
 
@@ -939,10 +984,13 @@ def profile_serve(torch, model, prompt, steps):
     return out
 
 
-def phase_e2e(torch, gen, model):
-    """Phase 4: the full-width serving path, with the launch counts."""
+def phase_e2e(torch, gen, model, proj=4 * LAYERS + 1, label="e2e"):
+    """Phase 4 (and 18b): the full-width serving path, with the launch
+    counts: ``proj`` projection launches per pass (kernel 1 per decode
+    step, kernel 2 per prefill), one flash launch per layer per prefill."""
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
+    layers = model.cfg.num_layers
     prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
     serve(torch, model, prompt, 2)  # warm-up (cuBLAS heuristics, allocator)
     torch.cuda.synchronize()
@@ -963,12 +1011,12 @@ def phase_e2e(torch, gen, model):
     counts = launch_counts()
     prefill_ms = (marks["prefill"] - t0) * 1e3
     step_ms = (t_end - marks["prefill"]) * 1e3 / DECODE_STEPS
-    proj = 4 * LAYERS + 1
     pre = marks["counts_prefill"]
-    log(f"e2e launches at prefill {pre}; over the run {counts}")
-    check(pre == counts_with(dequant_mpq=proj, flash_attention=LAYERS), f"prefill launches {pre}")
+    log(f"{label} launches at prefill {pre}; over the run {counts}")
+    check(pre == counts_with(dequant_mpq=proj, flash_attention=layers),
+          f"{label} prefill launches {pre}")
     check(counts == counts_with(mpq_matmul=proj * DECODE_STEPS, dequant_mpq=proj,
-                                flash_attention=LAYERS), f"run launches {counts}")
+                                flash_attention=layers), f"{label} run launches {counts}")
     check(bool(torch.isfinite(last).all()), "decode logits are not finite")
     check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()), "token ids out of range")
     e2e = dict(
@@ -977,7 +1025,7 @@ def phase_e2e(torch, gen, model):
         batch=BATCH, prompt=PROMPT, decode_steps=DECODE_STEPS, cache=CACHE,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    log(f"e2e prefill {prefill_ms:.2f} ms ({e2e['prefill_tok_s']:.0f} tok/s); decode "
+    log(f"{label} prefill {prefill_ms:.2f} ms ({e2e['prefill_tok_s']:.0f} tok/s); decode "
         f"{step_ms:.3f} ms/step ({e2e['decode_tok_s']:.1f} tok/s), batch {BATCH}")
     profiled = profile_serve(torch, model, prompt, PROFILE_STEPS)
     # the profiled run's wall is inflated by the profiler's host cost; this
@@ -989,18 +1037,22 @@ def phase_e2e(torch, gen, model):
     return counts, e2e
 
 
-def phase_serving(torch, model):
-    """Phase 5b: the serving slice's main path: a mixed queue through
-    ContinuousBatcher over the paged cache, on the full-width model."""
+def phase_serving(torch, model, n_requests=N_REQUESTS, prompt_lens=(32, 512), new_tokens=(16, 64)):
+    """Phase 5b (and 18c): the serving slice's main path: a mixed queue of
+    ``n_requests`` seeded requests (prompt lengths and new tokens drawn
+    uniformly from the closed ranges given) through ContinuousBatcher over
+    the paged cache, on the full-width model."""
     import numpy as np
 
     from bitorch_engine_tpu_torch.models.generate import ContinuousBatcher
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    vocab = model.cfg.vocab_size
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
     rng = np.random.default_rng(SEED)
-    queue = [(rng.integers(0, vocab, int(rng.integers(32, 513))).tolist(), int(rng.integers(16, 65)))
-             for _ in range(N_REQUESTS)]
+    (p_lo, p_hi), (n_lo, n_hi) = prompt_lens, new_tokens
+    queue = [(rng.integers(0, vocab, int(rng.integers(p_lo, p_hi + 1))).tolist(),
+              int(rng.integers(n_lo, n_hi + 1)))
+             for _ in range(n_requests)]
     # warm-up (allocator, cuBLAS heuristics): one chunked wave, a few steps
     warm = ContinuousBatcher(model, **SERVE)
     for prompt, _ in queue[:8]:
@@ -1050,25 +1102,26 @@ def phase_serving(torch, model):
     counts = launch_counts()
     hook.remove()
 
-    check(len(done) == N_REQUESTS, f"serving: {len(done)} of {N_REQUESTS} requests returned")
+    check(len(done) == n_requests, f"serving: {len(done)} of {n_requests} requests returned")
     for r, (_, n_new) in zip(done, queue):
         check(len(r.generated) == n_new and all(0 <= t < vocab for t in r.generated),
               f"serving: request {r.uid} returned {len(r.generated)} ids, wanted {n_new} in range")
     check(bool(torch.stack(finite).all()), "serving: non-finite logits")
     check(len(b.allocator.free) == SERVE["kv_pages"] - 1 and not b.allocator.table.any(),
           "serving: pages not all returned after run()")
-    want_wb = LAYERS * tally["decode_steps"]
-    want_ro = LAYERS * tally["chunks_after_first"]
+    want_wb = layers * tally["decode_steps"]
+    want_ro = layers * tally["chunks_after_first"]
+    chunked = max(len(p) for p, _ in queue) > SERVE["prefill_chunk"]
     log(f"serving launches {counts}; decode steps {tally['decode_steps']}, prefill chunks "
         f"after the first {tally['chunks_after_first']}")
     check(counts["paged_prefix_attention_update"] == want_wb,
           f"serving: write-back kernel launched {counts['paged_prefix_attention_update']} != {want_wb}")
-    check(counts["paged_prefix_attention"] == want_ro and want_ro > 0,
+    check(counts["paged_prefix_attention"] == want_ro and (want_ro > 0) == chunked,
           f"serving: read-only kernel launched {counts['paged_prefix_attention']} != {want_ro}")
     generated = sum(n for _, n in queue)
     ttft = sorted(first_token_s.values())
     out = dict(
-        requests=N_REQUESTS, wall_s=wall, requests_per_s=N_REQUESTS / wall,
+        requests=n_requests, wall_s=wall, requests_per_s=n_requests / wall,
         generated_tokens=generated, generated_tok_s=generated / wall,
         prompt_tokens=sum(len(p) for p, _ in queue),
         ttft_median_ms=statistics.median(ttft) * 1e3, ttft_max_ms=ttft[-1] * 1e3,
@@ -1076,7 +1129,7 @@ def phase_serving(torch, model):
         decode_ms_per_step_incl_admission=wall * 1e3 / max(1, tally["decode_steps"]),
         chunks_after_first=tally["chunks_after_first"], launches=counts, config=SERVE,
     )
-    log(f"serving: {N_REQUESTS} requests in {wall:.3f} s ({out['requests_per_s']:.3f} req/s, "
+    log(f"serving: {n_requests} requests in {wall:.3f} s ({out['requests_per_s']:.3f} req/s, "
         f"{out['generated_tok_s']:.1f} generated tok/s), median time to first token "
         f"{out['ttft_median_ms']:.1f} ms, {tally['decode_steps']} decode steps, "
         f"{tally['waves']} admission waves")
@@ -2942,6 +2995,170 @@ def phase_ckpt(torch, gen):
     return e2e, kernels
 
 
+def phase_moe_kernels(torch, flush):
+    """Phase 18a: kernels 1 (m 8) and 2 at Mixtral's expert shapes and head,
+    w4 g128 bf16 metadata, against their plain versions and timed (inputs
+    from their own generator)."""
+    moe_gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    rows = {"mpq_matmul": [], "dequant_mpq": []}
+    for name, (k, n) in MOE_SHAPES.items():
+        qt = mpq_weight(torch, moe_gen, k, n, 4)
+        x = torch.randn(8, k, device="cuda", generator=moe_gen).to(torch.bfloat16)
+        _, row1, row2 = mpq_kernel_rows(torch, name, x, qt, flush)
+        rows["mpq_matmul"].append(row1)
+        rows["dequant_mpq"].append(row2)
+        log(f"time moe {name:9s} K={k} N={n}: kernel 1 {row1['ms']:.4f} ms (plain "
+            f"{row1['plain_ms']:.4f}, torch.matmul {row1['library_ms']:.4f}, bound "
+            f"{row1['bound_ms']:.4f}); kernel 2 {row2['ms']:.4f} ms (plain {row2['plain_ms']:.4f}, "
+            f"bound {row2['bound_ms']:.4f})")
+        del qt, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_bounds(torch, model):
+    """The least time of one Mixtral decode step at batch 8 (bytes: every
+    quantized weight and router read once, each step's valid int8 KV
+    positions and scales) and of one 8 x 256 prefill (bf16 operations: every
+    expert on every row, the head on every position, causal attention)."""
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+    from bitorch_engine_tpu_torch.models.llama import QuantMoEMLP
+
+    cfg = model.cfg
+    lins = [m.qweight for m in model.modules() if isinstance(m, MPQLinear)]
+    weight_bytes = sum(qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes for qt in lins)
+    weight_bytes += sum(m.router.nbytes for m in model.modules() if isinstance(m, QuantMoEMLP))
+    # a cached position: int8 k and v codes and their f32 scales, every layer
+    kv_per_pos = cfg.num_layers * cfg.num_kv_heads * 2 * (cfg.head_dim + 4)
+    kv_pos = sum(PROMPT + i + 1 for i in range(DECODE_STEPS)) / DECODE_STEPS
+    decode_ms, decode_by = bound(weight_bytes + BATCH * kv_pos * kv_per_pos, 0.0)
+    tokens = BATCH * PROMPT
+    attn = cfg.num_layers * BATCH * cfg.num_heads * 4 * cfg.head_dim * PROMPT * (PROMPT + 1) / 2
+    ops = 2 * tokens * sum(qt.in_features * qt.out_features for qt in lins)
+    prefill_ms, prefill_by = bound(weight_bytes, ops + attn)
+    return dict(decode_bound_ms=decode_ms, decode_bound_by=decode_by, weight_bytes=weight_bytes,
+                prefill_bound_ms=prefill_ms, prefill_bound_by=prefill_by,
+                prefill_ops=ops + attn)
+
+
+def phase_moe_e2e(torch, gen):
+    """Phase 18b-c: Mixtral-8x7B at full width and all 32 layers (random
+    weights, seed 0): phase 4's serving run and profile (the launches
+    checked exactly, every layer's dropped share 0 in every forward), the
+    decode step's bound, then a short mixed queue through the batcher."""
+    from bitorch_engine_tpu_torch.models.llama import moe_losses
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(torch, LAYERS, SEED, "mixtral_8x7b_serving")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gib = torch.cuda.memory_allocated() / 2**30
+    cfg = model.cfg
+    log(f"MoE model: Mixtral-8x7B w4 g128, {cfg.num_layers} layers x {cfg.moe_num_experts} "
+        f"experts (top {cfg.moe_top_k}), built in {build_s:.1f} s, {gib:.2f} GiB allocated")
+    # every kernel-1 (decode) or kernel-2 (prefill) launch of a pass: q|k|v,
+    # o and the experts' gate, up and down in each layer, then the head
+    proj = cfg.num_layers * (2 + 3 * cfg.moe_num_experts) + 1
+    check(proj == sum(MOE_PER_PASS.values()), f"MoE launches per pass {proj}")
+    dropped = []
+    hook = model.register_forward_hook(
+        lambda mod, inp, out: dropped.append(torch.stack(moe_losses(mod)["moe_dropped"])))
+    counts, e2e = phase_e2e(torch, gen, model, proj=proj, label="MoE e2e")
+    hook.remove()
+    drops = torch.stack(dropped)
+    check(drops.shape == (len(dropped), cfg.num_layers) and bool((drops == 0).all()),
+          f"MoE: routes dropped under drop-free capacity ({drops.max().item()})")
+    e2e.update(moe_bounds(torch, model), build_s=build_s, gib_allocated=gib,
+               forwards_checked_dropped_0=len(dropped))
+    log(f"MoE decode {e2e['decode_ms_per_step']:.2f} ms/step (wall) against a bound of "
+        f"{e2e['decode_bound_ms']:.3f} ms ({e2e['weight_bytes'] / 2**30:.2f} GiB of weights); "
+        f"prefill {e2e['prefill_ms']:.2f} ms against {e2e['prefill_bound_ms']:.2f} "
+        f"({e2e['prefill_bound_by']}); no route dropped in {len(dropped)} forwards")
+    _, e2e["serving"] = phase_serving(torch, model, **MOE_QUEUE)
+    del model
+    torch.cuda.empty_cache()
+    return counts, e2e
+
+
+def phase_moe_path_check(torch, gen):
+    """Phase 18d: 2 Mixtral layers at full width, kernel path against plain
+    path on the card (prefill + 4 decode steps, the plain side fed the
+    kernel path's tokens), the (forward, layer, token) routes whose top-k
+    set differs between them counted; then each MoE MLP call of the kernel
+    path run once more on the plain path from the same input, which tells a
+    route flip from a kernel error."""
+    from bitorch_engine_tpu_torch.models.llama import QuantMoEMLP
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.ops.moe import route
+
+    model = build_model(torch, 2, SEED + 18, "mixtral_8x7b_serving")
+    path_gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda",
+                           generator=path_gen)
+    mlps = [m for m in model.modules() if isinstance(m, QuantMoEMLP)]
+    routes = []
+
+    def record(mod, inp):
+        x2 = inp[0].reshape(-1, inp[0].shape[-1])
+        routes.append(route(x2, mod.router, mod.cfg.moe_top_k)[1].sort(dim=-1).values)
+
+    hooks = [m.register_forward_pre_hook(record) for m in mlps]
+    reset_launch_counts()
+    got, toks = serve(torch, model, prompt, 4)
+    launched = launch_counts()
+    kernel_routes, routes = routes, []
+    reset_launch_counts()
+    with plain_kernels():
+        want, _ = serve(torch, model, prompt, 4, forced=toks)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    check(all(n == 0 for n in launch_counts().values()), "the plain path launched a kernel")
+    proj = 2 * (2 + 3 * MOE_EXPERTS) + 1
+    check(launched == counts_with(mpq_matmul=4 * proj, dequant_mpq=proj, flash_attention=2),
+          f"MoE path check launches {launched}")
+    flips = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(kernel_routes, routes, strict=True))
+    n_routes = sum(a.shape[0] for a in kernel_routes)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"MoE path check (2 layers, prefill + 4 decode steps): max|d logits|/max|logits| = "
+        f"{rel:.3e}; top-k sets differing in {flips} of {n_routes} (token, layer) routes")
+
+    # per layer: the plain MoE MLP on the kernel path's own input
+    layer_rels = {"prefill": [], "decode": []}
+
+    def plain_again(mod, inp, out):
+        with plain_kernels():
+            ref = mod.forward(inp[0])
+        phase = "prefill" if inp[0].shape[1] > 1 else "decode"
+        layer_rels[phase].append(((out - ref).float().abs().max() / ref.float().abs().max()).item())
+
+    hooks = [m.register_forward_hook(plain_again) for m in mlps]
+    serve(torch, model, prompt, 4)
+    for h in hooks:
+        h.remove()
+    per_layer = {phase: max(v) for phase, v in layer_rels.items()}
+    log(f"MoE path check per layer (the plain MoE MLP on the kernel path's input): max rel "
+        f"prefill {per_layer['prefill']:.3e} (kernel 2 is bit-equal), decode "
+        f"{per_layer['decode']:.3e} over {sum(map(len, layer_rels.values()))} calls")
+    check(max(per_layer.values()) <= 2e-2, f"MoE per-layer check: {per_layer} > 2e-2")
+    check(rel <= 2e-2, f"MoE path check: {rel} > 2e-2 ({flips} route flips)")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rel=rel, route_flips=flips, routes=n_routes, per_layer_max_rel=per_layer)
+
+
+def phase_moe(torch, gen):
+    """Phase 18, the MoE slice: 18a-d."""
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    rows = phase_moe_kernels(torch, flush)
+    del flush
+    counts, e2e = phase_moe_e2e(torch, gen)
+    e2e["path_check"] = phase_moe_path_check(torch, gen)
+    return rows, counts, e2e
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -3048,6 +3265,9 @@ def main() -> int:
 
     # the checkpoint slice
     ckpt, act_rows = phase_ckpt(torch, gen)
+
+    # the MoE slice
+    moe_rows, moe_counts, moe = phase_moe(torch, gen)
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -3192,10 +3412,30 @@ def main() -> int:
         by_name[name]["act_order"] = dict(
             launches=launches, per=per, max_abs_err=max(r["max_abs_err"] for r in rows),
             max_rel_err=max(r.get("rel_err", 0.0) for r in rows), rows=rows)
+    # the MoE path (phase 18b): launches per Mixtral decode step (kernel 1)
+    # and per prefill (kernels 2 and 3); kernels 1 and 2 priced at phase 2's
+    # q|k|v and o rows and phase 18a's expert and head rows
+    moe_passes = {
+        "mpq_matmul": (moe_counts["mpq_matmul"] / DECODE_STEPS, MOE_PER_PASS,
+                       "one decode step of the Mixtral path (b8)"),
+        "dequant_mpq": (moe_counts["dequant_mpq"], MOE_PER_PASS,
+                        "one prefill of the Mixtral path (8 x 256)"),
+        "flash_attention": (moe_counts["flash_attention"], {FLASH_PREFILL: LAYERS},
+                            "one prefill of the Mixtral path (8 x 256)"),
+    }
+    for name, (launches, weights, per) in moe_passes.items():
+        rows = per_shape[name] + moe_rows.get(name, [])
+        sub = kernel_line(name, rows, launches, weights, per, checks[name])
+        own = moe_rows.get(name) or [shape_row(rows, s) for s in weights]
+        keys = ("launches", "per", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        by_name[name]["moe"] = dict(
+            {key: sub[key] for key in keys},
+            max_abs_err=max(r["max_abs_err"] for r in own), max_err=max(r["rel_err"] for r in own),
+            rows=own)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
                     "qat": qat, "checkpoint": ckpt, "ragged_g_idx": act_rows["ragged_counts"],
-                    "seconds": time.perf_counter() - t_start}))
+                    "moe": moe, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -170,7 +170,8 @@ def test_prepared_for_cuda_model_keeps_logits():
     _close(tmodel(torch.from_numpy(toks))[0].numpy(), ref)
 
 
-@pytest.mark.parametrize("name", ["llama3_8b", "llama2_7b", "mistral_7b", "qwen2_7b", "tiny_llama"])
+@pytest.mark.parametrize(
+    "name", ["llama3_8b", "llama2_7b", "mistral_7b", "qwen2_7b", "mixtral_8x7b", "tiny_llama"])
 def test_config_factories_match(name):
     jcfg, tcfg = getattr(jl, name)(), getattr(tl, name)()
     for f in dataclasses.fields(tcfg):
@@ -195,7 +196,8 @@ def test_out_of_slice_configs_raise(field, value, slice_):
     whose parity is in test_torch_llama_mbwq.py; the training slice: remat,
     whose gradients test_torch_training.py checks; the checkpoint slice: fp
     projections, flax ``Dense`` layers, whose parity is in
-    test_torch_llama_loader.py)."""
+    test_torch_llama_loader.py; the MoE slice: a ``QuantMoEMLP`` in every
+    block, whose parity is in test_torch_moe.py)."""
     cfg = tl.tiny_llama(dtype=torch.float32, **{field: value})
     if field == "quantized":
         model = tl.LlamaModel(cfg, device="cpu")
@@ -209,6 +211,11 @@ def test_out_of_slice_configs_raise(field, value, slice_):
     if field == "remat":
         assert tl.LlamaModel(cfg, device="cpu").cfg.remat
         return
+    if slice_ == "MoE":
+        model = tl.LlamaModel(cfg, device="cpu")
+        assert all(isinstance(layer.mlp, tl.QuantMoEMLP) and len(layer.mlp.experts) == value
+                   for layer in model.layers)
+        return
     with pytest.raises(NotImplementedError, match=slice_):
         tl.LlamaModel(cfg, device="cpu")
 
@@ -221,12 +228,18 @@ def test_out_of_slice_configs_raise(field, value, slice_):
 def test_reference_only_config_fields_are_refused(field):
     """Fields of the JAX config that no code of the port reads yet are not
     accepted (and so never silently ignored); a field that a landed slice
-    reads (``mbwq_container_bits``, the sub-4-bit slice) is accepted with the
-    JAX default."""
+    reads (``mbwq_container_bits``, the sub-4-bit slice; ``moe_top_k``,
+    ``moe_capacity_factor`` and ``moe_renormalize``, the MoE slice) is
+    accepted with the JAX default."""
     assert field in {f.name for f in dataclasses.fields(jl.tiny_llama())}
     if field == "mbwq_container_bits":
         assert tl.tiny_llama(**{field: {2: 4}}).mbwq_container_bits == {2: 4}
         assert tl.tiny_llama().mbwq_container_bits == jl.tiny_llama().mbwq_container_bits
+        return
+    if field.startswith("moe_"):
+        jax_default = getattr(jl.tiny_llama(), field)
+        assert getattr(tl.tiny_llama(), field) == jax_default
+        assert getattr(tl.tiny_llama(**{field: jax_default}), field) == jax_default
         return
     with pytest.raises(TypeError, match=field):
         tl.tiny_llama(**{field: getattr(jl.tiny_llama(), field)})

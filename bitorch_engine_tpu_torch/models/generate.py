@@ -10,6 +10,13 @@ waits on stragglers.  The KV cache is dense (``slots × max_len``) or paged
 runs eagerly and the caches are updated in place); ``lax.scan`` over decode
 steps is a Python loop that keeps the tokens on the device and syncs with
 the host once per chunk.
+
+With a ``mesh`` the batcher is one rank of a sharded engine: every rank runs
+the same host loop in lockstep, its dp group's slots through its part of
+the model (``models/llama_sharding.shard_llama_params``) and caches, and the
+sampled tokens are gathered over dp before the queue, the slots and the
+allocator move, so every rank moves them on the same values (the JAX
+package's ``_rep_out`` / ``_local``).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.comm import all_gather
 from .llama import LlamaModel, decode_step, init_kv_caches
 from .paged_kv import PageAllocator, init_paged_kv_caches
 
@@ -133,11 +141,23 @@ class ContinuousBatcher:
 
         ``temperature > 0`` samples from a ``torch.Generator`` seeded with 0
         (other draws than the JAX package's key 0 gives); greedy tokens are
-        the same.  ``mesh`` (sharded serving) arrives with the parallel-layouts
-        slice of the port."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...) arrives with the parallel-layouts slice of the port")
+        the same.
+
+        ``mesh`` (``parallel.make_mesh``): serve ``model`` (already cut to
+        this rank's part where the mesh has tp) as one rank of the sharded
+        engine.  The slots split over dp in contiguous groups (``num_slots``
+        must divide), each group's caches on its ranks, and a paged pool
+        hands each group pages from its own range.  Every rank calls the
+        same methods in the same order; the tokens equal the unsharded
+        batcher's."""
+        dp = 1 if mesh is None else mesh.size("dp")
+        if num_slots % dp:
+            raise ValueError(f"num_slots {num_slots} not divisible by dp {dp}")
+        self.mesh, self._dp = mesh, dp
+        # this rank's slots: its dp group's contiguous range
+        per = num_slots // dp
+        self._lo = per * (0 if mesh is None else mesh.coord("dp"))
+        self._hi = self._lo + per
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -155,11 +175,14 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"max_len {max_len} must be a multiple of kv_page_size {kv_page_size}")
             pages_per_slot = max_len // kv_page_size
-            self.allocator = PageAllocator(kv_pages, kv_page_size, num_slots, pages_per_slot)
+            self.allocator = PageAllocator(kv_pages, kv_page_size, num_slots, pages_per_slot,
+                                           dp_groups=dp)
             self.caches = init_paged_kv_caches(
-                self.cfg, kv_pages, kv_page_size, num_slots, pages_per_slot, device=self.device)
+                self.cfg, kv_pages, kv_page_size, num_slots, pages_per_slot, device=self.device,
+                mesh=mesh)
         else:
-            self.caches = init_kv_caches(self.cfg, num_slots, max_len, device=self.device)
+            self.caches = init_kv_caches(self.cfg, num_slots, max_len, device=self.device,
+                                         mesh=mesh)
         self.positions = np.zeros(num_slots, np.int32)  # next cache position per slot
         self.active: List[Optional[Request]] = [None] * num_slots
         self.cur_tok = np.zeros((num_slots, 1), np.int32)
@@ -174,7 +197,8 @@ class ContinuousBatcher:
         """The caches for a decode step: in paged mode the allocator's
         current table is copied into the table tensor every layer shares."""
         if self.paged:
-            self.caches[0].page_table.copy_(torch.from_numpy(self.allocator.table))
+            rows = self.allocator.table[self._lo : self._hi]
+            self.caches[0].page_table.copy_(torch.from_numpy(rows))
         return self.caches
 
     def _tensor(self, a) -> torch.Tensor:
@@ -234,7 +258,7 @@ class ContinuousBatcher:
                 logits = self._prefill_chunked(padded, slots, true_lens)
             else:
                 logits = self._prefill_slots(padded, slots, true_lens)
-            nxt_np = torch.argmax(logits, dim=-1).cpu().numpy()
+            nxt_np = self._wave_tokens(logits, slots)
             for i, (s, req) in enumerate(zip(slots, batch)):
                 nxt = int(nxt_np[i])
                 req.generated.append(nxt)
@@ -246,6 +270,29 @@ class ContinuousBatcher:
                 self.active[s] = req
                 self.positions[s] = len(req.prompt)
                 self.cur_tok[s, 0] = nxt
+
+    def _mine(self, slots) -> List[int]:
+        """Positions in ``slots`` of this rank's slots."""
+        return [i for i, s in enumerate(slots) if self._lo <= s < self._hi]
+
+    def _gather_slots(self, local: torch.Tensor) -> np.ndarray:
+        """``local`` (..., this rank's slots) → (..., every slot) on the
+        host, gathered over dp in slot order."""
+        local = local.cpu()
+        if self._dp > 1:
+            local = all_gather(self.mesh, local, "dp", dim=-1)
+        return local.numpy()
+
+    def _wave_tokens(self, logits: torch.Tensor, slots) -> np.ndarray:
+        """Each wave request's greedy token: this rank's rows of ``logits``
+        are its own slots'; over dp each rank places them in a vector of
+        its slot range, and :func:`_gather_slots` puts every slot's together."""
+        local = torch.argmax(logits, dim=-1).cpu()
+        if self._dp == 1:
+            return local.numpy()
+        mine = torch.zeros(self._hi - self._lo, dtype=local.dtype)
+        mine[[slots[i] - self._lo for i in self._mine(slots)]] = local
+        return self._gather_slots(mine)[list(slots)]
 
     def _wave_caches(self, slots_t: torch.Tensor, table_rows: Optional[torch.Tensor]):
         """The caches of an admission wave: dense caches' rows of ``slots``
@@ -271,14 +318,24 @@ class ContinuousBatcher:
                 full.v_scale[slots_t] = part.v_scale
 
     def _wave_tables(self, slots):
-        slots_t = self._tensor(np.asarray(slots, np.int64))
+        """This rank's slots (local indices) and their page-table rows."""
+        slots_t = self._tensor(np.asarray(slots, np.int64) - self._lo)
         rows = self._tensor(self.allocator.table[slots]) if self.paged else None
         return slots_t, rows
+
+    def _wave_rows(self, padded, slots, true_lens):
+        """The wave's rows of this rank's slots."""
+        mine = self._mine(slots)
+        return padded[mine], [slots[i] for i in mine], true_lens[mine]
 
     @torch.no_grad()
     def _prefill_slots(self, padded, slots, true_lens) -> torch.Tensor:
         """Prefill n slots in one batched forward at window 0; returns each
-        request's last-prompt-token logits (n, vocab)."""
+        request's last-prompt-token logits (n, vocab), this rank's slots'
+        rows only."""
+        padded, slots, true_lens = self._wave_rows(padded, slots, true_lens)
+        if not slots:
+            return torch.zeros((0, self.cfg.vocab_size), device=self.device)
         slots_t, rows = self._wave_tables(slots)
         wave = self._wave_caches(slots_t, rows)
         n = len(slots)
@@ -293,9 +350,12 @@ class ContinuousBatcher:
         """Sequential C-token prefill chunks over one admission wave.  Chunk
         j writes positions [j·C, (j+1)·C) and attends over the cached prefix
         window plus the chunk, causal.  Returns each request's
-        last-prompt-token logits."""
+        last-prompt-token logits (this rank's slots' rows only)."""
         C = self.prefill_chunk
+        padded, slots, true_lens = self._wave_rows(padded, slots, true_lens)
         n, bucket = padded.shape
+        if not slots:
+            return torch.zeros((0, self.cfg.vocab_size), device=self.device)
         slots_t, rows = self._wave_tables(slots)
         tl = self._tensor(true_lens).long()
         ar = torch.arange(n, device=self.device)
@@ -326,20 +386,21 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _decode(self, toks: torch.Tensor, positions: np.ndarray, active: torch.Tensor,
                 window: int) -> torch.Tensor:
-        """One lock-step decode step of every slot; inactive slots give 0."""
+        """One lock-step decode step of this rank's slots; inactive slots
+        give 0."""
         logits, _ = decode_step(self.model, toks, self._caches_in(),
                                 [int(p) for p in positions], attn_window=window)
         nxt = sample_token(logits, self._gen, self.temperature)
         return torch.where(active, nxt, 0)
 
-    def _active_mask(self) -> torch.Tensor:
-        return self._tensor(np.asarray([r is not None for r in self.active]))
-
     def step(self):
         """One decode step across all active slots."""
+        lo, hi = self._lo, self._hi
         window = self._window(int(self.positions.max()) + 1)
-        nxt = self._decode(self._tensor(self.cur_tok), self.positions, self._active_mask(), window)
-        nxt_np = nxt.cpu().numpy()
+        active = self._tensor(np.asarray([r is not None for r in self.active[lo:hi]]))
+        nxt = self._decode(self._tensor(self.cur_tok[lo:hi]), self.positions[lo:hi], active,
+                           window)
+        nxt_np = self._gather_slots(nxt)
         for s, req in enumerate(self.active):
             if req is None:
                 continue
@@ -358,18 +419,19 @@ class ContinuousBatcher:
     def step_chunk(self, n_steps: int):
         """``n_steps`` decode steps with the tokens kept on the device, then
         one host sync to settle EOS, quotas and evictions."""
-        active_np = np.asarray([r is not None for r in self.active])
+        lo, hi = self._lo, self._hi
+        active_np = np.asarray([r is not None for r in self.active[lo:hi]])
         active = self._tensor(active_np)
         window = self._window(int(self.positions.max()) + n_steps)
-        toks = self._tensor(self.cur_tok)
-        positions = self.positions.copy()
+        toks = self._tensor(self.cur_tok[lo:hi])
+        positions = self.positions[lo:hi].copy()
         seq = []
         for _ in range(n_steps):
             nxt = self._decode(toks, positions, active, window)
             seq.append(nxt)
             toks = nxt[:, None]
             positions = np.where(active_np, np.minimum(positions + 1, self.max_len - 1), positions)
-        toks_np = torch.stack(seq).cpu().numpy()  # (n_steps, slots)
+        toks_np = self._gather_slots(torch.stack(seq))  # (n_steps, slots)
         for s, req in enumerate(self.active):
             if req is None:
                 continue

@@ -37,6 +37,15 @@ MoE (``moe_num_experts > 0``, Mixtral): every block's MLP is a
 (``ops/moe.py``); :func:`moe_losses` reads each layer's load-balance term
 and dropped share from the last forward.
 
+Tensor parallelism (``models/llama_sharding.shard_llama_params``) turns a
+model into one rank's part: attention over the rank's query and KV heads
+(``LlamaAttention.n_heads`` / ``n_kv_heads``), the MLP over its share of the
+intermediate features, an f32 ``all_reduce`` of the row-parallel o and down
+partials (cast once after it, as GSPMD sums the f32 dot of the JAX
+package), an ``all_gather`` of the column-parallel head's logits; ``cfg``
+stays the global configuration.  :func:`init_kv_caches` with a mesh holds
+this rank's heads and its dp share of the batch.
+
 Outside the slices ported so far: sequence parallelism raises
 ``NotImplementedError``.
 """
@@ -63,8 +72,15 @@ from ..ops.cuda.paged_attention import (
 )
 from ..ops.mbwq_linear import strategy_dict
 from ..ops.moe import EXPERT_PROJS, init_moe_experts, moe_mlp
+from ..ops.mpq_linear import _matmul_f32, mpq_linear
 from ..ops.quant import concat_mpq
-from .paged_kv import PagedKV, paged_write_positions
+from ..parallel.comm import all_gather, all_reduce
+from .paged_kv import (
+    PagedKV,
+    kv_cache_shardings,
+    local_shape,
+    paged_write_positions,
+)
 
 # a host-side cache length: one position for the batch, or one per row
 CacheLen = Union[None, int, List[int]]
@@ -232,7 +248,7 @@ def tiny_llama(**overrides) -> LlamaConfig:
 def _check_slice(cfg: LlamaConfig) -> None:
     if cfg.sequence_parallel is not None:
         raise NotImplementedError(
-            "LlamaConfig.sequence_parallel arrives with the parallel-layouts slice of the port")
+            "LlamaConfig.sequence_parallel arrives with the port's sequence-parallel layouts")
     if cfg.kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {cfg.kv_cache_dtype!r}")
 
@@ -347,10 +363,36 @@ def _scale_keys(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 1)[:, :, None, None, :]
 
 
+def tp_size(mesh) -> int:
+    return 1 if mesh is None else mesh.size("tp")
+
+
+def _row_parallel(proj: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``proj(x)``; on a tp-sharded model ``proj`` holds this rank's rows
+    of a row-parallel projection (no bias), and the result is the f32 sum
+    of every rank's partial, cast once.  A shard of an act-order tensor
+    (``tp_rows``: the logical rows of its stored rows) reads the whole
+    activation, gathered over tp."""
+    if tp_size(mesh) == 1:
+        return proj(x)
+    rows = getattr(proj, "tp_rows", None)
+    if rows is not None:
+        x = all_gather(mesh, x, "tp").index_select(-1, rows)
+    if isinstance(proj, MPQLinear):
+        part = mpq_linear(x.to(proj.dtype), proj.qweight, out_dtype=torch.float32)
+    else:  # Dense
+        dtype = proj.dtype or x.dtype
+        x2d = x.reshape(-1, x.shape[-1]).to(dtype)
+        part = _matmul_f32(x2d, proj.kernel.to(dtype)).reshape(*x.shape[:-1], -1)
+    return all_reduce(mesh, part, "tp").to(proj.dtype or x.dtype)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, generator=None):
         super().__init__()
         self.cfg = cfg
+        # this rank's head counts and mesh (models/llama_sharding.py sets them)
+        self.n_heads, self.n_kv_heads, self.mesh = cfg.num_heads, cfg.num_kv_heads, None
         hd, nh, nkv, h = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.hidden_size
         bias = cfg.attn_qkv_bias
         if cfg.fuse_qkv:
@@ -399,7 +441,7 @@ class LlamaAttention(nn.Module):
         cached positions."""
         cfg = self.cfg
         b, s, _ = x.shape
-        hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        hd, nh, nkv = cfg.head_dim, self.n_heads, self.n_kv_heads
         rep = nh // nkv
         if cfg.fuse_qkv:
             q, k, v = torch.split(self.qkv_proj(x), [nh * hd, nkv * hd, nkv * hd], dim=-1)
@@ -420,8 +462,8 @@ class LlamaAttention(nn.Module):
 
         if kv_cache is None:
             if self._use_flash(x, s):
-                return self.o_proj(self._flash(q, k, v)), None
-            return self.o_proj(self._full_read(qg, positions, k, v)), None
+                return self._out(self._flash(q, k, v)), None
+            return self._out(self._full_read(qg, positions, k, v)), None
 
         if kv_quant:
             k_new, ks_new = _quantize_kv(k)
@@ -433,7 +475,7 @@ class LlamaAttention(nn.Module):
         new = (q, qg, k_new, v_new, ks_new, vs_new)
         if isinstance(kv_cache, PagedKV):
             ctx = self._paged(x, positions, kv_cache, cache_len, cl_rows, attn_window, new)
-            return self.o_proj(ctx), kv_cache
+            return self._out(ctx), kv_cache
 
         total_len = kv_cache[0].shape[1]
         full_read = attn_window is None or attn_window >= total_len
@@ -452,7 +494,7 @@ class LlamaAttention(nn.Module):
                 ks_all, vs_all = ckvs0[..., :nkv], ckvs0[..., nkv:]
             valid = (cache_len + s) if cl_rows is None else (cl_rows + s)
             ctx = self._full_read(qg, positions, ck0, cv0, ks_all, vs_all, valid)
-            return self.o_proj(ctx), kv_cache
+            return self._out(ctx), kv_cache
 
         prefix_len = attn_window
         viol = _violation(cache_len, prefix_len)
@@ -466,7 +508,10 @@ class LlamaAttention(nn.Module):
         # this step read the cache before its write (stream order keeps it so)
         for cache, update in writes:
             _write(cache, update, cache_len)
-        return self.o_proj(ctx), kv_cache
+        return self._out(ctx), kv_cache
+
+    def _out(self, ctx: torch.Tensor) -> torch.Tensor:
+        return _row_parallel(self.o_proj, ctx, self.mesh)
 
     def _window0(self, x, new, viol) -> torch.Tensor:
         """Prefill from an empty cache: causal attention over the new
@@ -531,7 +576,7 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         q, qg, k_new, v_new, ks_new, vs_new = new
         b, s = x.shape[:2]
-        hd, nkv = cfg.head_dim, cfg.num_kv_heads
+        hd, nkv = cfg.head_dim, self.n_kv_heads
         ps = cache.page_size
         want_full = attn_window is None or attn_window >= cache.view_len
         kernel_ok = s == 1 and hd % 128 == 0
@@ -588,7 +633,7 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         _, _, k_new, v_new, ks_new, vs_new = new
         b, s = q.shape[:2]
-        hd, nh, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+        hd, nh, nkv = cfg.head_dim, self.n_heads, self.n_kv_heads
         rep = nh // nkv
         rs = rep * s
         qk2 = q.reshape(b, s, nkv, rep, hd).permute(0, 2, 3, 1, 4).reshape(b, nkv, rs, hd)
@@ -644,6 +689,7 @@ class LlamaMLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, i = cfg.hidden_size, cfg.intermediate_size
+        self.mesh = None  # set on a tp-sharded model (models/llama_sharding.py)
         if cfg.fuse_gate_up:
             self.gate_up_proj = _proj(cfg, h, 2 * i, device, generator)
         else:
@@ -658,7 +704,7 @@ class LlamaMLP(nn.Module):
         else:
             gate, up = self.gate_proj(x), self.up_proj(x)
         h = nn.functional.silu(gate.float()).to(cfg.dtype) * up
-        return self.down_proj(h)
+        return _row_parallel(self.down_proj, h, self.mesh)
 
 
 class MoEExpert(nn.Module):
@@ -763,6 +809,7 @@ class LlamaModel(nn.Module):
         _check_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = None  # set on a tp-sharded model (models/llama_sharding.py)
         gen = None  # a meta skeleton draws nothing
         if self.device.type != "meta":
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -821,26 +868,41 @@ class LlamaModel(nn.Module):
                 continue
             cache_i = kv_caches[i] if kv_caches is not None else None
             x, _ = layer(x, positions, cache_i, cache_len, attn_window)
+        return self.logits(x), kv_caches
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The last layer's output → f32 logits (b, s, vocab): the final
+        norm and the head (a tp-sharded head's shares gathered)."""
+        cfg = self.cfg
         x = self.final_norm(x)
         if self.lm_head is not None:
-            logits = self.lm_head(x)[..., : cfg.vocab_size].float()
+            logits = self.lm_head(x).float()
+            if tp_size(self.mesh) > 1:
+                # a column-parallel head gives this rank's share of the vocabulary
+                logits = all_gather(self.mesh, logits, "tp")
+            logits = logits[..., : cfg.vocab_size]
         elif cfg.quantize_embed:
             e8 = self.embed.data.T.to(cfg.dtype).float()
             logits = torch.matmul(x.float(), e8) * self.embed.scale
         else:
             logits = torch.matmul(x.float(), self.embed.T.to(cfg.dtype).float())
-        return logits, kv_caches
+        return logits
 
 
-def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None, device=None):
+def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None, device=None,
+                   mesh=None):
     """Empty per-layer dense caches: bf16 ``(k, v)`` of (b, L, nkv, hd), or
     int8 ``(k, v, kv_scales)`` with the k and v per-position f32 scales in
-    one (b, L, 2·nkv) tensor, ``[k-scales | v-scales]``."""
+    one (b, L, 2·nkv) tensor, ``[k-scales | v-scales]``.  With a ``mesh``,
+    this rank's part under ``paged_kv.kv_cache_shardings``: ``b`` over dp,
+    its KV heads (the scale halves built at its head count)."""
     device = resolve_device(device)
     max_len = max_len or cfg.max_seq_len
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    specs = kv_cache_shardings(1, cfg.kv_cache_dtype)[0]
+    nkv = cfg.num_kv_heads
+    shape = local_shape(cfg, (batch, max_len, nkv, cfg.head_dim), specs[0], mesh)
     if cfg.kv_cache_dtype == "int8":
-        sshape = (batch, max_len, 2 * cfg.num_kv_heads)
+        sshape = local_shape(cfg, (batch, max_len, 2 * nkv), specs[2], mesh)
         return [
             (
                 torch.zeros(shape, dtype=torch.int8, device=device),

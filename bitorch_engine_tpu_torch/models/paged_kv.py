@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding import P
 
 
 @dataclasses.dataclass
@@ -69,30 +70,103 @@ class PagedKV:
         return dataclasses.replace(self, **changes)
 
 
+def local_kv_heads(cfg, tp: int) -> int:
+    """KV heads a rank of a ``tp``-way split holds: ``nkv / tp``, or one
+    (shared by ``tp / nkv`` ranks, Megatron's rule) when there are fewer KV
+    heads than ranks."""
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    if nh % tp or (nkv % tp if nkv >= tp else tp % nkv):
+        raise ValueError(f"{nh} query / {nkv} KV heads do not split over tp={tp}")
+    return max(1, nkv // tp)
+
+
+def local_batch(batch: int, mesh) -> int:
+    """This rank's share of a batch split over the mesh's dp axis."""
+    dp = 1 if mesh is None else mesh.size("dp")
+    if batch % dp:
+        raise ValueError(f"batch {batch} not divisible by dp {dp}")
+    return batch // dp
+
+
+# The caches' layout over a mesh, read by the builders below: 'dp' splits
+# the slots, 'tp' an axis of whole KV heads (:func:`local_kv_heads`).  The
+# pools keep every page (the allocator's ``dp_groups`` keep each dp group
+# on its own pages).  The int8 scale caches hold a rank's own heads: the
+# JAX package replicates them over tp instead.
+DENSE_KV_SPEC = P("dp", None, "tp", None)  # (b, L, kv_heads, hd)
+DENSE_SCALE_SPEC = P("dp", None, "tp")  # (b, L, 2·kv_heads), [k-scales | v-scales]
+PAGED_KV_SPECS = dict(
+    k_pool=P(None, None, "tp"),  # (pages, page_size, kv_heads·hd)
+    v_pool=P(None, None, "tp"),
+    k_scale=P("dp", None, "tp"),  # (slots, pages_per_slot·page_size, kv_heads)
+    v_scale=P("dp", None, "tp"),
+    page_table=P("dp", None),  # (slots, pages_per_slot)
+)
+
+
+def kv_cache_shardings(num_layers: int, kv_cache_dtype: str = "bf16"):
+    """Specs of the dense caches that :func:`models.llama.init_kv_caches`
+    builds: ``(k, v)``, or ``(k, v, kv_scales)`` in the int8 mode."""
+    if kv_cache_dtype == "int8":
+        return [(DENSE_KV_SPEC, DENSE_KV_SPEC, DENSE_SCALE_SPEC) for _ in range(num_layers)]
+    return [(DENSE_KV_SPEC, DENSE_KV_SPEC) for _ in range(num_layers)]
+
+
+def paged_kv_shardings(caches):
+    """Specs of the paged caches that :func:`init_paged_kv_caches` builds."""
+    return [
+        c.replace(**{k: None if getattr(c, k) is None else v for k, v in PAGED_KV_SPECS.items()})
+        for c in caches
+    ]
+
+
+def local_shape(cfg, shape, spec: P, mesh) -> Tuple[int, ...]:
+    """This rank's block of a cache of global ``shape`` under ``spec``."""
+    tp = 1 if mesh is None else mesh.size("tp")
+    out = []
+    for size, axis in zip(shape, spec):
+        if axis == "dp":
+            size = local_batch(size, mesh)
+        elif axis == "tp":  # whole KV heads of size // nkv entries each
+            size = size // cfg.num_kv_heads * local_kv_heads(cfg, tp)
+        elif axis is not None:
+            raise ValueError(f"a cache does not split over {axis!r}")
+        out.append(size)
+    return tuple(out)
+
+
 def init_paged_kv_caches(
     cfg, num_pages: int, page_size: int, slots: int, pages_per_slot: int, device=None,
+    mesh=None,
 ) -> List[PagedKV]:
     """Per-layer zeroed page pools and one all-zero page table shared by the
     layers.  ``num_pages`` counts the null page 0: usable capacity is
-    ``(num_pages - 1) * page_size`` tokens.  ``device=None`` means ``cuda``."""
+    ``(num_pages - 1) * page_size`` tokens.  ``device=None`` means ``cuda``.
+    With a ``mesh``, this rank's part under :data:`PAGED_KV_SPECS`."""
     device = resolve_device(device)
-    shape = (num_pages, page_size, cfg.num_kv_heads * cfg.head_dim)
-    table = torch.zeros((slots, pages_per_slot), dtype=torch.int32, device=device)
+    nkv = cfg.num_kv_heads
     int8 = cfg.kv_cache_dtype == "int8"
     pool_dtype = torch.int8 if int8 else cfg.dtype
-    sshape = (slots, pages_per_slot * page_size, cfg.num_kv_heads)
+    shapes = dict(pool=(num_pages, page_size, nkv * cfg.head_dim),
+                  scale=(slots, pages_per_slot * page_size, nkv),
+                  page_table=(slots, pages_per_slot))
 
-    def scale():
-        return torch.zeros(sshape, dtype=torch.float32, device=device) if int8 else None
+    def zeros(name, kind, dtype):
+        return torch.zeros(local_shape(cfg, shapes[kind], PAGED_KV_SPECS[name], mesh),
+                           dtype=dtype, device=device)
 
+    def scale(name):
+        return zeros(name, "scale", torch.float32) if int8 else None
+
+    table = zeros("page_table", "page_table", torch.int32)
     return [
         PagedKV(
-            k_pool=torch.zeros(shape, dtype=pool_dtype, device=device),
-            v_pool=torch.zeros(shape, dtype=pool_dtype, device=device),
-            k_scale=scale(),
-            v_scale=scale(),
+            k_pool=zeros("k_pool", "pool", pool_dtype),
+            v_pool=zeros("v_pool", "pool", pool_dtype),
+            k_scale=scale("k_scale"),
+            v_scale=scale("v_scale"),
             page_table=table,
-            kv_heads=cfg.num_kv_heads,
+            kv_heads=local_kv_heads(cfg, 1 if mesh is None else mesh.size("tp")),
         )
         for _ in range(cfg.num_layers)
     ]

@@ -129,12 +129,16 @@ class _MPQLinear(torch.autograd.Function):
         return grad_x, gw, None
 
 
-def mpq_linear(x: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
-    """``x (..., K) @ dequant(qt)`` → ``(..., N)`` in ``x.dtype``,
-    differentiable in ``x`` and in ``qt.grad_shadow``."""
+def mpq_linear(x: torch.Tensor, qt: MPQTensor, out_dtype=None) -> torch.Tensor:
+    """``x (..., K) @ dequant(qt)`` → ``(..., N)`` in ``out_dtype`` (default
+    ``x.dtype``), differentiable in ``x`` and in ``qt.grad_shadow``.
+    ``out_dtype=torch.float32`` returns the f32 product before any cast (a
+    row-parallel shard's partial sum); it is a forward-only form."""
     if needs_grad(x, qt.grad_shadow):
+        if out_dtype is not None:
+            raise ValueError("mpq_linear: out_dtype is a forward-only form")
         return _MPQLinear.apply(x, qt.grad_shadow, qt)
-    return _mpq_forward(x, qt)
+    return _mpq_forward(x, qt, out_dtype)
 
 
 def mpq_route(qt: MPQTensor, m: int, device_type: str) -> str:
@@ -150,19 +154,26 @@ def mpq_route(qt: MPQTensor, m: int, device_type: str) -> str:
     return "reconstruct"
 
 
-def _mpq_forward(x: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
+def _matmul_f32(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x2d @ w`` accumulated and returned in f32 (``weight_grad``'s form)."""
+    if x2d.is_cuda and x2d.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+        return torch.mm(x2d, w, out_dtype=torch.float32)
+    return torch.matmul(x2d.float(), w.float())
+
+
+def _mpq_forward(x: torch.Tensor, qt: MPQTensor, out_dtype=None) -> torch.Tensor:
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2d = x.reshape(-1, k)
     route = mpq_route(qt, x2d.shape[0], x.device.type)
     if route == "a8_plain":
         act_order_counts["plain"] += 1
-        out = mpq_matmul_a8_ref(x2d, qt)
+        out = mpq_matmul_a8_ref(x2d, qt, out_dtype)
     elif route == "a8":
-        out = mpq_matmul_a8(_gather(x2d, qt).contiguous(), _stored(qt))
+        out = mpq_matmul_a8(_gather(x2d, qt).contiguous(), _stored(qt), out_dtype)
     elif route == "a16":
-        out = mpq_matmul(_gather(x2d, qt).contiguous(), _stored(qt))
+        out = mpq_matmul(_gather(x2d, qt).contiguous(), _stored(qt), out_dtype)
     else:
         w = reconstruct_weight(qt, x.dtype)
-        out = torch.matmul(x2d, w)
+        out = torch.matmul(x2d, w) if out_dtype is None else _matmul_f32(x2d, w).to(out_dtype)
     return out.reshape(*lead, -1)

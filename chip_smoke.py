@@ -160,7 +160,32 @@ then, failing on the first check that does not hold:
     requests (prompts 32-256, 16-32 new tokens) through phase 5b's batcher
     run; compares 2 layers between the kernel and the plain path (2e-2),
     counts the routes whose top-k set differs between them, and runs each
-    MoE MLP call of the kernel path on the plain path from the same input.
+    MoE MLP call of the kernel path on the plain path from the same input;
+19. the parallel slice (every time labelled "two ranks sharing one card,
+    gloo": not a tp speed): holds kernels 1 and 2 (m 8; o and down writing
+    the f32 partial) at one tp rank's shard shapes of Llama-3-8B, kernel 3
+    at its 16 query / 4 KV heads and kernel 6's write-back form at its 4 KV
+    heads against their plain versions and times them; then spawns a world
+    of 2 ranks on the card (gloo, kernels already built, joined under a
+    deadline).  Each rank probes which collectives gloo takes on CUDA
+    tensors, builds ``llama3_8b_serving()`` at full width from seed 0; rank
+    0 runs it unsharded (the reference's greedy tokens and logits); both
+    serve phase 18c's queue at dp 2 (tokens equal to the unsharded
+    batcher's), cut the model with ``shard_llama_params`` and run prefill 8
+    × 256 and 32 decode steps forced to the reference's tokens (launches of
+    kernels 1, 2 and 3 and the collectives of every pass checked; every
+    layer, and the final norm with the gathered head, on the unsharded
+    model's input to it within 2e-2 of the unsharded one at prefill and at
+    a decode step), profile the prefill and 8 steps (one profiler a pass:
+    device busy ms), run ``ring_row_parallel_mpq`` at the o and down shapes
+    (2 kernel-1 launches a call, within 1e-2), and serve the queue at tp 2.
+    Rank 0 also runs a witness of tp's rounding in one process: the
+    unsharded model with o and down summed as two f32 row halves, cast once.
+    The tp logits (prefill and every step) and each tp wave's first-token
+    logits stay within 2e-2 of the witness's, and of the unsharded ones or
+    within 1.5 times the witness's drift from them on the same passes where
+    that is larger; a tp request's tokens leave the unsharded ones only
+    where the unsharded logits tie within twice that drift.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -379,6 +404,27 @@ MOE_PER_PASS = {"qkv": LAYERS, "o": LAYERS, "moe_up": 2 * MOE_EXPERTS * LAYERS,
                 "moe_down": MOE_EXPERTS * LAYERS, "moe_head": 1}
 MOE_QUEUE = dict(n_requests=8, prompt_lens=(32, 256), new_tokens=(16, 32))  # phase 18c
 
+# the parallel slice (phase 19): Llama-3-8B at tp 2 over torch.distributed,
+# the two ranks sharing the one card through gloo.  Kernels 1 and 2 at one
+# rank's shard shapes (K, N): q|k|v by heads (16 query + 4 + 4 KV heads of
+# 128), o and down by rows (their kernel-1 output the f32 partial), gate|up
+# by intermediate features, the head by vocabulary (129024 / 2)
+TP = 2
+TP_LABEL = "two ranks sharing one card, gloo"
+TP_SHAPES = {"tp_qkv": (4096, 3072), "tp_o": (2048, 4096), "tp_gate_up": (4096, 14336),
+             "tp_down": (7168, 4096), "tp_head": (4096, 64512)}
+TP_ROW_SHAPES = ("tp_o", "tp_down")
+TP_PER_PASS = {"tp_qkv": LAYERS, "tp_o": LAYERS, "tp_gate_up": LAYERS, "tp_down": LAYERS,
+               "tp_head": 1}
+TP_NKV = NKV // TP
+TP_FLASH = ("tp_prefill_b8_nh16_nkv4_s256_d128", BATCH, 32 // TP, TP_NKV, PROMPT, HD)
+TP_PAGED = (("tp_decode_b8_w512", 8, 512, REP, "int8", True),
+            ("tp_decode_b8_w256", 8, 256, REP, "int8", True))
+RING_SHAPES = {"ring_o": (4096, 4096), "ring_down": (14336, 4096)}
+RING_REPS = 20
+TP_WORLD_TIMEOUT, TP_COLLECTIVE_TIMEOUT = 700, 240  # s: the whole world, one collective's wait
+TP_WITNESS_SLACK = 1.5  # the end-to-end limits: the witness's drift times this, at least 2e-2
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -473,11 +519,13 @@ def mpq_weight(torch, gen, k, n, w_bit=4, gs=128, meta=None):
     return prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs), meta or torch.bfloat16)
 
 
-def mpq_kernel_rows(torch, name, x, qt, flush):
+def mpq_kernel_rows(torch, name, x, qt, flush, out_dtype=None):
     """Kernel 1 on ``x`` and kernel 2 at one (K, N): each against its plain
     version (``check_mpq``; kernel 2 bit-equal in bf16), then timed beside
     its plain version, ``torch.matmul`` on the bf16 weight (kernel 1) and
-    its bound.  Returns (kernel 1's check, its row, kernel 2's row)."""
+    its bound; kernel 1 timed writing ``out_dtype`` (default ``x.dtype``;
+    f32 for a row-parallel shard's partial).  Returns (kernel 1's check,
+    its row, kernel 2's row)."""
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
         dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_ref,
     )
@@ -489,12 +537,13 @@ def mpq_kernel_rows(torch, name, x, qt, flush):
     log(f"kernel dequant_mpq {name:8s} K={k} N={n}  bit-equal={equal}")
     check(equal, f"dequant_mpq {name}: not bit-equal to the plain version")
     meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
-    b1, by1 = bound(meta + x.nbytes + m * n * 2, 2 * m * k * n)
-    ms = time_ms(torch, lambda: mpq_matmul(x, qt), flush=flush)
+    out_bytes = 4 if out_dtype == torch.float32 else 2
+    b1, by1 = bound(meta + x.nbytes + m * n * out_bytes, 2 * m * k * n)
+    ms = time_ms(torch, lambda: mpq_matmul(x, qt, out_dtype), flush=flush)
     row1 = dict(
         shape=name, K=k, N=n, m=m, max_abs_err=main["max_abs_err"], rel_err=main["rel_err"],
         ms=ms, per_launch_us=ms * 1e3,
-        plain_ms=time_ms(torch, lambda: mpq_matmul_ref(x, qt), flush=flush),
+        plain_ms=time_ms(torch, lambda: mpq_matmul_ref(x, qt, out_dtype), flush=flush),
         library_ms=time_ms(torch, lambda: torch.matmul(x, w_bf16), flush=flush),
         bound_ms=b1, bound_by=by1,
     )
@@ -523,15 +572,11 @@ def phase_kernels(torch, gen, flush):
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
         dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_route,
     )
-    from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention, flash_attention_ref,
-    )
     from bitorch_engine_tpu_torch.ops.mpq_linear import MAX_FUSED_ROWS_A16
 
     # the module (the package's ``mbwq_matmul`` attribute is the wrapper)
     mbwq_mm = importlib.import_module("bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul")
 
-    F = torch.nn.functional
     results = {name: [] for name in TPU_KERNELS}
     kernel1_checks, crossover = [], {}
     # kernel 1's further checks and its crossover draw from their own
@@ -588,36 +633,7 @@ def phase_kernels(torch, gen, flush):
     train_gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     for name, b, nh, nkv, s, d in FLASH_FWD_SHAPES:
         g = train_gen if name == FLASH_TRAIN else gen
-        q = torch.randn(b, nh, s, d, device="cuda", generator=g).to(torch.bfloat16)
-        k = torch.randn(b, nkv, s, d, device="cuda", generator=g).to(torch.bfloat16)
-        v = torch.randn(b, nkv, s, d, device="cuda", generator=g).to(torch.bfloat16)
-        out, lse = flash_attention(q, k, v)
-        ref_out, ref_lse = flash_attention_ref(q, k, v)
-        err = (out.float() - ref_out.float()).abs().max().item()
-        rel = err / ref_out.float().abs().max().item()
-        differing = (out != ref_out).float().mean().item()
-        # lse within 1e-4 relative, or 1e-4 absolute where |lse| < 1 (a row
-        # whose lse is near 0 has no relative error to speak of)
-        lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item()
-        ok = torch.allclose(out.float(), ref_out.float(), atol=1e-2, rtol=1e-2)
-        log(f"kernel flash_attention {name:30s} max|d out|={err:.3e} rel={rel:.3e} bf16 elements "
-            f"differing {differing:.2e}  lse err={lse_err:.3e}")
-        check(ok and differing <= FWD_DIFFERING_MAX and lse_err <= 1e-4,
-              f"flash_attention {name}: out err {err}, differing {differing}, lse err {lse_err}")
-        nbytes = (q.nbytes + k.nbytes + v.nbytes) + out.nbytes + lse.nbytes
-        ops = b * nh * 4 * d * s * (s + 1) / 2  # QK^T and PV over the causal pairs
-        b3, by3 = bound(nbytes, ops)
-        results["flash_attention"].append(dict(
-            shape=name, max_abs_err=err, rel_err=lse_err, out_rel_err=rel,
-            bf16_elements_differing=differing, lse_err=lse_err,
-            ms=time_ms(torch, lambda: flash_attention(q, k, v), flush=flush),
-            plain_ms=time_ms(torch, lambda: flash_attention_ref(q, k, v), flush=flush),
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), flush=flush),
-            bound_ms=b3, bound_by=by3,
-        ))
-        del q, k, v, out, lse, ref_out, ref_lse
-        torch.cuda.empty_cache()
+        results["flash_attention"].append(flash_row(torch, g, name, b, nh, nkv, s, d, flush))
     for name, rows in results.items():
         for r in rows:
             lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -645,30 +661,73 @@ def phase_kernels(torch, gen, flush):
     return results, extra
 
 
-def paged_inputs(torch, gen, b, W, rs, pool, slot_pages=PAGES_PER_SLOT):
+def flash_row(torch, gen, name, b, nh, nkv, s, d, flush):
+    """Kernel 3 (causal) on random bf16 q / k / v drawn from ``gen``
+    against its plain version (out atol / rtol 1e-2 with at most
+    ``FWD_DIFFERING_MAX`` of its bf16 elements differing, lse within 1e-4),
+    then timed beside its plain version, SDPA and its bound."""
+    from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_ref,
+    )
+
+    F = torch.nn.functional
+    q = torch.randn(b, nh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, nkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, nkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+    out, lse = flash_attention(q, k, v)
+    ref_out, ref_lse = flash_attention_ref(q, k, v)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    rel = err / ref_out.float().abs().max().item()
+    differing = (out != ref_out).float().mean().item()
+    # lse within 1e-4 relative, or 1e-4 absolute where |lse| < 1 (a row
+    # whose lse is near 0 has no relative error to speak of)
+    lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max().item()
+    ok = torch.allclose(out.float(), ref_out.float(), atol=1e-2, rtol=1e-2)
+    log(f"kernel flash_attention {name:30s} max|d out|={err:.3e} rel={rel:.3e} bf16 elements "
+        f"differing {differing:.2e}  lse err={lse_err:.3e}")
+    check(ok and differing <= FWD_DIFFERING_MAX and lse_err <= 1e-4,
+          f"flash_attention {name}: out err {err}, differing {differing}, lse err {lse_err}")
+    nbytes = (q.nbytes + k.nbytes + v.nbytes) + out.nbytes + lse.nbytes
+    ops = b * nh * 4 * d * s * (s + 1) / 2  # QK^T and PV over the causal pairs
+    b3, by3 = bound(nbytes, ops)
+    row = dict(
+        shape=name, max_abs_err=err, rel_err=lse_err, out_rel_err=rel,
+        bf16_elements_differing=differing, lse_err=lse_err,
+        ms=time_ms(torch, lambda: flash_attention(q, k, v), flush=flush),
+        plain_ms=time_ms(torch, lambda: flash_attention_ref(q, k, v), flush=flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), flush=flush),
+        bound_ms=b3, bound_by=by3,
+    )
+    del q, k, v, out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def paged_inputs(torch, gen, b, W, rs, pool, slot_pages=PAGES_PER_SLOT, nkv=NKV):
     """Inputs of one paged-attention shape: a shuffled page table read as a
     column slice of the full per-slot table of ``slot_pages`` pages,
     per-slot cache lengths with 0 and W - 1, slot 1 inactive (its row all
-    null page 0, length 0)."""
+    null page 0, length 0); ``nkv`` KV heads of ``HD``."""
     import numpy as np
 
     rng = np.random.default_rng(b * 7919 + W + rs)
     P = W // PAGE
     pages = b * slot_pages + 1
-    shape = (pages, PAGE, NKV * HD)
+    shape = (pages, PAGE, nkv * HD)
     dev = dict(device="cuda")
-    q = torch.randn(b, NKV, rs, HD, generator=gen, **dev).to(torch.bfloat16)
+    q = torch.randn(b, nkv, rs, HD, generator=gen, **dev).to(torch.bfloat16)
     if pool == "int8":
         kp, vp = (torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8, **dev)
                   for _ in range(2))
-        ks, vs = (torch.rand(b, slot_pages * PAGE, NKV, generator=gen, **dev) * 0.02 + 0.01
+        ks, vs = (torch.rand(b, slot_pages * PAGE, nkv, generator=gen, **dev) * 0.02 + 0.01
                   for _ in range(2))
-        kn, vn = (torch.randint(-127, 128, (b, NKV * HD), generator=gen, dtype=torch.int8, **dev)
+        kn, vn = (torch.randint(-127, 128, (b, nkv * HD), generator=gen, dtype=torch.int8, **dev)
                   for _ in range(2))
     else:
         kp, vp = (torch.randn(shape, generator=gen, **dev).to(torch.bfloat16) for _ in range(2))
         ks = vs = None
-        kn, vn = (torch.randn(b, NKV * HD, generator=gen, **dev).to(torch.bfloat16)
+        kn, vn = (torch.randn(b, nkv * HD, generator=gen, **dev).to(torch.bfloat16)
                   for _ in range(2))
     full = (rng.permutation(pages - 1) + 1).reshape(b, slot_pages).astype(np.int32)
     clen = rng.integers(1, W, b).astype(np.int32)
@@ -746,6 +805,57 @@ def check_paged(torch, name, a, update):
     return acc_err, acc_rel, m_rel, l_rel, pools_equal, rerun
 
 
+def paged_row(torch, a, name, W, pool, update, flush):
+    """One paged-attention shape (``paged_inputs``) checked (``check_paged``)
+    and timed beside its plain version, its bound and a yardstick (SDPA over
+    the window already gathered and dequantized to bf16: no page walk, no
+    dequantisation, no write).  Returns (the row, the kernel's launcher)."""
+    from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
+
+    F = torch.nn.functional
+    sm = 1.0 / math.sqrt(HD)
+    b, nkv, rs, _ = a["q"].shape
+    args = (a["q"], a["kp"], a["vp"], a["ks"], a["vs"], a["table"], a["clen"])
+    kernel_name, n_split = paged_route(torch, pa, a, update)
+    acc_err, acc_rel, m_rel, l_rel, pools_equal, rerun = check_paged(torch, name, a, update)
+    # bound: q, the valid K / V rows and their scales, the table, the
+    # outputs, and the new rows read and written; dots at the bf16 rate
+    elt = 1 if pool == "int8" else 2
+    nv = int(sum(min(int(c), W) for c in a["clen_np"]))
+    nbytes = (a["q"].nbytes + 2 * nv * nkv * HD * elt + (2 * nv * nkv * 4 if pool == "int8" else 0)
+              + b * (W // PAGE) * 4 + b * 4 + b * nkv * rs * (HD + 2) * 4
+              + (4 * b * nkv * HD * elt if update else 0))
+    bms, bby = bound(nbytes, 4 * nv * nkv * rs * HD)
+
+    def window(pool_, scale):
+        g = pool_[a["table"].long()].reshape(b, W, nkv, HD).float()
+        if scale is not None:
+            g = g * scale[:, :W, :, None]
+        return g.to(torch.bfloat16).transpose(1, 2).contiguous()
+
+    kd, vd = window(a["kp"], a["ks"]), window(a["vp"], a["vs"])
+    s = rs // REP
+    qs = a["q"].reshape(b, nkv, REP, s, HD).reshape(b, nkv * REP, s, HD)
+    mask = (torch.arange(W, device="cuda") < a["clen"][:, None])[:, None, None, :]
+    if update:
+        kernel = lambda: pa.paged_prefix_attention_update(*args, a["kn"], a["vn"], sm_scale=sm)
+        plain = lambda: pa.paged_prefix_attention_update_ref(*args, a["kn"], a["vn"], sm)
+    else:
+        kernel = lambda: pa.paged_prefix_attention(*args, sm_scale=sm)
+        plain = lambda: pa.paged_prefix_attention_ref(*args, sm)
+    row = dict(
+        shape=name, b=b, W=W, rs=rs, pool=pool, nkv=nkv, max_abs_err=acc_err, rel_err=acc_rel,
+        m_rel=m_rel, l_rel=l_rel, pools_bit_equal=pools_equal, rerun_bit_equal=rerun,
+        pages=W // PAGE, kernel=kernel_name, n_split=n_split,
+        ms=time_ms(torch, kernel, flush=flush),
+        plain_ms=time_ms(torch, plain, flush=flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kd, vd, attn_mask=mask, enable_gqa=True), flush=flush),
+        bound_ms=bms, bound_by=bby,
+    )
+    return row, kernel
+
+
 def phase_paged_kernels(torch, gen, flush):
     """Phase 5a: both paged-attention entry points against their plain
     versions (``check_paged``), then timed, at the serving slice's shapes;
@@ -755,8 +865,6 @@ def phase_paged_kernels(torch, gen, flush):
     kernel (``paged_attention_kernel``, through ``first_kernels``)."""
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
 
-    F = torch.nn.functional
-    sm = 1.0 / math.sqrt(HD)
     results = {"paged_prefix_attention": [], "paged_prefix_attention_update": []}
     # the rows added later draw from their own generator: the later phases
     # keep their inputs
@@ -764,39 +872,8 @@ def phase_paged_kernels(torch, gen, flush):
     for (name, b, W, rs, pool, update), row_gen in (
             [(row, gen) for row in PAGED_SHAPES] + [(row, chunk_gen) for row in CHUNK_SHAPES]):
         a = paged_inputs(torch, row_gen, b, W, rs, pool)
-        args = (a["q"], a["kp"], a["vp"], a["ks"], a["vs"], a["table"], a["clen"])
-        kernel_name, n_split = paged_route(torch, pa, a, update)
-        decode = kernel_name == "paged_decode_kernel"
-        acc_err, acc_rel, m_rel, l_rel, pools_equal, rerun = check_paged(torch, name, a, update)
-
-        # bound: q, the valid K / V rows and their scales, the table, the
-        # outputs, and the new rows read and written; dots at the bf16 rate
-        elt = 1 if pool == "int8" else 2
-        nv = int(sum(min(int(c), W) for c in a["clen_np"]))
-        nbytes = (a["q"].nbytes + 2 * nv * NKV * HD * elt + (2 * nv * NKV * 4 if pool == "int8" else 0)
-                  + b * (W // PAGE) * 4 + b * 4 + b * NKV * rs * (HD + 2) * 4
-                  + (4 * b * NKV * HD * elt if update else 0))
-        bms, bby = bound(nbytes, 4 * nv * NKV * rs * HD)
-        # yardstick: SDPA over the window already gathered and dequantized to
-        # bf16 (no page walk, no dequantisation, no write)
-        P = W // PAGE
-
-        def window(pool_, scale):
-            g = pool_[a["table"].long()].reshape(b, W, NKV, HD).float()
-            if scale is not None:
-                g = g * scale[:, :W, :, None]
-            return g.to(torch.bfloat16).transpose(1, 2).contiguous()
-
-        kd, vd = window(a["kp"], a["ks"]), window(a["vp"], a["vs"])
-        s = rs // REP
-        qs = a["q"].reshape(b, NKV, REP, s, HD).reshape(b, NKV * REP, s, HD)
-        mask = (torch.arange(W, device="cuda") < a["clen"][:, None])[:, None, None, :]
-        if update:
-            kernel = lambda: pa.paged_prefix_attention_update(*args, a["kn"], a["vn"], sm_scale=sm)
-            plain = lambda: pa.paged_prefix_attention_update_ref(*args, a["kn"], a["vn"], sm)
-        else:
-            kernel = lambda: pa.paged_prefix_attention(*args, sm_scale=sm)
-            plain = lambda: pa.paged_prefix_attention_ref(*args, sm)
+        row, kernel = paged_row(torch, a, name, W, pool, update, flush)
+        decode = row["kernel"] == "paged_decode_kernel"
         by_split = {}  # the decode kernel with each cluster size forced
         for split in (1, 2, 4) if decode else ():
             if split <= W // PAGE:
@@ -809,18 +886,8 @@ def phase_paged_kernels(torch, gen, flush):
                       f"paged attention {name}: first_kernels did not reroute")
                 first_ms = time_ms(torch, kernel, flush=flush)
         key = "paged_prefix_attention_update" if update else "paged_prefix_attention"
-        results[key].append(dict(
-            shape=name, b=b, W=W, rs=rs, pool=pool, max_abs_err=acc_err, rel_err=acc_rel,
-            m_rel=m_rel, l_rel=l_rel, pools_bit_equal=pools_equal, rerun_bit_equal=rerun, pages=P,
-            kernel=kernel_name, n_split=n_split,
-            ms_by_split=by_split, first_kernel_ms=first_ms,
-            ms=time_ms(torch, kernel, flush=flush),
-            plain_ms=time_ms(torch, plain, flush=flush),
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, kd, vd, attn_mask=mask, enable_gqa=True), flush=flush),
-            bound_ms=bms, bound_by=bby,
-        ))
-        del a, kd, vd
+        results[key].append(dict(row, ms_by_split=by_split, first_kernel_ms=first_ms))
+        del a
     # the decode kernel at the other query-row counts it takes (MHA's 1, and
     # 2 and 8 query heads a KV head), checked, not timed; their inputs come
     # from their own generator, so the later phases keep theirs
@@ -2461,8 +2528,8 @@ def plain_mpq_forward():
     from bitorch_engine_tpu_torch.ops import mpq_linear
     from bitorch_engine_tpu_torch.ops.quant import dequantize_mpq
 
-    def plain(x, qt):
-        return (x.float() @ dequantize_mpq(qt, torch.float32)).to(x.dtype)
+    def plain(x, qt, out_dtype=None):
+        return (x.float() @ dequantize_mpq(qt, torch.float32)).to(out_dtype or x.dtype)
 
     with mock.patch.object(mpq_linear, "_mpq_forward", plain):
         yield
@@ -3159,6 +3226,601 @@ def phase_moe(torch, gen):
     return rows, counts, e2e
 
 
+def phase_tp_kernels(torch, flush):
+    """Phase 19, the parent's part: kernels 1 and 2 at one tp rank's shard
+    shapes (m 8; o and down writing the f32 partial), kernel 3 at its 16
+    query / 4 KV heads and kernel 6's write-back form at its 4 KV heads,
+    each against its plain version, then timed (the card to itself)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    rows = {"mpq_matmul": [], "dequant_mpq": [], "flash_attention": [],
+            "paged_prefix_attention_update": []}
+    for name, (k, n) in TP_SHAPES.items():
+        qt = mpq_weight(torch, gen, k, n, 4)
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        out_dtype = torch.float32 if name in TP_ROW_SHAPES else None
+        _, row1, row2 = mpq_kernel_rows(torch, name, x, qt, flush, out_dtype)
+        rows["mpq_matmul"].append(row1)
+        rows["dequant_mpq"].append(row2)
+        del qt
+    rows["flash_attention"].append(flash_row(torch, gen, *TP_FLASH, flush))
+    for name, b, W, rs, pool, update in TP_PAGED:
+        a = paged_inputs(torch, gen, b, W, rs, pool, nkv=TP_NKV)
+        rows["paged_prefix_attention_update"].append(
+            paged_row(torch, a, name, W, pool, update, flush)[0])
+        del a
+    for name, rs in rows.items():
+        for r in rs:
+            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            log(f"time {name:16s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {lib} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def probe_collectives(torch, mesh):
+    """Which collectives gloo runs on CUDA tensors as they are (each one
+    refused up front raises ``RuntimeError`` on every rank alike); the port
+    stages the kinds ``parallel.comm.CUDA_DIRECT`` leaves out.  Point to
+    point is not probed: gloo's send reads a CUDA pointer as host memory."""
+    import torch.distributed as dist
+
+    group, t = mesh.groups["tp"], torch.arange(4.0, device="cuda")
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(t.clone(), group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(TP)], t,
+                                              group=group),
+        "broadcast": lambda: dist.broadcast(t.clone(), src=mesh.ranks["tp"][0], group=group),
+    }
+    out = {}
+    for kind, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[kind] = "takes CUDA tensors"
+        except RuntimeError as e:
+            out[kind] = "refused: " + str(e).strip().splitlines()[0][:160]
+    # one decode step's row-parallel all-reduce (8 × 4096 f32), ms a call:
+    # gloo on the CUDA tensor, and staged through pinned host memory
+    x = torch.zeros(BATCH, 4096, device="cuda")
+    host = torch.empty(x.shape, pin_memory=True)
+
+    def staged():
+        host.copy_(x)
+        dist.all_reduce(host, group=group)
+        x.copy_(host)
+
+    for name, fn in (("direct", lambda: dist.all_reduce(x, group=group)), ("staged", staged)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RING_REPS):
+            fn()
+        torch.cuda.synchronize()
+        out[f"all_reduce_128KB_ms_{name}"] = (time.perf_counter() - t0) * 1e3 / RING_REPS
+    return out
+
+
+def tp_queue(vocab):
+    """Phase 19c's seeded queue (phase 18c's sizes): (prompt, new tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 19)
+    q = MOE_QUEUE
+    (p_lo, p_hi), (n_lo, n_hi) = q["prompt_lens"], q["new_tokens"]
+    return [(rng.integers(0, vocab, int(rng.integers(p_lo, p_hi + 1))).tolist(),
+             int(rng.integers(n_lo, n_hi + 1))) for _ in range(q["n_requests"])]
+
+
+def run_queue(torch, model, queue, mesh=None, capture=False):
+    """The queue through ``ContinuousBatcher`` (phase 5b's configuration)
+    on ``mesh``: ids per request, wall, launches, collectives, decode steps
+    and, with ``capture``, each admission wave's first-token logits."""
+    from bitorch_engine_tpu_torch.models.generate import ContinuousBatcher
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.parallel.comm import reset_comm_counts
+
+    b = ContinuousBatcher(model, mesh=mesh, **SERVE)
+    waves, tally = [], {"decode_steps": 0}
+    inner = dict(decode=b._decode, chunked=b._prefill_chunked, slots=b._prefill_slots)
+
+    def decode(*a):
+        tally["decode_steps"] += 1
+        return inner["decode"](*a)
+
+    def wave(kind):
+        def run(*a):
+            logits = inner[kind](*a)
+            if capture:
+                waves.append(logits.float().cpu())
+            return logits
+        return run
+
+    b._decode, b._prefill_chunked, b._prefill_slots = decode, wave("chunked"), wave("slots")
+    for prompt, n_new in queue:
+        b.submit(prompt, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    if mesh is not None:
+        reset_comm_counts(mesh)
+    t0 = time.perf_counter()
+    done = b.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name in ("_decode", "_prefill_chunked", "_prefill_slots"):
+        delattr(b, name)  # the wrappers close over b: a cycle would hold its caches
+    return dict(ids=[r.generated for r in done], waves=waves, wall_s=wall,
+                launches={k: v for k, v in launch_counts().items() if v},
+                comm=copy.deepcopy(mesh.comm_counts) if mesh is not None else {},
+                decode_steps=tally["decode_steps"])
+
+
+def tp_serve(torch, model, prompt, steps, mesh=None, forced=None, records=None, busy=None):
+    """Phase 4's loop (prefill 8 × 256, decode with the bucketed window,
+    dense caches) returning the logits of the prefill's last position and
+    of every step (f32), and the tokens (greedy, or ``forced``); with
+    ``records`` each pass's wall ms, launches and collectives appended;
+    with ``busy`` each pass run under its own ``torch.profiler`` and its
+    device busy ms appended."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.parallel.comm import reset_comm_counts
+
+    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda", mesh=mesh)
+    logits_seq, toks = [], []
+    for i in range(steps + 1):
+        torch.cuda.synchronize()
+        if records is not None:
+            reset_launch_counts()
+            if mesh is not None:
+                reset_comm_counts(mesh)
+        prof = None
+        if busy is not None:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+        t0 = time.perf_counter()
+        if i == 0:
+            logits, caches = prefill(model, prompt, caches)
+            last = logits[:, -1]
+        else:
+            pos = PROMPT + i - 1
+            last, caches = decode_step(model, toks[-1][:, None], caches, pos,
+                                       attn_window=bucket(pos + 1))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+            busy.append(_device_summary(torch, prof, wall_s, 1)["device_busy_ms_per_call"])
+        if records is not None:
+            records.append(dict(
+                step=i, wall_ms=wall_s * 1e3,
+                launches={k: v for k, v in launch_counts().items() if v},
+                comm=copy.deepcopy(mesh.comm_counts) if mesh is not None else {}))
+        logits_seq.append(last.float())
+        toks.append(torch.argmax(last, dim=-1) if forced is None else forced[:, i])
+    return logits_seq, torch.stack(toks, dim=1)
+
+
+def rel_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def token_agreement(got_ids, want_ids) -> float:
+    same = [a == b for got, want in zip(got_ids, want_ids) for a, b in zip(got, want)]
+    return sum(same) / len(same)
+
+
+def split_rows(torch, model):
+    """The witness of tp's rounding, in one process: ``model`` (unsharded)
+    with o and down computed as the ranks of a tp 2 world compute them, in
+    place.  Each is cut into its TP row shards by ``row_shard`` (the cut
+    ``shard_llama_params`` makes), each shard's product written in f32 by
+    the same kernel on the same shard shapes, the partials summed in f32
+    in rank order and cast once.  ``set_split(model, False)`` puts the
+    whole projections back in the path (the unsharded model)."""
+    from bitorch_engine_tpu_torch.models.llama_sharding import row_shard
+    from bitorch_engine_tpu_torch.ops.mpq_linear import mpq_linear
+    from bitorch_engine_tpu_torch.parallel.mesh import Mesh
+
+    ranks = {"dp": (0,), "fsdp": (0,), "tp": tuple(range(TP))}
+    meshes = [Mesh(shape={"dp": 1, "fsdp": 1, "tp": TP}, rank=i,
+                   groups={a: None for a in ranks}, ranks=dict(ranks, dp=(i,), fsdp=(i,)))
+              for i in range(TP)]
+
+    class SplitRows(torch.nn.Module):
+        def __init__(self, whole, where):
+            super().__init__()
+            self.whole, self.split = whole, True
+            self.parts = torch.nn.ModuleList(row_shard(whole, m, "tp", where) for m in meshes)
+
+        def forward(self, x):
+            if not self.split:
+                return self.whole(x)
+            k, acc = self.parts[0].qweight.in_features, None
+            for i, p in enumerate(self.parts):
+                part = mpq_linear(x[..., i * k:(i + 1) * k].contiguous().to(p.dtype), p.qweight,
+                                  out_dtype=torch.float32)
+                acc = part if acc is None else acc + part
+            return acc.to(self.whole.dtype or x.dtype)
+
+    for li, layer in enumerate(model.layers):
+        layer.attn.o_proj = SplitRows(layer.attn.o_proj, f"layer_{li}/attn/o_proj")
+        layer.mlp.down_proj = SplitRows(layer.mlp.down_proj, f"layer_{li}/mlp/down_proj")
+    return model
+
+
+def set_split(model, on: bool):
+    for layer in model.layers:
+        layer.attn.o_proj.split = layer.mlp.down_proj.split = on
+
+
+def divergence_margins(torch, model, queue, want_ids, got_ids):
+    """For each request whose tokens ``got_ids`` leave ``want_ids`` (the
+    unsharded batcher's), the unsharded ``model``'s logits where they part
+    (the prompt and the tokens both agreed on, padded to the batcher's
+    power-of-2 bucket; causal, so the padding reads nothing back): the
+    margin of the unsharded pick over the other, and max|logits|.  A token
+    may flip only where that margin is within the logits' drift."""
+    out = []
+    for r, ((prompt, _), want, got) in enumerate(zip(queue, want_ids, got_ids)):
+        j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if j is None:
+            continue
+        ids = prompt + want[:j]
+        n = 8
+        while n < len(ids):
+            n *= 2
+        toks = torch.zeros((1, n), dtype=torch.int64, device="cuda")
+        toks[0, :len(ids)] = torch.tensor(ids, device="cuda")
+        logits = model(toks)[0][0, len(ids) - 1]
+        out.append(dict(request=r, at=j, want=want[j], got=got[j],
+                        margin=float(logits[want[j]] - logits[got[j]]),
+                        max_abs=float(logits.abs().max())))
+    return out
+
+
+def layer_io(torch, model, prompt, tok):
+    """Every layer's input and output (bf16) and the logits in a prefill of
+    ``prompt`` and one decode step of ``tok`` (b,) on ``model``."""
+    from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
+
+    io = {"prefill": [], "decode": []}
+    phase = ["prefill"]
+    hooks = [layer.register_forward_hook(
+        lambda mod, inp, out: io[phase[0]].append((inp[0].clone(), out[0].clone())))
+        for layer in model.layers]
+    try:
+        caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda")
+        logits, caches = prefill(model, prompt, caches)
+        phase[0] = "decode"
+        last, _ = decode_step(model, tok[:, None], caches, PROMPT, attn_window=bucket(PROMPT + 1))
+    finally:
+        for h in hooks:
+            h.remove()
+    io["logits"] = {"prefill": logits.float(), "decode": last.float()}
+    return io
+
+
+def per_layer_rel(torch, model, io, mesh):
+    """Each layer of the tp model run on the unsharded model's input to it
+    (a prefill from an empty cache at window 0, then one decode step over
+    that cache), and its final norm and head (the shares gathered) on the
+    unsharded last layer's output, against the unsharded model's:
+    max|d|/max|ref| per layer, the head last.  Rounding does not pile up
+    over the layers here, so a fault in any one layer or in the head's
+    gather stands out."""
+    from bitorch_engine_tpu_torch.models.llama import init_kv_caches
+
+    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda", mesh=mesh)
+    pos_pre = torch.arange(PROMPT, device="cuda").expand(BATCH, PROMPT)
+    pos_dec = torch.full((BATCH, 1), PROMPT, device="cuda")
+    rels = {"prefill": [], "decode": []}
+    for i, layer in enumerate(model.layers):
+        x, want = io["prefill"][i]
+        got, _ = layer(x, pos_pre, caches[i], 0, 0)
+        rels["prefill"].append(rel_err(got.float(), want.float()))
+        x, want = io["decode"][i]
+        got, _ = layer(x, pos_dec, caches[i], PROMPT, bucket(PROMPT + 1))
+        rels["decode"].append(rel_err(got.float(), want.float()))
+    for phase_ in ("prefill", "decode"):
+        want = io["logits"][phase_]
+        got = model.logits(io[phase_][-1][1]).reshape(want.shape)
+        rels[phase_].append(rel_err(got, want))
+    return rels
+
+
+def tp_rank():
+    """One rank of phase 19's world (two ranks on the one card, gloo):
+
+    * 19a: build ``llama3_8b_serving()`` at full width from seed 0 (rank 0
+      first runs it unsharded: the reference's greedy tokens and logits),
+      cut it to this rank's part with ``shard_llama_params``, run prefill
+      8 × 256 and 32 decode steps forced to the reference's tokens, with
+      each pass's launches and collectives, and profile a few steps;
+    * 19b: ``ring_row_parallel_mpq`` at the o and down shapes (m 8)
+      against the unsharded kernel 1;
+    * 19c: phase 18c's queue through the batcher at dp 2 (both ranks still
+      unsharded) and at tp 2, against rank 0's unsharded run.
+
+    Returns one JSON string (``json``) of its numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from bitorch_engine_tpu_torch.models.llama_sharding import shard_llama_params
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import mpq_matmul
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.parallel.comm import reset_comm_counts
+    from bitorch_engine_tpu_torch.parallel.overlap import ring_row_parallel_mpq, ring_shards
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    mesh_tp, mesh_dp = make_mesh(tp=TP), make_mesh(dp=TP)
+    out = dict(rank=rank, probe=probe_collectives(torch, mesh_tp))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    t0 = time.perf_counter()
+    model = build_model(torch, LAYERS, SEED)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    vocab = model.cfg.vocab_size
+    prompt = torch.randint(0, vocab, (BATCH, PROMPT), device="cuda", generator=gen)
+    queue = tp_queue(vocab)
+
+    # the unsharded references and the witness of tp's rounding, on rank 0
+    forced = torch.zeros((BATCH, DECODE_STEPS + 1), dtype=torch.int64)
+    if rank == 0:
+        tp_serve(torch, model, prompt, 2)  # warm-up
+        ref_logits, ref_toks = tp_serve(torch, model, prompt, DECODE_STEPS)
+        forced.copy_(ref_toks.cpu())
+        ref_queue = run_queue(torch, model, queue, capture=True)
+        out["ref_queue"] = {k: ref_queue[k] for k in ("ids", "wall_s", "launches", "decode_steps")}
+        witness = split_rows(torch, build_model(torch, LAYERS, SEED))
+        set_split(witness, False)
+        same_logits, _ = tp_serve(torch, witness, prompt, 2, forced=ref_toks)
+        out["witness_unsplit_equal"] = all(
+            torch.equal(a, b) for a, b in zip(same_logits, ref_logits[:3]))
+        set_split(witness, True)
+        wit_logits, _ = tp_serve(torch, witness, prompt, DECODE_STEPS, forced=ref_toks)
+        out["witness_rel_errs"] = [rel_err(g, w) for g, w in zip(wit_logits, ref_logits)]
+        out["witness_greedy_agreement"] = float(
+            (torch.stack([lg.argmax(-1) for lg in wit_logits], 1) == ref_toks).float().mean())
+        wit_queue = run_queue(torch, witness, queue, capture=True)
+        out["witness_wave_rel_errs"] = [rel_err(g, w) for g, w
+                                        in zip(wit_queue["waves"], ref_queue["waves"])]
+        out["witness_token_agreement"] = token_agreement(wit_queue["ids"], ref_queue["ids"])
+        set_split(witness, False)
+        del same_logits
+    dist.broadcast(forced, src=0)
+    forced = forced.cuda()
+    with torch.no_grad():
+        io = layer_io(torch, model, prompt, forced[:, 0])  # the same on every rank
+
+    # 19c at dp 2: every rank holds the whole model and serves its slots
+    dp = run_queue(torch, model, queue, mesh=mesh_dp)
+    out["dp_queue"] = {k: dp[k] for k in ("ids", "wall_s", "launches", "comm", "decode_steps")}
+    if rank == 0:
+        out["dp_tokens_equal"] = dp["ids"] == ref_queue["ids"]
+
+    # 19a: this rank's part of the model
+    t0 = time.perf_counter()
+    shard_llama_params(model, mesh_tp)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["shard_s"] = time.perf_counter() - t0
+    out["gib_after_shard"] = torch.cuda.memory_allocated() / 2**30
+    tp_serve(torch, model, prompt, 2, mesh=mesh_tp, forced=forced)  # warm-up
+    records = []
+    logits, toks = tp_serve(torch, model, prompt, DECODE_STEPS, mesh=mesh_tp, forced=forced,
+                            records=records)
+    out["records"] = records
+    out["logits_checksums"] = [float(lg.double().sum()) for lg in logits]
+    with torch.no_grad():
+        out["per_layer_rel"] = per_layer_rel(torch, model, io, mesh_tp)
+    del io
+    if rank == 0:
+        out["step_rel_errs"] = [rel_err(g, w) for g, w in zip(logits, ref_logits)]
+        out["step_rel_errs_vs_witness"] = [rel_err(g, w) for g, w in zip(logits, wit_logits)]
+        out["steps_equal_witness"] = sum(torch.equal(g, w) for g, w in zip(logits, wit_logits))
+        out["greedy_agreement"] = float(
+            (torch.stack([lg.argmax(-1) for lg in logits], 1) == forced[:, :DECODE_STEPS + 1])
+            .float().mean())
+        del ref_logits, wit_logits
+    del logits
+    out["busy_ms"] = []  # the prefill's and PROFILE_STEPS decode steps', each profiled alone
+    tp_serve(torch, model, prompt, PROFILE_STEPS, mesh=mesh_tp, forced=forced, busy=out["busy_ms"])
+
+    # 19b: the ring at the o and down shapes
+    ring = []
+    for name, (k, n) in RING_SHAPES.items():
+        qt = mpq_weight(torch, gen, k, n, 4)
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        shards = ring_shards(qt, mesh_tp)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        reset_comm_counts(mesh_tp)
+        y = ring_row_parallel_mpq(x, qt, mesh_tp, shards=shards)
+        torch.cuda.synchronize()
+        launches = launch_counts()["mpq_matmul"]
+        comm = copy.deepcopy(mesh_tp.comm_counts)
+        want = mpq_matmul(x, qt, torch.float32)
+        walls = []
+        for _ in range(RING_REPS):
+            t0 = time.perf_counter()
+            ring_row_parallel_mpq(x, qt, mesh_tp, shards=shards)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        t_one = time_ms(torch, lambda: mpq_matmul(x, qt))
+        ring.append(dict(shape=name, K=k, N=n, m=8, launches=launches, comm=comm,
+                         rel_err=rel_err(y.float(), want), wall_ms=statistics.median(walls),
+                         unsharded_kernel1_ms=t_one))
+        del qt, shards
+    out["ring"] = ring
+
+    # 19c at tp 2
+    tp = run_queue(torch, model, queue, mesh=mesh_tp, capture=True)
+    out["tp_queue"] = {k: tp[k] for k in ("ids", "wall_s", "launches", "comm", "decode_steps")}
+    if rank == 0:
+        out["tp_wave_rel_errs"] = [rel_err(g, w) for g, w in zip(tp["waves"], ref_queue["waves"])]
+        out["tp_wave_rel_errs_vs_witness"] = [rel_err(g, w) for g, w
+                                              in zip(tp["waves"], wit_queue["waves"])]
+        out["tp_token_agreement"] = token_agreement(tp["ids"], ref_queue["ids"])
+        out["tp_token_agreement_vs_witness"] = token_agreement(tp["ids"], wit_queue["ids"])
+        with torch.no_grad():
+            out["tp_divergences"] = divergence_margins(torch, witness, queue, ref_queue["ids"],
+                                                       tp["ids"])
+            out["witness_divergences"] = divergence_margins(torch, witness, queue,
+                                                            ref_queue["ids"], wit_queue["ids"])
+        del witness
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return {"json": json.dumps(out)}
+
+
+def phase_tp(torch):
+    """Phase 19: the parallel slice.  19's kernel rows in this process, then
+    the 2-rank world (``tp_rank``), spawned with the kernels already built,
+    joined under a deadline; its numbers printed, per rank and per pass, and
+    held to their checks."""
+    from bitorch_engine_tpu_torch.parallel.multiprocess import launch_world
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    rows = phase_tp_kernels(torch, flush)
+    del flush
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = [json.loads(str(r["json"])) for r in launch_world(
+        "chip_smoke:tp_rank", TP, timeout=TP_WORLD_TIMEOUT,
+        collective_timeout=TP_COLLECTIVE_TIMEOUT)]
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    fails = []  # every number is printed before the checks are read
+
+    def expect(ok, what):
+        if not ok:
+            fails.append(what)
+
+    log(f"19 ({TP_LABEL}): world of {TP} ran {world_s:.1f} s; collectives on CUDA tensors: "
+        f"{r0['probe']}")
+    for r in ranks:
+        log(f"19a rank {r['rank']}: built in {r['build_s']:.1f} s, sharded in {r['shard_s']:.2f} s, "
+            f"{r['gib_after_shard']:.2f} GiB after, peak {r['peak_gib']:.2f} GiB")
+        for rec in r["records"]:
+            comm = "  ".join(f"{k} {c['calls']}x {c['ms']:.2f} ms ({c['staged']} staged)"
+                             for k, c in sorted(rec["comm"].items()))
+            log(f"19a rank {r['rank']} {'prefill' if rec['step'] == 0 else 'step ' + str(rec['step'])}: "
+                f"wall {rec['wall_ms']:.2f} ms, launches {rec['launches']}; {comm}")
+        busy = r["busy_ms"]
+        log(f"19a rank {r['rank']} device busy (each pass profiled alone): prefill {busy[0]:.2f} ms; "
+            f"decode steps 1-{PROFILE_STEPS} " + " ".join(f"{b:.2f}" for b in busy[1:])
+            + f" ms (mean {statistics.mean(busy[1:]):.2f})")
+    for phase_, rels in r0["per_layer_rel"].items():
+        log(f"19a per layer on the unsharded input ({phase_}; the last: final norm and head): max "
+            f"{max(rels):.3e}; " + " ".join(f"{e:.1e}" for e in rels))
+        expect(max(rels) <= 2e-2, f"19a: a tp layer or the head ({phase_}) reads {max(rels)} > "
+               "2e-2 from the unsharded one on the same input")
+    # the end-to-end limit: the path checks' 2e-2, or what the witness (the
+    # unsharded model summing o and down as two f32 row halves, in one
+    # process) drifts from the unsharded model on the same passes, with half
+    # again for tp's own placement of the rounding, whichever is larger
+    errs, w_errs = r0["step_rel_errs"], r0["witness_rel_errs"]
+    limit_a = max(2e-2, TP_WITNESS_SLACK * max(w_errs))
+    log(f"19a witness (o and down summed as {TP} f32 row halves, one process) vs unsharded: "
+        f"prefill {w_errs[0]:.3e}, decode max {max(w_errs[1:]):.3e}, greedy picks agreeing "
+        f"{r0['witness_greedy_agreement']:.4f}; with its split off it equals the unsharded model: "
+        f"{r0['witness_unsplit_equal']}")
+    log(f"19a tp vs unsharded: max|d logits|/max|logits| prefill {errs[0]:.3e}, decode max "
+        f"{max(errs[1:]):.3e} (limit {limit_a:.3e}); the tp model's greedy pick equals the forced "
+        f"token in {r0['greedy_agreement']:.4f} of positions; tp vs witness max "
+        f"{max(r0['step_rel_errs_vs_witness']):.3e}, {r0['steps_equal_witness']} of "
+        f"{DECODE_STEPS + 1} passes bit-equal")
+    expect(r0["witness_unsplit_equal"], "19a: the witness without its split is not the unsharded model")
+    expect(max(errs) <= limit_a, f"19a: tp logits {max(errs)} > {limit_a} from the unsharded ones")
+    expect(max(r0["step_rel_errs_vs_witness"]) <= 2e-2,
+           f"19a: tp logits {max(r0['step_rel_errs_vs_witness'])} > 2e-2 from the witness's")
+    expect(ranks[0]["logits_checksums"] == ranks[1]["logits_checksums"],
+          "19a: the two ranks' logits differ")
+    proj = 4 * LAYERS + 1
+    for r in ranks:
+        recs = r["records"]
+        expect(recs[0]["launches"] == {"dequant_mpq": proj, "flash_attention": LAYERS},
+              f"19a rank {r['rank']} prefill launches {recs[0]['launches']}")
+        for rec in recs[1:]:
+            expect(rec["launches"] == {"mpq_matmul": proj},
+                  f"19a rank {r['rank']} step {rec['step']} launches {rec['launches']}")
+            expect(rec["comm"]["all_reduce"]["calls"] == 2 * LAYERS
+                  and rec["comm"]["all_gather"]["calls"] == 1,
+                  f"19a rank {r['rank']} step {rec['step']} collectives {rec['comm']}")
+    for r in ranks:
+        for ring in r["ring"]:
+            log(f"19b rank {r['rank']} {ring['shape']} K={ring['K']} N={ring['N']} m 8: rel "
+                f"{ring['rel_err']:.3e}, {ring['launches']} kernel-1 launches, wall "
+                f"{ring['wall_ms']:.3f} ms a call ({TP_LABEL}; unsharded kernel 1 "
+                f"{ring['unsharded_kernel1_ms']:.4f} ms), collectives {ring['comm']}")
+            expect(ring["launches"] == TP and ring["rel_err"] <= 1e-2,
+                  f"19b rank {r['rank']} {ring['shape']}: {ring['launches']} launches, "
+                  f"rel {ring['rel_err']}")
+    ref_q = r0["ref_queue"]
+    log(f"19c unsharded: {len(ref_q['ids'])} requests in {ref_q['wall_s']:.2f} s, "
+        f"{ref_q['decode_steps']} decode steps")
+    for key in ("dp_queue", "tp_queue"):
+        for r in ranks:
+            q = r[key]
+            log(f"19c {key[:2]} 2 rank {r['rank']}: {q['wall_s']:.2f} s ({TP_LABEL}), "
+                f"{q['decode_steps']} decode steps, launches {q['launches']}, collectives "
+                + "  ".join(f"{k} {c['calls']}x {c['ms']:.1f} ms ({c['staged']} staged)"
+                            for k, c in sorted(q["comm"].items())))
+        expect(ranks[0][key]["ids"] == ranks[1][key]["ids"], f"19c {key}: the ranks' tokens differ")
+    waves, w_waves = r0["tp_wave_rel_errs"], r0["witness_wave_rel_errs"]
+    limit_c = max(2e-2, TP_WITNESS_SLACK * max(w_waves))
+    log(f"19c dp 2 tokens equal to the unsharded batcher's: {r0['dp_tokens_equal']}")
+    log(f"19c tp 2 vs unsharded: first-token logits per wave "
+        + " ".join(f"{e:.3e}" for e in waves) + f" (limit {limit_c:.3e}; witness "
+        + " ".join(f"{e:.3e}" for e in w_waves) + "; tp vs witness "
+        + " ".join(f"{e:.3e}" for e in r0["tp_wave_rel_errs_vs_witness"]) + ")")
+    log(f"19c tokens agreeing with the unsharded batcher's: tp {r0['tp_token_agreement']:.4f}, "
+        f"witness {r0['witness_token_agreement']:.4f}; tp with the witness "
+        f"{r0['tp_token_agreement_vs_witness']:.4f}")
+    expect(r0["dp_tokens_equal"], "19c: dp 2 tokens differ from the unsharded batcher's")
+    expect(max(waves) <= limit_c, f"19c: tp first-token logits {max(waves)} > {limit_c}")
+    expect(max(r0["tp_wave_rel_errs_vs_witness"]) <= 2e-2,
+           f"19c: tp first-token logits {max(r0['tp_wave_rel_errs_vs_witness'])} > 2e-2 from "
+           "the witness's")
+    # a request's tokens may leave the unsharded ones only where the
+    # unsharded logits nearly tie: within twice the logits' allowed drift
+    tie = 2 * max(limit_a, limit_c)
+    for who in ("tp", "witness"):
+        for d in r0[f"{who}_divergences"]:
+            log(f"19c {who} request {d['request']} leaves the unsharded tokens at {d['at']}: "
+                f"{d['want']} -> {d['got']}, unsharded margin {d['margin']:.4f} of max|logits| "
+                f"{d['max_abs']:.3f} ({d['margin'] / d['max_abs']:.3e}; a tie within {tie:.3e})")
+    expect(all(d["margin"] <= tie * d["max_abs"] for d in r0["tp_divergences"]),
+           f"19c: a tp token leaves the unsharded ones where they do not tie: "
+           f"{r0['tp_divergences']}")
+    tp_q = r0["tp_queue"]
+    expect(tp_q["launches"].get("paged_prefix_attention_update") == LAYERS * tp_q["decode_steps"],
+          f"19c tp: write-back launches {tp_q['launches']} for {tp_q['decode_steps']} steps")
+    check(not fails, "; ".join(fails))
+    summary = dict(
+        label=TP_LABEL, world_s=world_s, probe=r0["probe"], step_rel_errs=errs,
+        greedy_agreement=r0["greedy_agreement"], per_layer_rel=r0["per_layer_rel"],
+        limits=dict(e2e=limit_a, waves=limit_c, tie=tie),
+        witness={k: r0[k] for k in r0 if k.startswith("witness_")},
+        vs_witness=dict(steps=r0["step_rel_errs_vs_witness"],
+                        steps_bit_equal=r0["steps_equal_witness"],
+                        waves=r0["tp_wave_rel_errs_vs_witness"],
+                        tokens=r0["tp_token_agreement_vs_witness"]),
+        tp_divergences=r0["tp_divergences"], ring=[r["ring"] for r in ranks],
+        busy_ms=[r["busy_ms"] for r in ranks], dp_tokens_equal=r0["dp_tokens_equal"],
+        tp_token_agreement=r0["tp_token_agreement"], tp_wave_rel_errs=r0["tp_wave_rel_errs"],
+        queues={key: [{k: v for k, v in r[key].items() if k != "ids"} for r in ranks]
+                for key in ("dp_queue", "tp_queue")},
+        unsharded_queue={k: v for k, v in ref_q.items() if k != "ids"},
+        peak_gib=[r["peak_gib"] for r in ranks])
+    return rows, dict(ranks=ranks, summary=summary)
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -3268,6 +3930,9 @@ def main() -> int:
 
     # the MoE slice
     moe_rows, moe_counts, moe = phase_moe(torch, gen)
+
+    # the parallel slice
+    tp_rows, tp = phase_tp(torch)
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -3432,10 +4097,34 @@ def main() -> int:
             {key: sub[key] for key in keys},
             max_abs_err=max(r["max_abs_err"] for r in own), max_err=max(r["rel_err"] for r in own),
             rows=own)
+    # the parallel path (phase 19): one rank's launches in the tp run (32
+    # decode steps of kernel 1, a prefill of kernels 2 and 3) and in the tp
+    # batcher (kernel 6's write-back form), priced at this rank's shard rows
+    r0 = tp["ranks"][0]
+    tp_step_launches = sum(rec["launches"].get("mpq_matmul", 0) for rec in r0["records"][1:])
+    tp_passes = {
+        "mpq_matmul": (tp_step_launches, TP_PER_PASS,
+                       f"one decode step of one tp rank (b8; launches over {DECODE_STEPS} steps)"),
+        "dequant_mpq": (r0["records"][0]["launches"]["dequant_mpq"], TP_PER_PASS,
+                        "one prefill of one tp rank (8 x 256)"),
+        "flash_attention": (r0["records"][0]["launches"]["flash_attention"], {TP_FLASH[0]: LAYERS},
+                            "one prefill of one tp rank (8 x 256, 16 query / 4 KV heads)"),
+        "paged_prefix_attention_update": (
+            r0["tp_queue"]["launches"]["paged_prefix_attention_update"], {TP_PAGED[0][0]: LAYERS},
+            "one decode step of one rank of the tp batcher (b8, window 512, 4 KV heads)"),
+    }
+    for name, (launches, weights, per) in tp_passes.items():
+        rows = tp_rows[name]
+        sub = kernel_line(name, rows, launches, weights, per, checks[name])
+        keys = ("launches", "per", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        by_name[name]["tp"] = dict(
+            {key: sub[key] for key in keys}, label=TP_LABEL,
+            max_abs_err=max(r["max_abs_err"] for r in rows), max_err=max(r["rel_err"] for r in rows),
+            rows=rows)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
                     "qat": qat, "checkpoint": ckpt, "ragged_g_idx": act_rows["ragged_counts"],
-                    "moe": moe, "seconds": time.perf_counter() - t_start}))
+                    "moe": moe, "tp": tp["summary"], "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

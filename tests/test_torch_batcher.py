@@ -166,9 +166,18 @@ def test_sampling_runs_in_range():
 
 
 def test_mesh_is_a_later_slice():
+    """The parallel-layouts slice brought ``mesh=``: the one-process mesh
+    serves as the unsharded batcher, and a layout the world does not hold
+    raises (the sharded worlds are in test_torch_serving_sharded.py)."""
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+
     _, _, tmodel = _models()
-    with pytest.raises(NotImplementedError, match="parallel-layouts"):
-        tg.ContinuousBatcher(tmodel, mesh=object())
+    kw = dict(num_slots=2, max_len=32)
+    prompts = _prompts(5, (4, 6, 3))
+    meshed = _serve(tg.ContinuousBatcher(tmodel, mesh=make_mesh(), **kw), prompts, 4)
+    assert meshed == _serve(tg.ContinuousBatcher(tmodel, **kw), prompts, 4)
+    with pytest.raises(ValueError, match="dp"):
+        make_mesh(dp=2)
 
 
 def test_bad_prefill_chunk_and_page_size_raise():

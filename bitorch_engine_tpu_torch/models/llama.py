@@ -46,8 +46,17 @@ package), an ``all_gather`` of the column-parallel head's logits; ``cfg``
 stays the global configuration.  :func:`init_kv_caches` with a mesh holds
 this rank's heads and its dp share of the batch.
 
-Outside the slices ported so far: sequence parallelism raises
-``NotImplementedError``.
+Sequence parallelism (``cfg.sequence_parallel`` ``"ring"`` or
+``"ulysses"`` over the ``cfg.sp_axis`` axis of ``cfg.sp_mesh``, the JAX
+package's branch): each rank holds ``(b, L/n)`` of the tokens; every layer
+runs on them as usual but for a cache-less attention of more than one
+token, which repeats the KV heads to full heads and runs
+``parallel/ring_attention.py`` or ``parallel/ulysses.py`` across the
+ranks.  The rank's positions (RoPE and the mask) are its global offset
+``coord · L/n + arange(L/n)``: the default when ``positions`` is not given.
+Every rank holds the whole weights, so a train step sums the parameter
+gradients over ``sp`` (``training.make_train_step(mesh=)``), as GSPMD's
+all-reduce does in the JAX package.
 """
 
 from __future__ import annotations
@@ -75,6 +84,9 @@ from ..ops.moe import EXPERT_PROJS, init_moe_experts, moe_mlp
 from ..ops.mpq_linear import _matmul_f32, mpq_linear
 from ..ops.quant import concat_mpq
 from ..parallel.comm import all_gather, all_reduce
+from ..parallel.pipeline import pipeline_apply
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 from .paged_kv import (
     PagedKV,
     kv_cache_shardings,
@@ -109,7 +121,12 @@ class LlamaConfig:
     mbwq_container_bits: Any = None
     quant_mid_sym: bool = False
     remat: bool = False  # recompute each block in the backward pass
-    sequence_parallel: Optional[str] = None  # parallel-layouts slice
+    # sequence-parallel exact attention ("ring" / "ulysses") for cache-less
+    # forwards, the sequence axis sharded over mesh axis ``sp_axis`` of
+    # ``sp_mesh`` (a ``parallel.mesh.Mesh``)
+    sequence_parallel: Optional[str] = None
+    sp_mesh: Any = None
+    sp_axis: str = "sp"
     # Mixtral-style MoE MLPs: > 0 experts a block, each token routed to its
     # top k; capacity None is drop-free (C = T), a float the Switch capacity;
     # renormalize: the k gates sum to 1 (Mixtral)
@@ -246,9 +263,13 @@ def tiny_llama(**overrides) -> LlamaConfig:
 
 
 def _check_slice(cfg: LlamaConfig) -> None:
-    if cfg.sequence_parallel is not None:
-        raise NotImplementedError(
-            "LlamaConfig.sequence_parallel arrives with the port's sequence-parallel layouts")
+    if cfg.sequence_parallel not in (None, "ring", "ulysses"):
+        raise ValueError(f"unknown sequence_parallel {cfg.sequence_parallel!r}")
+    if cfg.sequence_parallel is not None and cfg.sp_mesh is None:
+        raise ValueError("sequence_parallel needs sp_mesh (parallel.mesh.make_axes_mesh)")
+    if cfg.sequence_parallel is not None and cfg.sp_axis not in cfg.sp_mesh.shape:
+        raise ValueError(f"sp_axis {cfg.sp_axis!r} is not an axis of sp_mesh "
+                         f"{tuple(cfg.sp_mesh.shape)}")
     if cfg.kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {cfg.kv_cache_dtype!r}")
 
@@ -364,7 +385,9 @@ def _scale_keys(t: torch.Tensor) -> torch.Tensor:
 
 
 def tp_size(mesh) -> int:
-    return 1 if mesh is None else mesh.size("tp")
+    """The tp size of a model's mesh: 1 without one, or on a mesh without
+    a tp axis (an ep-sharded MoE model's)."""
+    return 1 if mesh is None or "tp" not in mesh.shape else mesh.size("tp")
 
 
 def _row_parallel(proj: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
@@ -461,6 +484,8 @@ class LlamaAttention(nn.Module):
             cl_rows = torch.tensor(cache_len, device=x.device)[:, None, None, None, None]
 
         if kv_cache is None:
+            if cfg.sequence_parallel is not None and s > 1:
+                return self._out(self._sequence_parallel(q, k, v)), None
             if self._use_flash(x, s):
                 return self._out(self._flash(q, k, v)), None
             return self._out(self._full_read(qg, positions, k, v)), None
@@ -509,6 +534,22 @@ class LlamaAttention(nn.Module):
         for cache, update in writes:
             _write(cache, update, cache_len)
         return self._out(ctx), kv_cache
+
+    def _sequence_parallel(self, q, k, v) -> torch.Tensor:
+        """Ring or Ulysses attention of this rank's ``(b, s, h, d)`` shard
+        over ``cfg.sp_axis`` → ctx (b, s, nh · hd), the KV heads repeated to
+        full heads as the JAX package does (ring and Ulysses run per head)."""
+        cfg = self.cfg
+        b, s = q.shape[:2]
+        rep = self.n_heads // self.n_kv_heads
+
+        def heads_first(t, r=1):
+            return t.repeat_interleave(r, dim=2).transpose(1, 2).to(cfg.dtype).contiguous()
+
+        attend = ring_attention if cfg.sequence_parallel == "ring" else ulysses_attention
+        ctx = attend(heads_first(q), heads_first(k, rep), heads_first(v, rep),
+                     mesh=cfg.sp_mesh, axis=cfg.sp_axis)
+        return ctx.transpose(1, 2).reshape(b, s, -1).to(cfg.dtype)
 
     def _out(self, ctx: torch.Tensor) -> torch.Tensor:
         return _row_parallel(self.o_proj, ctx, self.mesh)
@@ -741,12 +782,14 @@ class QuantMoEMLP(nn.Module):
                                    group_size=cfg.group_size, stack=False, device=device)
         self.experts = nn.ModuleList(MoEExpert(rec, cfg.dtype) for rec in experts)
         self.aux = self.dropped = None
+        self.mesh = None  # an ep-sharded model's (models/llama_sharding.py): its experts a rank
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         y, self.aux, self.dropped = moe_mlp(
             x, self.router, tuple(e.records() for e in self.experts), top_k=cfg.moe_top_k,
             capacity_factor=cfg.moe_capacity_factor, renormalize=cfg.moe_renormalize,
+            mesh=self.mesh,
         )
         return y
 
@@ -851,24 +894,42 @@ class LlamaModel(nn.Module):
         tokens = tokens.to(self.device)
         b, s = tokens.shape
         if positions is None:
-            positions = torch.arange(s, device=self.device).expand(b, s)
+            # a sequence-parallel rank holds positions coord·s .. coord·s + s - 1
+            offset = 0
+            if cfg.sequence_parallel is not None and kv_caches is None:
+                offset = cfg.sp_mesh.coord(cfg.sp_axis) * s
+            positions = torch.arange(offset, offset + s, device=self.device).expand(b, s)
         positions = positions.to(self.device)
         cache_len = _host_cache_len(cache_len)
-
-        if cfg.quantize_embed:
-            x = self.embed.data[tokens].to(cfg.dtype) * self.embed.scale[tokens][..., None].to(cfg.dtype)
+        x = self.embed_tokens(tokens)
+        if kv_caches is None:
+            x = self.run_blocks(self.layers, x, positions, attn_window)
         else:
-            x = nn.functional.embedding(tokens, self.embed).to(cfg.dtype)
-        # remat: each block's activations are recomputed in the backward pass
-        remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
-        for i, layer in enumerate(self.layers):
-            if remat:
-                x, _ = checkpoint(layer, x, positions, None, cache_len, attn_window,
-                                  use_reentrant=False)
-                continue
-            cache_i = kv_caches[i] if kv_caches is not None else None
-            x, _ = layer(x, positions, cache_i, cache_len, attn_window)
+            for layer, cache_i in zip(self.layers, kv_caches):
+                x, _ = layer(x, positions, cache_i, cache_len, attn_window)
         return self.logits(x), kv_caches
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids → the first layer's input (``cfg.dtype``)."""
+        cfg = self.cfg
+        if cfg.quantize_embed:
+            return (self.embed.data[tokens].to(cfg.dtype)
+                    * self.embed.scale[tokens][..., None].to(cfg.dtype))
+        return nn.functional.embedding(tokens, self.embed).to(cfg.dtype)
+
+    def run_blocks(self, blocks, x: torch.Tensor, positions: torch.Tensor,
+                   attn_window: Optional[int] = None) -> torch.Tensor:
+        """``blocks`` (a run of ``self.layers``) over ``x`` without caches;
+        with ``cfg.remat`` under autograd each block's activations are
+        recomputed in the backward pass."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for layer in blocks:
+            if remat:
+                x, _ = checkpoint(layer, x, positions, None, None, attn_window,
+                                  use_reentrant=False)
+            else:
+                x, _ = layer(x, positions, None, None, attn_window)
+        return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """The last layer's output → f32 logits (b, s, vocab): the final
@@ -942,6 +1003,34 @@ def prefill(model: LlamaModel, tokens, kv_caches):
     ``attn_window=0``: no cache read; on the card the flash kernel runs the
     causal attention when the prompt length is a multiple of 128."""
     return model(tokens, kv_caches=kv_caches, cache_len=0, attn_window=0)
+
+
+def pipeline_forward(model: LlamaModel, tokens, mesh, axis: str = "pp",
+                     num_microbatches: Optional[int] = None) -> torch.Tensor:
+    """The cache-less forward (training) with the blocks run as a GPipe
+    pipeline over ``axis`` (``parallel.pipeline.pipeline_apply``): the
+    ``num_layers`` blocks cut into ``S = mesh.size(axis)`` equal stages of
+    consecutive blocks, this rank running its own; the embedding, the
+    final norm and the head run on every rank around the pipeline.
+    ``tokens`` (b, s) is the global batch on every rank; returns its f32
+    logits on every rank, differentiable (see ``parallel/pipeline.py`` for
+    which gradients each rank holds)."""
+    n_stages, stage = mesh.size(axis), mesh.coord(axis)
+    layers = model.layers
+    if len(layers) % n_stages:
+        raise ValueError(f"{len(layers)} blocks do not split into {n_stages} stages")
+    per = len(layers) // n_stages
+    tokens = tokens.to(model.device)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=model.device)
+
+    def stage_fn(blocks, x_mb):
+        return model.run_blocks(blocks, x_mb, positions.expand(x_mb.shape[0], s))
+
+    blocks = nn.ModuleList(layers[stage * per : (stage + 1) * per])
+    x = pipeline_apply(stage_fn, blocks, model.embed_tokens(tokens), mesh, axis,
+                       num_microbatches)
+    return model.logits(x)
 
 
 def _fuse_group(parent: nn.Module, names: Sequence[str], fused_name: str) -> None:

@@ -7,6 +7,9 @@ counterpart of ``bitorch_engine_tpu/models/llama_sharding.py``.
   features (whole quant groups) and the model sums the ranks' f32 partials
   (``models/llama.py`` ``_row_parallel``);
 * the embedding and the norms are replicated;
+* a MoE model's experts split over the ``ep`` axis (each rank holds E/ep
+  of every layer's experts, ``ops/moe.py``), the rest replicated (tp
+  inside a MoE model is not ported);
 * KV caches split their batch (slots) over dp and their heads over tp
   (``kv_cache_shardings`` / ``paged_kv_shardings``, kept beside the cache
   builders in ``models/paged_kv.py``, which read them).
@@ -43,7 +46,7 @@ from ..parallel.sharding import (
     shard_record,
 )
 from ..qtensor import MPQTensor
-from .llama import LlamaMLP, LlamaModel
+from .llama import LlamaMLP, LlamaModel, QuantMoEMLP
 from .paged_kv import kv_cache_shardings, local_kv_heads, paged_kv_shardings  # noqa: F401
 
 LLAMA_RULES = {
@@ -140,15 +143,36 @@ def row_shard(layer: nn.Module, mesh: Mesh, axis: str, where: str) -> nn.Module:
     return out
 
 
+def _shard_experts(model: LlamaModel, mesh: Mesh) -> LlamaModel:
+    """Keep this rank's ``E/ep`` experts of every MoE layer (``ops.moe
+    .expert_shardings``' cut of the tuple form)."""
+    from ..ops.moe import expert_shardings
+
+    if "ep" not in mesh.shape:
+        raise ValueError(f"a MoE model shards its experts over an 'ep' axis; the mesh has "
+                         f"{tuple(mesh.shape)}")
+    for layer in model.layers:
+        mlp = layer.mlp
+        if isinstance(mlp, QuantMoEMLP):
+            mlp.experts = torch.nn.ModuleList(expert_shardings(mesh, tuple(mlp.experts)))
+            mlp.mesh = mesh
+    model.mesh = mesh
+    return model
+
+
 @torch.no_grad()
 def shard_llama_params(model: LlamaModel, mesh: Mesh, axis: str = "tp") -> LlamaModel:
     """Cut ``model`` (every rank holding the same whole model) down to this
     rank's tensor-parallel part, in place; returns it.  The model then
     runs its forward with this rank's heads and the collectives of
-    ``mesh``'s ``axis`` group; ``model.cfg`` stays the global config."""
+    ``mesh``'s ``axis`` group; ``model.cfg`` stays the global config.  A
+    MoE model keeps this rank's experts of the mesh's ``ep`` axis instead
+    (a ``tp`` axis, if the mesh has one, must have size 1)."""
     cfg = model.cfg
     if cfg.moe_num_experts:
-        raise NotImplementedError("tp sharding of MoE models (expert_shardings) is not ported yet")
+        if axis in mesh.shape and mesh.size(axis) > 1:
+            raise NotImplementedError("tp sharding of MoE models is not ported yet")
+        return _shard_experts(model, mesh)
     tp, r = mesh.size(axis), mesh.coord(axis)
     hd, nh, nkv, inter = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
     nh_l, nkv_l = nh // tp, local_kv_heads(cfg, tp)

@@ -283,8 +283,9 @@ class FlashAttention(torch.autograd.Function):
     :func:`flash_attention_diff`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float]):
-        out, lse = flash_attention(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal: bool, sm_scale: Optional[float],
+                block_k: Optional[int] = None):
+        out, lse = flash_attention(q, k, v, causal, sm_scale, block_k)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
@@ -297,12 +298,13 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.sm_scale
         )
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_diff(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, sm_scale: Optional[float] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention`'s output, differentiable in q, k and v."""
-    return FlashAttention.apply(q, k, v, causal, sm_scale)
+    return FlashAttention.apply(q, k, v, causal, sm_scale, block_k)

@@ -14,8 +14,19 @@ the dense Mixtral forward), a float the Switch / GShard capacity whose
 overflowing routes are dropped.  Every expert runs on its whole ``(C, d)``
 dispatch buffer in a static loop, through :func:`~.mpq_linear.mpq_linear`:
 on the card kernel 1 at ``C <= MAX_FUSED_ROWS_A16`` rows (decode), kernel
-2 + ``torch.matmul`` above (prefill).  The expert-parallel sharding
-(``expert_shardings``) arrives with the parallel-layouts slice.
+2 + ``torch.matmul`` above (prefill).
+
+Expert parallelism (``mesh`` with an ``ep`` axis): :func:`expert_shardings`
+cuts the experts' leading E axis to this rank's ``E/ep``; ``x`` is the same
+on every rank of ``ep`` (replicated, as in the JAX package's test and dry
+run).  Every rank routes all tokens as before and runs its own experts on
+their dispatch rows; the expert outputs are gathered along E
+(``comm.all_gather_diff``) before the combine, so the combine sums each
+token's choices in the unsharded f32 order and the output equals the
+unsharded one.  An all-reduce of partial combines would change that order.
+In the backward each rank's experts give the gradient of their own
+dispatch rows only, so the dispatch buffer's gradient is summed over ep
+(``comm.sum_grad``) before it reaches ``x``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 from torch.nn import functional as F
 
 from ..device import resolve_device
+from ..parallel.comm import all_gather_diff, sum_grad
 from ..qtensor import MPQTensor
 from .mpq_linear import mpq_linear
 from .quant import quantize_mpq
@@ -100,6 +112,21 @@ def _expert_slice(experts, e: int):
             for name, qt in experts.items()}
 
 
+def expert_shardings(mesh, experts, axis: str = "ep"):
+    """This rank's ``E/ep`` experts along ``axis``, in either form (the
+    stacked records' leading E axis cut, contiguous; the tuple sliced)."""
+    n, i = mesh.size(axis), mesh.coord(axis)
+    e = num_experts(experts)
+    if e % n:
+        raise ValueError(f"{e} experts do not split over {axis}={n}")
+    lo, hi = i * (e // n), (i + 1) * (e // n)
+    if isinstance(experts, (tuple, list)):
+        return type(experts)(experts[lo:hi])
+    return {name: MPQTensor(**{k: v[lo:hi].clone() if isinstance(v, torch.Tensor) else v
+                               for k, v in _fields(qt).items()})
+            for name, qt in experts.items()}
+
+
 def num_experts(experts) -> int:
     if isinstance(experts, (tuple, list)):
         return len(experts)
@@ -126,6 +153,7 @@ def moe_mlp(
     top_k: int = 2,
     capacity_factor: Optional[float] = 1.25,
     renormalize: bool = True,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routed MoE MLP: ``x`` (..., d), ``router_w`` (d, E), ``experts``
     in either form → ``(y, aux_loss, dropped_frac)``.
@@ -138,7 +166,10 @@ def moe_mlp(
     routes past ``C`` are dropped (sent to slot ``C - 1`` with no
     contribution).  The combine sums each token's k weighted outputs in f32
     in choice order.  ``aux_loss = Σ_e frac_e · mean_p_e · E / k`` (1 for a
-    uniform router); ``dropped_frac`` is the share of routes dropped."""
+    uniform router); ``dropped_frac`` is the share of routes dropped.
+    With a ``mesh`` whose ``ep`` axis has ``n > 1`` ranks, ``experts`` are
+    this rank's ``E/n`` (:func:`expert_shardings`) and ``x`` the same on
+    every rank: see the module's notes."""
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
     T, E = x2.shape[0], router_w.shape[1]
@@ -164,7 +195,17 @@ def moe_mlp(
     disp = torch.zeros((E, C, d), dtype=x2.dtype, device=x.device).index_put(
         (flat_e, pos_c), routed, accumulate=True)
 
-    outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e]) for e in range(E)])
+    n_ep = 1 if mesh is None else mesh.size("ep")
+    local = num_experts(experts)
+    if local * n_ep != E:
+        raise ValueError(f"{local} experts a rank over ep={n_ep} for a router of {E}")
+    e0 = 0 if mesh is None else mesh.coord("ep") * local
+    if n_ep > 1:
+        disp = sum_grad(mesh, disp, "ep")  # each rank's backward fills its experts' rows
+    outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e0 + e])
+                        for e in range(local)])
+    if n_ep > 1:
+        outs = all_gather_diff(mesh, outs, "ep", dim=0)  # (E, C, d), every rank alike
 
     w = (gate_vals.reshape(-1) * keep).float()
     contrib = (outs[flat_e, pos_c].float() * w[:, None]).reshape(T, top_k, d)

@@ -35,6 +35,19 @@ GaLore applies to MPQ layers and to fp matrices larger than the rank
 (``_galore_eligible``).  A model holding integer weights outside these
 layers (``Int8Embedding``) raises.
 
+Under ``fsdp`` (``DiodeMix(mesh=)`` with ``mesh.size("fsdp") > 1``; the
+moments' specs are ``parallel.sharding.optimizer_partition_specs``'s) each
+rank keeps only its share of the K rows of every 2-D moment (whole quant
+groups and whole words; a shape that does not split raises), updates those
+rows of every MPQ weight and 2-D fp parameter from the full gradient (the
+ranks hold the same), and all-gathers the rows: the packed words and the
+zeros of an MPQ weight (the scales are never written), the parameter's
+rows of an fp one.  The update is row-local (AdamW is elementwise, the
+requantization reads one group's scale and zero, the zeros refresh is a
+mean within a group), so the result equals the unsharded step's bit for
+bit.  GaLore's projection is not row-local and raises under fsdp, as do
+the other regimes (not ported).
+
 The step counter starts at 1, the bias corrections compute ``beta ** step``
 in f32 as the JAX package does; every update works in place under
 ``torch.no_grad``.  On the card the dequantization is kernel 2 (bit-exact
@@ -45,7 +58,8 @@ MPQ layer raises there, and trains on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -55,7 +69,8 @@ from ..ops import packing
 from ..ops.mbwq_linear import reconstruct_mbwq
 from ..ops.mpq_linear import reconstruct_weight
 from ..ops.quant import nv_tensor_quant, repack_mpq
-from ..qtensor import BinaryEmbeddingQTensor, BinaryQTensor, IntQTensor
+from ..parallel.comm import all_gather
+from ..qtensor import BinaryEmbeddingQTensor, BinaryQTensor, IntQTensor, MPQTensor
 from ..utils.convert import quantized_layers
 from .galore import (
     GaLoreConfig,
@@ -110,15 +125,36 @@ def _group_mean(x: torch.Tensor, group_size: int) -> torch.Tensor:
 _REGIMES = {BinaryQTensor: "binary", IntQTensor: "intq", BinaryEmbeddingQTensor: "bemb"}
 
 
+def _fsdp_rows(name: str, k: int, n: int, i: int, multiple: int = 1) -> Tuple[int, int]:
+    """Rank ``i``'s rows ``[k0, k1)`` of ``k`` split ``n`` ways, each share a
+    multiple of ``multiple``."""
+    if k % n or (k // n) % multiple:
+        raise ValueError(f"{name}: {k} rows do not split over fsdp={n} into shares of whole "
+                         f"blocks of {multiple}")
+    return i * (k // n), (i + 1) * (k // n)
+
+
+def _mpq_row_block(qt: MPQTensor, rows: Tuple[int, int]) -> MPQTensor:
+    """The logical rows ``[k0, k1)`` of ``qt``: its words and its groups."""
+    k0, k1 = rows
+    words = slice(k0 // 32 * qt.w_bit, k1 // 32 * qt.w_bit)
+    groups = slice(k0 // qt.group_size, k1 // qt.group_size)
+    return qt.replace(packed=qt.packed[words], scales=qt.scales[groups],
+                      zeros=qt.zeros[groups], grad_shadow=None)
+
+
 class DiodeMix:
     """DiodeMix over ``model``'s trainable parameters (call
     ``utils.convert.prepare_for_training`` first: the quantized layers need
     their grad shadows).  ``seed`` seeds the binary regimes' initial
-    ``exp_avg_s``."""
+    ``exp_avg_s``; ``mesh``: shard the moments' rows over its ``fsdp``
+    axis (see the module's notes)."""
 
-    def __init__(self, model: nn.Module, hp: Optional[DiodeHyperParams] = None, seed: int = 0):
+    def __init__(self, model: nn.Module, hp: Optional[DiodeHyperParams] = None, seed: int = 0,
+                 mesh=None):
         self.hp = hp or DiodeHyperParams()
         self.step_count = 0
+        self.mesh = mesh
         names = {id(m): n for n, m in model.named_modules()}
         self.mpq, self.mbwq, self.binary, self.intq, self.bemb = [], [], [], [], []
         owned = set()
@@ -145,6 +181,7 @@ class DiodeMix:
                 )
         self.fp = [(n, p) for n, p in model.named_parameters()
                    if p.requires_grad and id(p) not in owned]
+        self.rows = self._fsdp_plan()  # name → this fsdp rank's rows [k0, k1)
         self.state: Dict[str, Dict[str, Any]] = {}
         gens: Dict[torch.device, torch.Generator] = {}
 
@@ -154,7 +191,7 @@ class DiodeMix:
 
         for name, mod in self.mpq + self.mbwq + self.intq:
             kind = "mpq" if isinstance(mod, MPQLinear) else "quant"
-            self.state[name] = self._init_state(tuple(mod.grad_shadow.shape), kind,
+            self.state[name] = self._init_state(self._local_shape(name, mod.grad_shadow), kind,
                                                 mod.grad_shadow.device)
         for name, mod in self.binary:
             w = mod.data.float()
@@ -165,7 +202,43 @@ class DiodeMix:
             w_sign = packing.unpack_signs(mod.data)[:, :k]
             self.state[name] = {"exp_avg_s": -(w_sign * delta(w_sign.shape, w_sign.device))}
         for name, p in self.fp:
-            self.state[name] = self._init_state(tuple(p.shape), "fp", p.device)
+            self.state[name] = self._init_state(self._local_shape(name, p), "fp", p.device)
+
+    def _fsdp_plan(self) -> Dict[str, Tuple[int, int]]:
+        """This fsdp rank's rows of each MPQ weight (whole groups and whole
+        words) and each 2-D fp parameter; ``{}`` without fsdp."""
+        mesh = self.mesh
+        n = 1 if mesh is None or "fsdp" not in mesh.shape else mesh.size("fsdp")
+        if n == 1:
+            return {}
+        if self.hp.galore is not None:
+            raise NotImplementedError("GaLore under fsdp: its projection is not row-local")
+        for kind in ("mbwq", "binary", "intq", "bemb"):
+            if getattr(self, kind):
+                raise NotImplementedError(f"fsdp sharding of {kind} layers is not ported")
+        i, rows = mesh.coord("fsdp"), {}
+        for name, mod in self.mpq:
+            qt = mod.qweight
+            if qt.g_idx is not None or qt.q_perm is not None:
+                raise ValueError(f"{name}: act-order rows do not split over fsdp")
+            multiple = 32 * qt.group_size // math.gcd(32, qt.group_size)
+            rows[name] = _fsdp_rows(name, qt.in_features, n, i, multiple)
+        for name, p in self.fp:
+            if p.dim() == 2:
+                rows[name] = _fsdp_rows(name, p.shape[0], n, i)
+        return rows
+
+    def _local_shape(self, name: str, t: torch.Tensor) -> Tuple[int, ...]:
+        rows = self.rows.get(name)
+        return tuple(t.shape) if rows is None else (rows[1] - rows[0], *t.shape[1:])
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return all_gather(self.mesh, t, "fsdp", dim=0)
+
+    def trainable(self) -> List[torch.Tensor]:
+        """Every tensor whose ``.grad`` the step reads: the grad shadows,
+        then the fp parameters."""
+        return [mod.grad_shadow for _, mod in self._quantized()] + [p for _, p in self.fp]
 
     def _init_state(self, shape, kind: str, device) -> Dict[str, Any]:
         st: Dict[str, Any] = {}
@@ -214,7 +287,7 @@ class DiodeMix:
         size = _step_size(self.hp, step)
         refresh = step % self.hp.zeros_update_interval == 0
         for name, mod in self.mpq:
-            self._update_mpq(mod, self.state[name], step, size, refresh)
+            self._update_mpq(mod, self.state[name], step, size, refresh, self.rows.get(name))
         for name, mod in self.mbwq:
             self._update_mbwq(mod, self.state[name], step, size, refresh)
         for name, mod in self.binary:
@@ -224,36 +297,50 @@ class DiodeMix:
         for name, mod in self.bemb:
             self._update_binary_embedding(mod, self.state[name])
         for name, p in self.fp:
-            self._update_fp(p, self.state[name], step, size)
+            self._update_fp(p, self.state[name], step, size, self.rows.get(name))
 
-    def _update_fp(self, p: nn.Parameter, st, step: int, size: float) -> None:
+    def _update_fp(self, p: nn.Parameter, st, step: int, size: float, rows=None) -> None:
         g = torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
-        w = p.float() - size * self._direction(g, st, step)
+        w = p.float()
+        if rows is not None:
+            g, w = g[rows[0] : rows[1]], w[rows[0] : rows[1]]
+        w = w - size * self._direction(g, st, step)
         if self.hp.weight_decay > 0.0:
             w = w - self.hp.lr * self.hp.weight_decay * w
-        p.copy_(w.to(p.dtype))
+        w = w.to(p.dtype)
+        p.copy_(w if rows is None else self._gather_rows(w))
 
-    def _update_mpq(self, mod: MPQLinear, st, step: int, size: float, refresh: bool) -> None:
-        qt = mod.qweight
-        update = size * self._direction(self._shadow_grad(mod), st, step)
+    def _update_mpq(self, mod: MPQLinear, st, step: int, size: float, refresh: bool,
+                    rows=None) -> None:
+        qt, grad = mod.qweight, self._shadow_grad(mod)
+        if rows is not None:
+            qt, grad = _mpq_row_block(qt, rows), grad[rows[0] : rows[1]]
+        update = size * self._direction(grad, st, step)
         w = reconstruct_weight(qt, torch.float32) - update
+        zeros = qt.zeros
         if qt.asym:
             k, _ = qt.logical_shape
-            z_int = packing.unpack_cols(qt.zeros, qt.w_bit)
+            z_int = packing.unpack_cols(zeros, qt.w_bit)
             if refresh:
                 g = qt.g_idx.long() if qt.g_idx is not None else (
                     torch.arange(k, device=w.device) // qt.group_size)
                 full_z = z_int.float()[g] + update
                 grouped = _group_mean(full_z[torch.argsort(g, stable=True)], qt.group_size)
                 z_int = torch.clamp(torch.round(grouped), 1, 2 ** qt.w_bit).to(torch.int32)
-                mod.zeros.copy_(packing.pack_cols(z_int, qt.w_bit))
-            packed = repack_mpq(w, qt.replace(zeros=mod.zeros), unpacked_zeros=z_int.float())
+                zeros = packing.pack_cols(z_int, qt.w_bit)
+            packed = repack_mpq(w, qt.replace(zeros=zeros), unpacked_zeros=z_int.float())
         else:
             if refresh:
-                mod.zeros.add_(_group_mean(update, qt.group_size).to(mod.zeros.dtype))
+                zeros = zeros + _group_mean(update, qt.group_size).to(zeros.dtype)
                 mod._zeros_mid = False  # the zeros are no longer mid * scales
-            packed = repack_mpq(w, qt.replace(zeros=mod.zeros))
+            packed = repack_mpq(w, qt.replace(zeros=zeros))
+        if rows is not None:
+            packed = self._gather_rows(packed)
+            if refresh:
+                zeros = self._gather_rows(zeros)
         mod.packed.copy_(packed)
+        if refresh:
+            mod.zeros.copy_(zeros)
 
     def _update_mbwq(self, mod: MBWQLinear, st, step: int, size: float, refresh: bool) -> None:
         qt = mod.qweight

@@ -1,18 +1,33 @@
-"""The collectives of the parallel serving path, over ``torch.distributed``.
+"""The collectives of the parallel paths, over ``torch.distributed``.
 
-The JAX package has no such module: under GSPMD, XLA inserts the
-collectives itself.  Here the model calls them where GSPMD put them:
+The JAX package has no such module: under GSPMD and ``shard_map``, XLA
+inserts the collectives itself.  Here the model calls them where GSPMD put
+them:
 
 * :func:`all_reduce`: the f32 sum of a row-parallel projection's partials
-  (after o and after down);
+  (after o and after down), of the gradients over dp and sp;
 * :func:`all_gather`: concatenation along an axis, the column-parallel
-  head's logits along the vocabulary, the dp groups' tokens along the slots;
-* :func:`ring_exchange`: the ring's send of the accumulator to the next
-  rank and receive from the previous one (``parallel/overlap.py``).
+  head's logits along the vocabulary, the dp groups' tokens along the
+  slots, the fsdp ranks' updated rows, the ep ranks' expert outputs;
+* :func:`all_to_all`: split along one dimension and concatenated along
+  another, as ``lax.all_to_all(..., tiled=True)`` (Ulysses);
+* :func:`ring_exchange`: the ring's send to the next rank and receive
+  from the previous one, as ``lax.ppermute`` (the overlapped row-parallel
+  product; ring attention, whose autograd Function runs its backward's
+  exchanges itself);
+* :func:`send` / :func:`recv`: one tensor to a neighbour (the pipeline).
 
 Each call adds to ``mesh.comm_counts[kind]``: ``calls``, the ``bytes`` this
 rank sends, host ``ms`` (the call blocks until its data is in place, except
-the ring's, whose wait is counted under ``ring_wait``) and ``staged``.
+the ring's, whose wait is counted under ``ring_wait``, and ``send``, which
+returns at once) and ``staged``.
+
+The kinds a backward needs are differentiable through their autograd
+Functions: :func:`all_to_all_diff` (backward: the inverse all-to-all) and
+:func:`all_gather_diff` (backward: this rank's slice, for an output every
+rank holds whole and reads alike); :func:`sum_grad` is the identity whose
+backward sums the cotangent over an axis (a replicated tensor that each
+rank uses for its own part of the work).
 
 A backend that does not take CUDA tensors for a kind of collective
 (:data:`CUDA_DIRECT`) gets them through pinned host memory: copied out,
@@ -30,15 +45,16 @@ import torch.distributed as dist
 
 from .mesh import Mesh
 
-KINDS = ("all_reduce", "all_gather", "ring_send", "ring_wait")
+KINDS = ("all_reduce", "all_gather", "all_to_all", "ring_send", "ring_wait", "send", "recv")
 
 # the kinds each backend takes on CUDA tensors as they are: gloo's
-# all_reduce and all_gather take them (chip_smoke.py phase 19 probes them on
-# the card; gloo copies through the host itself), its point-to-point sends
-# do not (they would read a device pointer as host memory)
+# all_reduce, all_gather and all_to_all take them (chip_smoke.py phases 19
+# and 20 probe them on the card; gloo copies through the host itself), its
+# point-to-point sends do not (they would read a device pointer as host
+# memory)
 CUDA_DIRECT = {
     "nccl": frozenset(KINDS),
-    "gloo": frozenset({"all_reduce", "all_gather"}),
+    "gloo": frozenset({"all_reduce", "all_gather", "all_to_all"}),
 }
 
 
@@ -70,9 +86,18 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+def _like(src: torch.Tensor, staged: bool) -> torch.Tensor:
+    """An empty tensor like ``src``; pinned host memory when staged (a
+    pageable buffer would make the copy back to the device a slow,
+    synchronous one)."""
+    if staged:
+        return torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    return torch.empty_like(src)
+
+
 def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
     """Sum ``t`` over ``axis`` in place; returns ``t``."""
-    group = mesh.groups[axis]
+    group = mesh.group(axis)
     if group is None:
         return t
     t0 = time.perf_counter()
@@ -90,13 +115,13 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
 def all_gather(mesh: Mesh, t: torch.Tensor, axis: str = "tp", dim: int = -1) -> torch.Tensor:
     """Every rank's ``t`` along ``axis``, concatenated along ``dim`` in the
     axis's rank order."""
-    group = mesh.groups[axis]
+    group = mesh.group(axis)
     if group is None:
         return t
     t0 = time.perf_counter()
     staged = _staged(mesh, "all_gather", t)
     src = _to_host(t) if staged else t.contiguous()
-    parts = [torch.empty_like(src) for _ in mesh.ranks[axis]]
+    parts = [_like(src, staged) for _ in mesh.ranks[axis]]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     if staged:
@@ -128,15 +153,133 @@ def ring_exchange(mesh: Mesh, t: torch.Tensor, axis: str = "tp") -> RingRecv:
     """Post the send of ``t`` to the next rank along ``axis`` and the
     receive of the previous rank's, and return at once (the caller's work
     meanwhile overlaps the exchange)."""
-    ranks, group = mesh.ranks[axis], mesh.groups[axis]
+    ranks, group = mesh.ranks[axis], mesh.group(axis)
     i, d = ranks.index(mesh.rank), len(ranks)
     t0 = time.perf_counter()
     staged = _staged(mesh, "ring_send", t)
     src = _to_host(t) if staged else t.contiguous()
-    buf = torch.empty_like(src)
+    buf = _like(src, staged)
     works = [
         dist.isend(src, dst=ranks[(i + 1) % d], group=group),
         dist.irecv(buf, src=ranks[(i - 1) % d], group=group),
     ]
     _count(mesh, "ring_send", t.nbytes, (time.perf_counter() - t0) * 1e3, staged)
     return RingRecv(mesh, works, src, buf, t.device, staged)
+
+
+def all_to_all(mesh: Mesh, t: torch.Tensor, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(t, axis, split_dim, concat_dim, tiled=True)``: ``t``
+    cut into ``n`` equal chunks along ``split_dim``, chunk ``j`` sent to the
+    ``j``-th rank of ``axis``; the chunks received concatenated along
+    ``concat_dim`` in rank order."""
+    group = mesh.group(axis)
+    if group is None:
+        return t
+    n = mesh.size(axis)
+    if t.shape[split_dim] % n:
+        raise ValueError(f"dimension {split_dim} of {tuple(t.shape)} does not split over {axis}={n}")
+    t0 = time.perf_counter()
+    staged = _staged(mesh, "all_to_all", t)
+    parts = torch.stack(t.chunk(n, dim=split_dim))  # (n, ...): chunk j for rank j
+    src = _to_host(parts) if staged else parts
+    got = _like(src, staged)
+    dist.all_to_all_single(got, src, group=group)
+    if staged:
+        got = got.to(t.device)
+    out = torch.cat(got.unbind(0), dim=concat_dim)
+    _count(mesh, "all_to_all", t.nbytes, (time.perf_counter() - t0) * 1e3, staged)
+    return out
+
+
+class PendingSend:
+    """A posted :func:`send`: :meth:`wait` until the receiver has it (the
+    tensor sent stays referenced until then)."""
+
+    def __init__(self, work, src: torch.Tensor):
+        self._work, self._src = work, src
+
+    def wait(self) -> None:
+        self._work.wait()
+
+
+def send(mesh: Mesh, t: torch.Tensor, axis: str, to: int) -> PendingSend:
+    """Post the send of ``t`` to the rank at coordinate ``to`` along
+    ``axis``; returns at once."""
+    t0 = time.perf_counter()
+    staged = _staged(mesh, "send", t)
+    src = _to_host(t) if staged else t.contiguous()
+    work = dist.isend(src, dst=mesh.ranks[axis][to], group=mesh.group(axis))
+    _count(mesh, "send", t.nbytes, (time.perf_counter() - t0) * 1e3, staged)
+    return PendingSend(work, src)
+
+
+def recv(mesh: Mesh, like: torch.Tensor, axis: str, frm: int) -> torch.Tensor:
+    """The tensor the rank at coordinate ``frm`` along ``axis`` sends, of
+    ``like``'s shape, dtype and device (waits for it)."""
+    t0 = time.perf_counter()
+    staged = _staged(mesh, "recv", like)
+    buf = _like(like, staged)
+    dist.recv(buf, src=mesh.ranks[axis][frm], group=mesh.group(axis))
+    out = buf.to(like.device) if staged else buf
+    _count(mesh, "recv", 0, (time.perf_counter() - t0) * 1e3, staged)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return all_to_all(mesh, t, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return all_to_all(mesh, g.contiguous(), axis, concat_dim, split_dim), None, None, None, None
+
+
+def all_to_all_diff(mesh: Mesh, t: torch.Tensor, axis: str, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """:func:`all_to_all`, differentiable: its backward is the inverse
+    all-to-all (``concat_dim`` split, ``split_dim`` concatenated)."""
+    return _AllToAll.apply(t, mesh, axis, split_dim, concat_dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim, t.shape[dim])
+        return all_gather(mesh, t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, size = ctx.args
+        return g.narrow(dim, mesh.coord(axis) * size, size), None, None, None
+
+
+def all_gather_diff(mesh: Mesh, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """:func:`all_gather`, differentiable for an output that every rank
+    holds whole and reads alike (one loss, replicated): the backward keeps
+    this rank's slice of the cotangent and sums nothing."""
+    return _AllGather.apply(t, mesh, axis, dim)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.args = (mesh, axis)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        return all_reduce(mesh, g.contiguous().clone(), axis), None, None
+
+
+def sum_grad(mesh: Mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
+    """``t``, whose cotangent the backward sums over ``axis``: for a tensor
+    every rank holds alike and reads only in part (its own experts' rows),
+    so that each rank's gradient is the whole one."""
+    if mesh.group(axis) is None or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _SumGrad.apply(t, mesh, axis)

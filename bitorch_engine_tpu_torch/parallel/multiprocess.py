@@ -8,10 +8,10 @@
   under a deadline: on a failed rank or a timeout it kills the world and
   raises with every rank's log (a collective one rank skips hangs the
   others).
-* :func:`multiprocess_payload` is the JAX package's battery, items 1, 3
-  and 4 (the tp MPQ linear, the tp tiny-Llama forward, the sharded paged
-  batcher), whose results agree between any world and one process.  Item 2,
-  dp DiodeMix training, arrives with the training layouts.
+* :func:`multiprocess_payload` is the JAX package's battery (the tp MPQ
+  linear, dp DiodeMix training of the 1-bit MLP, the tp tiny-Llama
+  forward, the sharded paged batcher), whose results agree between any
+  world and one process.
 * :func:`launch_workers` runs the payload in a local world;
   ``python -m bitorch_engine_tpu_torch.parallel.multiprocess`` is one rank.
 
@@ -157,24 +157,50 @@ def _load_llama(cfg, ckpt: Optional[str], seed: int, device):
     return load_jax_params(LlamaModel(cfg, device="meta"), load_checkpoint(ckpt), device=device)
 
 
+def _train_mlp(X, Y, world: int, mlp_state: Optional[str], device) -> np.ndarray:
+    """Item 2: the 1-bit ``QuantMLP`` (32 → 32 → 10) trained 3 DiodeMix
+    steps (lr 1e-2) with the batch split over every rank (dp); the three
+    global losses."""
+    from ..models.mlp import QuantMLP
+    from ..optim import DiodeHyperParams
+    from ..training import cross_entropy_loss, make_train_step
+    from ..utils.convert import prepare_for_training
+    from .mesh import make_mesh
+
+    mesh = make_mesh(dp=world)
+    x, y = torch.from_numpy(X).to(device), torch.from_numpy(Y).long().to(device)
+    mlp = prepare_for_training(QuantMLP(32, 32, 10, bits=1, device=device, seed=3, sample=x[:1]))
+    step = make_train_step(mlp, lambda m, b: cross_entropy_loss(m(b[0]), b[1], mesh),
+                           DiodeHyperParams(lr=1e-2), mesh=mesh)
+    if mlp_state is not None:
+        start = torch.load(mlp_state, map_location=device)
+        mlp.load_state_dict(start["model"])
+        step.optimizer.load_state_dict(start["diode"])
+    return np.asarray([float(step((x, y))["loss"]) for _ in range(3)], np.float64)
+
+
 @torch.no_grad()
 def multiprocess_payload(mesh, llama_ckpt: Optional[str] = None,
-                         serving_ckpt: Optional[str] = None,
+                         serving_ckpt: Optional[str] = None, mlp_state: Optional[str] = None,
                          device=None) -> Dict[str, np.ndarray]:
-    """The JAX package's battery, items 1, 3 and 4, on ``mesh`` (every rank
-    returns the same values; so does a one-process mesh):
+    """The JAX package's battery on ``mesh`` (every rank returns the same
+    values; so does a one-process mesh):
 
     1. a tp column-parallel MPQ linear (w4 g64, 256 × 128), gathered:
        ``mpq_y``, beside the plain product ``mpq_ref``;
+    2. the 1-bit ``QuantMLP`` trained 3 DiodeMix steps on a batch of 64
+       split over every rank of the world (dp): ``train_losses``;
     3. a tp tiny-Llama forward (f32): ``llama_logits``;
     4. the sharded paged ``ContinuousBatcher`` (int8 KV, 4 slots, 17 pages
        of 8) over six prompts: ``serving_ids``.
 
-    The draws follow the JAX payload's generator (item 2's draw is made and
-    dropped), so the inputs are the same; the models come from the JAX
-    parameters saved by ``utils.checkpoint.save_checkpoint`` at
-    ``llama_ckpt`` / ``serving_ckpt``, or from seeds 1 and 2.  ``device=None``
-    means ``cuda``; pass ``"cpu"`` for the plain path."""
+    The draws follow the JAX payload's generator, so the inputs are the
+    same; the models come from the JAX parameters saved by
+    ``utils.checkpoint.save_checkpoint`` at ``llama_ckpt`` /
+    ``serving_ckpt`` and the MLP's and its DiodeMix state's ``torch.save``
+    at ``mlp_state`` (``{"model", "diode"}`` state dicts), or from seeds 1,
+    2 and 3.  ``device=None`` means ``cuda``; pass ``"cpu"`` for the plain
+    path."""
     from ..device import resolve_device
     from ..models.generate import ContinuousBatcher
     from ..models.llama import tiny_llama
@@ -196,8 +222,12 @@ def multiprocess_payload(mesh, llama_ckpt: Optional[str] = None,
     out["mpq_y"] = all_gather(mesh, mpq_linear(x, shard), "tp")
     out["mpq_ref"] = x @ dequantize_mpq(qt, torch.float32)
 
-    # --- 2: dp DiodeMix training: its draw only ----------------------------
-    rng.standard_normal((64, 32))
+    # --- 2: dp DiodeMix training ------------------------------------------
+    X = rng.standard_normal((64, 32)).astype(np.float32)
+    Y = np.argmax(X[:, :10], -1)
+    with torch.enable_grad():
+        out["train_losses"] = _train_mlp(X, Y, int(np.prod(list(mesh.shape.values()))),
+                                         mlp_state, device)
 
     # --- 3: tp-sharded tiny-llama forward ----------------------------------
     cfg = tiny_llama(dtype=torch.float32)

@@ -1,6 +1,5 @@
-"""Sharding rules for quantized-record trees: the counterpart of
-``bitorch_engine_tpu/parallel/sharding.py`` (but for
-``optimizer_partition_specs``, which arrives with the training layouts).
+"""Sharding rules for quantized-record trees and DiodeMix's state: the
+counterpart of ``bitorch_engine_tpu/parallel/sharding.py``.
 
 A spec is a :class:`P`, the port's stand-in for JAX's ``PartitionSpec``: a
 tuple holding, per tensor dimension, the mesh axis it is split over or
@@ -17,6 +16,11 @@ The JAX package placed whole records with ``device_put`` and, across
 processes, ``global_put`` (``parallel/multiprocess.py:57``); here every rank
 builds the same host values (a seeded init, or one checkpoint) and keeps its
 own shard, so ``global_put`` needs no counterpart.
+
+:func:`optimizer_partition_specs` gives DiodeMix's moments their specs:
+every 2-D moment ``P(fsdp, tp)`` (its K rows over fsdp, its N columns
+with the weight's over tp), every other ``P()``.  ``DiodeMix(mesh=)``
+keeps the fsdp rows itself; a tp-cut layer's moments have its local N.
 """
 
 from __future__ import annotations
@@ -212,3 +216,20 @@ def shard_params(params, mesh: Mesh, rule_fn: Optional[Callable] = None, axis: s
         return leaf
 
     return _map_tree(params, cut)
+
+
+def optimizer_partition_specs(optimizer, tp_axis: str = "tp", fsdp_axis: Optional[str] = "fsdp"):
+    """Specs of ``optimizer``'s state (a ``DiodeMix``), in the shape of its
+    ``state_dict()``: ``{"step": P(), "state": {name: {key: spec}}}``,
+    every 2-D moment ``P(fsdp_axis, tp_axis)`` (``P(None, tp_axis)``
+    without an fsdp axis) and every other one ``P()``; GaLore's state is
+    read through its fields."""
+    spec2d = P(fsdp_axis, tp_axis)
+
+    def spec(v):
+        if dataclasses.is_dataclass(v):
+            return {f.name: spec(getattr(v, f.name)) for f in dataclasses.fields(v)}
+        return spec2d if isinstance(v, torch.Tensor) and v.dim() == 2 else P()
+
+    return {"step": P(), "state": {name: {key: spec(v) for key, v in st.items()}
+                                   for name, st in optimizer.state.items()}}

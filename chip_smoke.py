@@ -185,7 +185,36 @@ then, failing on the first check that does not hold:
     logits stay within 2e-2 of the witness's, and of the unsharded ones or
     within 1.5 times the witness's drift from them on the same passes where
     that is larger; a tp request's tokens leave the unsharded ones only
-    where the unsharded logits tie within twice that drift.
+    where the unsharded logits tie within twice that drift;
+20. the parallel training slice (every time labelled "two ranks sharing one
+    card, gloo": a correctness run, not a parallel speed): holds kernel 2
+    at the 370M projections and kernels 3 and 4 at one sp rank's attention
+    (the ring's diagonal block, its earlier block without a mask, Ulysses'
+    8 of 16 heads over the whole sequence) against their plain versions
+    and times them; then spawns a world of 2 ranks on the card.  Each rank
+    probes which collectives gloo takes on CUDA tensors (every kind
+    ``comm.CUDA_DIRECT`` names must be one), runs the unsharded 370M step
+    (8 × 2048 seeded tokens, DiodeMix lr 1e-4, zeros refreshed each step)
+    and holds to it, at phase 13's bars (loss rel <= 1e-3, every
+    gradient's max|d|/max|ref| <= 3e-2; the ring's gradients
+    max(3e-2, 2.5 × the rows witness: the unsharded model's gradients from
+    the batch's two row halves, one process)) and with each kernel's
+    launches checked exactly: 20a the step at sp 2 with ring and with
+    Ulysses attention from two seeds (and, on one (8, 16, 2048, 64) q / k /
+    v and output cotangent, Ulysses against kernels 3 and 4 on the whole
+    sequence, the ring against its plain version, <= 1% of bf16 outputs
+    differing, and both within 4 × kernels 3 and 4's distance from the
+    exact f32 attention, outputs and gradients), the packed codes after the
+    step counted against the unsharded step's; 20b dp 2 (bit-equal to the
+    rows witness), and fsdp 2 given the unsharded gradients (packed codes,
+    refreshed zeros and scales bit-equal after the step, the moments holding
+    half the rows);
+    20c pp 2 (two stages of 12 blocks, 4 microbatches of 2 × 2048, no
+    optimizer step); 20d ``mixtral_8x7b_serving()`` at 2 layers and ep 2
+    (4 experts a rank), prefill 8 × 256 and 8 decode steps forced to the
+    unsharded tokens, logits within 2e-2 of the unsharded model's.  Every
+    sub-phase prints its collectives (calls, bytes, ms, staged), each
+    rank's device busy ms (``torch.profiler``), peak GiB and wall seconds.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -425,6 +454,44 @@ RING_REPS = 20
 TP_WORLD_TIMEOUT, TP_COLLECTIVE_TIMEOUT = 700, 240  # s: the whole world, one collective's wait
 TP_WITNESS_SLACK = 1.5  # the end-to-end limits: the witness's drift times this, at least 2e-2
 
+# the parallel training slice (phase 20): two ranks sharing the one card
+# through gloo.  The 370M train step (phase 12's model and batch) at sp 2
+# (ring and Ulysses), dp 2, fsdp 2 and pp 2 against the unsharded step, and
+# Mixtral-8x7B (2 layers) at ep 2 against the unsharded model
+PAR = 2
+PAR_SEED = SEED + 20
+PAR_SEEDS = (PAR_SEED, PAR_SEED + 1)  # 20a runs from both; 20b-20c from the first
+TRAIN_SHAPES = {"train_q": (1024, 1024), "train_k": (1024, 1024), "train_v": (1024, 1024),
+                "train_o": (1024, 1024), "train_gate": (1024, 2816), "train_up": (1024, 2816),
+                "train_down": (2816, 1024)}  # the 370M projections (K, N)
+# one sp rank's attention (name, b, nh, nkv, s, d, causal): the ring's
+# diagonal and earlier blocks (L/2 queries against L/2 keys), Ulysses' half
+# of the heads over the whole sequence
+SP_RING_DIAG, SP_RING_OFF, SP_ULYSSES = (
+    "sp_ring_diag_b8_nh16_s1024_d64", "sp_ring_off_b8_nh16_s1024_d64", "sp_ulysses_b8_nh8_s2048_d64")
+SP_FLASH = (
+    (SP_RING_DIAG, TRAIN_BATCH, 16, 16, TRAIN_SEQ // PAR, 64, True),
+    (SP_RING_OFF, TRAIN_BATCH, 16, 16, TRAIN_SEQ // PAR, 64, False),
+    (SP_ULYSSES, TRAIN_BATCH, 16 // PAR, 16 // PAR, TRAIN_SEQ, 64, True),
+)
+PP_MICRO = 4  # 4 microbatches of 2 x 2048
+EP_LAYERS, EP_STEPS = 2, 8  # Mixtral depth cut to 2 layers; decode steps forced to rank 0's
+PAR_WORLD_TIMEOUT, PAR_COLLECTIVE_TIMEOUT = 400, 200  # s: the whole world, one collective's wait
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-3, 3e-2  # phase 13's bars
+# 20a's attention witness: each sp form's output and gradients no further
+# from the exact f32 attention than this many times kernels 3 and 4 on the
+# whole sequence (bf16 rounding of the blocks' partials stays within it; a
+# fault, a lost or doubled block, reads orders of magnitude past it)
+SP_EXACT_FACTOR = 4.0
+# the ring step's gradient bar: max(TRAIN_GRAD_REL, this × the rows
+# witness's distance from the unsharded step).  The witness is one rounding
+# change (every GEMM on half the rows) and reads 1.678e-2; the ring makes
+# two of that kind (the half-position GEMMs, and its bf16 block partials,
+# which alone move the gradients 2.868e-2-3.033e-2 from Ulysses'), read
+# 1.63-1.76 × the witness on two seeds, and held to the exact values at the
+# attention by SP_EXACT_FACTOR
+SP_RING_WITNESS_FACTOR = 2.5
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -661,8 +728,8 @@ def phase_kernels(torch, gen, flush):
     return results, extra
 
 
-def flash_row(torch, gen, name, b, nh, nkv, s, d, flush):
-    """Kernel 3 (causal) on random bf16 q / k / v drawn from ``gen``
+def flash_row(torch, gen, name, b, nh, nkv, s, d, flush, causal=True):
+    """Kernel 3 (causal unless told) on random bf16 q / k / v drawn from ``gen``
     against its plain version (out atol / rtol 1e-2 with at most
     ``FWD_DIFFERING_MAX`` of its bf16 elements differing, lse within 1e-4),
     then timed beside its plain version, SDPA and its bound."""
@@ -674,8 +741,8 @@ def flash_row(torch, gen, name, b, nh, nkv, s, d, flush):
     q = torch.randn(b, nh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
     k = torch.randn(b, nkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
     v = torch.randn(b, nkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
-    out, lse = flash_attention(q, k, v)
-    ref_out, ref_lse = flash_attention_ref(q, k, v)
+    out, lse = flash_attention(q, k, v, causal)
+    ref_out, ref_lse = flash_attention_ref(q, k, v, causal)
     err = (out.float() - ref_out.float()).abs().max().item()
     rel = err / ref_out.float().abs().max().item()
     differing = (out != ref_out).float().mean().item()
@@ -688,15 +755,16 @@ def flash_row(torch, gen, name, b, nh, nkv, s, d, flush):
     check(ok and differing <= FWD_DIFFERING_MAX and lse_err <= 1e-4,
           f"flash_attention {name}: out err {err}, differing {differing}, lse err {lse_err}")
     nbytes = (q.nbytes + k.nbytes + v.nbytes) + out.nbytes + lse.nbytes
-    ops = b * nh * 4 * d * s * (s + 1) / 2  # QK^T and PV over the causal pairs
+    pairs = s * (s + 1) / 2 if causal else s * s
+    ops = b * nh * 4 * d * pairs  # QK^T and PV over the visible pairs
     b3, by3 = bound(nbytes, ops)
     row = dict(
-        shape=name, max_abs_err=err, rel_err=lse_err, out_rel_err=rel,
+        shape=name, causal=causal, max_abs_err=err, rel_err=lse_err, out_rel_err=rel,
         bf16_elements_differing=differing, lse_err=lse_err,
-        ms=time_ms(torch, lambda: flash_attention(q, k, v), flush=flush),
-        plain_ms=time_ms(torch, lambda: flash_attention_ref(q, k, v), flush=flush),
+        ms=time_ms(torch, lambda: flash_attention(q, k, v, causal), flush=flush),
+        plain_ms=time_ms(torch, lambda: flash_attention_ref(q, k, v, causal), flush=flush),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), flush=flush),
+            q, k, v, is_causal=causal, enable_gqa=True), flush=flush),
         bound_ms=b3, bound_by=by3,
     )
     del q, k, v, out, lse, ref_out, ref_lse
@@ -1882,79 +1950,81 @@ def a8_spread(torch, model, prompt):
     return out
 
 
-def phase_flash_bwd_kernels(torch, gen, flush):
-    """Phase 11: kernel 4 against its plain version (max|d|/max|ref| <= 1e-2
-    for each of dq, dk, dv, bf16 out), then timed beside its bound, its
-    plain version and SDPA's backward (its forward + backward less its
-    forward)."""
+def flash_bwd_row(torch, gen, name, b, nh, nkv, s, d, causal, flush):
+    """Kernel 4 on random bf16 operands drawn from ``gen`` against its plain
+    version (max|d|/max|ref| <= 1e-2 for each of dq, dk, dv, bf16 out),
+    then timed beside its bound, its plain version and SDPA's backward (its
+    forward + backward less its forward)."""
     from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
     )
 
     F = torch.nn.functional
-    rows = []
-    for name, b, nh, nkv, s, d, causal in FLASH_BWD_SHAPES:
-        q, do = (torch.randn(b, nh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
-                 for _ in range(2))
-        k, v = (torch.randn(b, nkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
-                for _ in range(2))
-        out, lse = flash_attention(q, k, v, causal)
-        got = flash_attention_bwd(q, k, v, out, lse, do, causal)
-        want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
-        torch.cuda.synchronize()
-        errs, rels, diff = {}, {}, {}
-        for part, g, w in zip(("dq", "dk", "dv"), got, want):
-            errs[part] = (g.float() - w.float()).abs().max().item()
-            rels[part] = errs[part] / w.float().abs().max().item()
-            diff[part] = (g != w).float().mean().item()
-            check(bool(torch.isfinite(g).all()), f"kernel 4 {name}: {part} not finite")
-        log(f"kernel flash_attention_bwd {name:28s} max|d|/max|ref| " + "  ".join(
-            f"{p}={r:.3e}" for p, r in rels.items()) + "  bf16 elements differing " + "  ".join(
-            f"{p}={f:.2e}" for p, f in diff.items()))
-        check(all(r <= 1e-2 for r in rels.values()), f"kernel 4 {name}: rel {rels} > 1e-2")
-        del got, want
+    q, do = (torch.randn(b, nh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, nkv, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    errs, rels, diff = {}, {}, {}
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[part] = (g.float() - w.float()).abs().max().item()
+        rels[part] = errs[part] / w.float().abs().max().item()
+        diff[part] = (g != w).float().mean().item()
+        check(bool(torch.isfinite(g).all()), f"kernel 4 {name}: {part} not finite")
+    log(f"kernel flash_attention_bwd {name:28s} max|d|/max|ref| " + "  ".join(
+        f"{p}={r:.3e}" for p, r in rels.items()) + "  bf16 elements differing " + "  ".join(
+        f"{p}={f:.2e}" for p, f in diff.items()))
+    check(all(r <= 1e-2 for r in rels.values()), f"kernel 4 {name}: rel {rels} > 1e-2")
+    del got, want
 
-        pairs = s * (s + 1) / 2 if causal else s * s
-        ops = b * nh * 10 * d * pairs  # five products: q k^T, do v^T, dv, dk, dq
-        nbytes = (q.nbytes + k.nbytes + v.nbytes + out.nbytes + lse.nbytes + do.nbytes
-                  + q.nbytes + k.nbytes + v.nbytes)
-        bms, bby = bound(nbytes, ops)
-        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    pairs = s * (s + 1) / 2 if causal else s * s
+    ops = b * nh * 10 * d * pairs  # five products: q k^T, do v^T, dv, dk, dq
+    nbytes = (q.nbytes + k.nbytes + v.nbytes + out.nbytes + lse.nbytes + do.nbytes
+              + q.nbytes + k.nbytes + v.nbytes)
+    bms, bby = bound(nbytes, ops)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
 
-        def sdpa():
-            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=nkv != nh)
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=nkv != nh)
 
-        sdpa_fwd_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do),
-                                  flush=flush)
-        sdpa_fwd_ms = time_ms(torch, sdpa, flush=flush)
-        rows.append(dict(
-            shape=name, b=b, nh=nh, nkv=nkv, s=s, d=d, causal=causal,
-            max_abs_err=max(errs.values()), rel_err=max(rels.values()), rel=rels,
-            bf16_elements_differing=diff,
-            ms=time_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, causal), flush=flush),
-            plain_ms=time_ms(torch, lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal),
-                             reps=5, flush=flush),
-            library_ms=sdpa_fwd_bwd_ms - sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
-            sdpa_fwd_ms=sdpa_fwd_ms, bound_ms=bms, bound_by=bby,
-        ))
-        del q, k, v, do, out, lse, qs, ks, vs
-        torch.cuda.empty_cache()
-    for r in rows:
-        log(f"time flash_attention_bwd {r['shape']:28s} kernel {r['ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  sdpa backward {r['library_ms']:.4f} ms (fwd+bwd "
-            f"{r['sdpa_fwd_bwd_ms']:.4f} - fwd {r['sdpa_fwd_ms']:.4f})  bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
-    return rows
+    sdpa_fwd_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do),
+                              flush=flush)
+    sdpa_fwd_ms = time_ms(torch, sdpa, flush=flush)
+    row = dict(
+        shape=name, b=b, nh=nh, nkv=nkv, s=s, d=d, causal=causal,
+        max_abs_err=max(errs.values()), rel_err=max(rels.values()), rel=rels,
+        bf16_elements_differing=diff,
+        ms=time_ms(torch, lambda: flash_attention_bwd(q, k, v, out, lse, do, causal), flush=flush),
+        plain_ms=time_ms(torch, lambda: flash_attention_bwd_ref(q, k, v, out, lse, do, causal),
+                         reps=5, flush=flush),
+        library_ms=sdpa_fwd_bwd_ms - sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+        sdpa_fwd_ms=sdpa_fwd_ms, bound_ms=bms, bound_by=bby,
+    )
+    del q, k, v, do, out, lse, qs, ks, vs
+    torch.cuda.empty_cache()
+    log(f"time flash_attention_bwd {row['shape']:28s} kernel {row['ms']:.4f} ms  plain "
+        f"{row['plain_ms']:.4f} ms  sdpa backward {row['library_ms']:.4f} ms (fwd+bwd "
+        f"{row['sdpa_fwd_bwd_ms']:.4f} - fwd {row['sdpa_fwd_ms']:.4f})  bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
 
 
-def build_train_model(torch, num_layers, seed):
-    """The bench's 370M training configuration, random weights from
-    ``seed``, in training mode."""
+def phase_flash_bwd_kernels(torch, gen, flush):
+    """Phase 11: kernel 4 at ``FLASH_BWD_SHAPES`` (``flash_bwd_row``)."""
+    return [flash_bwd_row(torch, gen, *shape, flush) for shape in FLASH_BWD_SHAPES]
+
+
+def build_train_model(torch, num_layers, seed, **overrides):
+    """The bench's 370M training configuration (``overrides`` on top),
+    random weights from ``seed``, in training mode."""
     from bitorch_engine_tpu_torch.models.llama import LlamaModel, llama_370m_train
     from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
 
-    model = LlamaModel(llama_370m_train(num_layers=num_layers), device="cuda", seed=seed)
-    return prepare_for_training(model)
+    cfg = llama_370m_train(num_layers=num_layers, **overrides)
+    return prepare_for_training(LlamaModel(cfg, device="cuda", seed=seed))
 
 
 def lm_loss(model, toks):
@@ -3368,7 +3438,9 @@ def tp_serve(torch, model, prompt, steps, mesh=None, forced=None, records=None, 
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from bitorch_engine_tpu_torch.parallel.comm import reset_comm_counts
 
-    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda", mesh=mesh)
+    # the caches split over a tp or dp mesh; an ep mesh holds them whole
+    cache_mesh = None if mesh is None or "ep" in mesh.shape else mesh
+    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda", mesh=cache_mesh)
     logits_seq, toks = [], []
     for i in range(steps + 1):
         torch.cuda.synchronize()
@@ -3821,6 +3893,656 @@ def phase_tp(torch):
     return rows, dict(ranks=ranks, summary=summary)
 
 
+def sp_launches(kind, coord):
+    """Kernel launches of one sp rank's train step (sp 2; remat runs every
+    forward twice): kernel 2 four times a projection (forward, recompute,
+    backward, DiodeMix); kernels 3 and 4 once a layer per attention block,
+    one for Ulysses, ``coord + 1`` for the ring (the blocks of later shards
+    are skipped)."""
+    blocks = 1 if kind == "ulysses" else coord + 1
+    return counts_with(dequant_mpq=4 * TRAIN_PROJ * TRAIN_LAYERS,
+                       flash_attention=2 * TRAIN_LAYERS * blocks,
+                       flash_attention_bwd=2 * TRAIN_LAYERS * blocks)
+
+
+def pp_launches():
+    """One pp rank's forward + backward (no optimizer step): its 12 blocks
+    over 4 microbatches, kernel 2 three times a projection, kernels 3 and 4
+    twice a block."""
+    per = TRAIN_LAYERS // PAR * PP_MICRO
+    return counts_with(dequant_mpq=3 * TRAIN_PROJ * per, flash_attention=2 * per,
+                       flash_attention_bwd=2 * per)
+
+
+def phase_par_kernels(torch, flush):
+    """Phase 20, the parent's part: kernel 2 at the 370M projections and
+    kernels 3 and 4 at one sp rank's attention (``SP_FLASH``) against their
+    plain versions, then timed (the card to itself)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows = {"dequant_mpq": [], "flash_attention": [], "flash_attention_bwd": []}
+    for name, (k, n) in TRAIN_SHAPES.items():
+        qt = mpq_weight(torch, gen, k, n, 4)
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        rows["dequant_mpq"].append(mpq_kernel_rows(torch, name, x, qt, flush)[2])
+        del qt
+    for name, b, nh, nkv, s, d, causal in SP_FLASH:
+        rows["flash_attention"].append(flash_row(torch, gen, name, b, nh, nkv, s, d, flush, causal))
+        rows["flash_attention_bwd"].append(
+            flash_bwd_row(torch, gen, name, b, nh, nkv, s, d, causal, flush))
+    for name, rs in rows.items():
+        for r in rs:
+            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            log(f"time {name:19s} {r['shape']:32s} kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {lib} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def probe_train_collectives(torch, mesh):
+    """Which collectives of the training layouts gloo runs on CUDA tensors as
+    they are (bf16 and f32; a refusal raises ``RuntimeError`` on every rank
+    alike); each kind of ``parallel.comm.CUDA_DIRECT['gloo']`` must be one."""
+    import torch.distributed as dist
+
+    group, out = mesh.group("sp"), {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.arange(8.0, device="cuda").to(dtype)
+        tries = {
+            "all_reduce": lambda: dist.all_reduce(t.clone(), group=group),
+            "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(PAR)], t,
+                                                  group=group),
+            "all_to_all": lambda: dist.all_to_all_single(torch.empty_like(t), t, group=group),
+            "broadcast": lambda: dist.broadcast(t.clone(), src=mesh.ranks["sp"][0], group=group),
+        }
+        for kind, fn in tries.items():
+            key = f"{kind}_{str(dtype)[6:]}"
+            try:
+                fn()
+                torch.cuda.synchronize()
+                out[key] = "takes CUDA tensors"
+            except RuntimeError as e:
+                out[key] = "refused: " + str(e).strip().splitlines()[0][:160]
+    return out
+
+
+def grad_rels(model, ref_grads, names=None):
+    """max|d|/max|ref| of each gradient of ``model`` (those ``names``, else
+    every one ``ref_grads`` holds) against the unsharded step's."""
+    params = dict(model.named_parameters())
+    out = {}
+    for name in names or ref_grads:
+        ref, g = ref_grads[name], params[name].grad
+        out[name] = float("inf") if g is None else (
+            (g.float() - ref).abs().max() / ref.abs().max()).item()
+    return out
+
+
+def packed_state(model):
+    """Every packed, zeros and scales buffer of the quantized layers."""
+    return {n: b for n, b in model.named_buffers() if n.endswith(("packed", "zeros", "scales"))}
+
+
+def par_loss(mesh):
+    """The bench's next-token loss on a ``(tokens, labels)`` batch, this
+    rank's share of the global mean with a mesh."""
+    from bitorch_engine_tpu_torch.training import cross_entropy_loss
+
+    def loss_fn(model, batch):
+        logits, _ = model(batch[0])
+        return cross_entropy_loss(logits, batch[1], mesh)
+
+    return loss_fn
+
+
+@contextmanager
+def par_record(torch, rec, meshes=(), profiled=True):
+    """Around one sub-phase's measured pass: launches, collectives (per
+    kind over ``meshes``), wall s, peak GiB and, under ``torch.profiler``,
+    device busy ms, into ``rec``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.parallel.comm import reset_comm_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for m in meshes:
+        reset_comm_counts(m)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+    if prof is not None:
+        prof.start()
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+        rec["busy_ms"] = _device_summary(torch, prof, wall, 1)["device_busy_ms_per_call"]
+    rec["wall_s"] = wall
+    rec["launches"] = {k: v for k, v in launch_counts().items() if v}
+    comm = {}
+    for m in meshes:
+        for kind, c in m.comm_counts.items():
+            acc = comm.setdefault(kind, {"calls": 0, "bytes": 0, "ms": 0.0, "staged": 0})
+            for key in acc:
+                acc[key] += c[key]
+    rec["comm"] = comm
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+
+def exact_attention(torch, q, k, v, do):
+    """Causal attention in f32 and its gradients against ``do`` (autograd
+    through the softmax), one batch row at a time: the exact values 20a's
+    bf16 paths are held to."""
+    L, scale = q.shape[2], q.shape[-1] ** -0.5
+    mask = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    parts = [[] for _ in range(4)]
+    for bi in range(q.shape[0]):
+        qq, kk, vv = (t[bi].float().requires_grad_() for t in (q, k, v))
+        p = torch.softmax(((qq @ kk.transpose(-1, -2)) * scale).masked_fill(~mask, float("-inf")),
+                          dim=-1)
+        o = p @ vv
+        o.backward(do[bi].float())
+        for acc, t in zip(parts, (o.detach(), qq.grad, kk.grad, vv.grad)):
+            acc.append(t)
+        del p, o
+    return [torch.stack(acc) for acc in parts]
+
+
+def sp_attention_checks(torch, mesh):
+    """20a at the attention: ring and Ulysses on one (8, 16, 2048, 64) bf16
+    q / k / v and output cotangent split over sp, outputs and gradients
+    gathered, against kernels 3 and 4 on the whole sequence and (the ring's
+    output) against its plain version on the same shards.  On the first sp
+    rank, the witness that tells rounding from a fault: each path's output
+    and gradients against the exact f32 attention (``exact_attention``),
+    beside kernels 3 and 4's own distance from it."""
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.ops.cuda.flash_attention import flash_attention_diff
+    from bitorch_engine_tpu_torch.parallel.comm import all_gather
+    from bitorch_engine_tpu_torch.parallel.ring_attention import ring_attention
+    from bitorch_engine_tpu_torch.parallel.ulysses import ulysses_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    b, h, L, d = TRAIN_BATCH, 16, TRAIN_SEQ, 64
+    q, k, v, do = (torch.randn(b, h, L, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    i, n = mesh.coord("sp"), mesh.size("sp")
+
+    def cut(t):
+        return t[:, :, i * L // n : (i + 1) * L // n].contiguous()
+
+    def run(fn, ins, cot):
+        """(out, dq, dk, dv) of ``fn`` and its kernel-3 launches."""
+        ins = [t.detach().clone().requires_grad_() for t in ins]
+        reset_launch_counts()
+        o = fn(*ins)
+        torch.cuda.synchronize()
+        launches = launch_counts()["flash_attention"]
+        o.backward(cot)
+        return [o.detach()] + [t.grad for t in ins], launches
+
+    names = ("out", "dq", "dk", "dv")
+    full, _ = run(flash_attention_diff, (q, k, v), do)
+    out = {}
+    exact = exact_attention(torch, q, k, v, do) if i == 0 else None
+    if exact is not None:
+        out["kernel_vs_exact"] = {nm: rel_err(f.float(), e) for nm, f, e in zip(names, full, exact)}
+    for kind, fn in (("ulysses", ulysses_attention), ("ring", ring_attention)):
+        parts, launches = run(lambda *t: fn(*t, mesh), [cut(t) for t in (q, k, v)], cut(do))
+        got = [all_gather(mesh, t, "sp", dim=2) for t in parts]
+        torch.cuda.synchronize()
+        rec = dict(launches=launches,
+                   equal=bool(torch.equal(got[0], full[0])),
+                   differing=(got[0] != full[0]).float().mean().item(),
+                   rel=rel_err(got[0].float(), full[0].float()),
+                   close=bool(torch.allclose(got[0].float(), full[0].float(), atol=1e-2, rtol=1e-2)),
+                   grads_equal=all(torch.equal(g, f) for g, f in zip(got[1:], full[1:])),
+                   grad_rel={nm: rel_err(g.float(), f.float())
+                             for nm, g, f in zip(names[1:], got[1:], full[1:])})
+        if exact is not None:
+            rec["vs_exact"] = {nm: rel_err(g.float(), e) for nm, g, e in zip(names, got, exact)}
+        if kind == "ring":
+            with plain_kernels():
+                plain = all_gather(mesh, ring_attention(*(cut(t) for t in (q, k, v)), mesh), "sp",
+                                   dim=2)
+            rec["vs_plain_differing"] = (got[0] != plain).float().mean().item()
+            rec["vs_plain_rel"] = rel_err(got[0].float(), plain.float())
+        out[kind] = rec
+        del parts, got
+    del q, k, v, do, full, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_grads(model):
+    """The f32 gradients of ``model``'s trainable tensors, by name."""
+    return {n: p.grad.float().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def rows_witness(torch, model, batch):
+    """The one-process witness of the half-row GEMMs, with no collective:
+    the unsharded model's gradients from the batch's two row halves, each
+    half's summed cross entropy over the whole batch's label count, summed
+    in f32 and cast as ``training.sum_gradients`` casts them.  That is what
+    a dp 2 step computes, so dp must equal it bit for bit; its distance
+    from the unsharded step is what running every GEMM on half the rows
+    alone moves the gradients.  Leaves the model's gradients cleared."""
+    import torch.nn.functional as F
+
+    toks, labels = batch
+    half = toks.shape[0] // 2
+    count = (labels != -100).sum().float()
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    acc, loss = {}, None
+    for r in range(2):
+        model.zero_grad(set_to_none=True)
+        logits, _ = model(toks[r * half : (r + 1) * half])
+        share = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                                labels[r * half : (r + 1) * half].reshape(-1).long(),
+                                reduction="sum") / count
+        share.backward()
+        loss = share.detach() if loss is None else loss + share.detach()
+        for n, p in params:
+            g = torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
+            acc[n] = g if r == 0 else acc[n] + g
+        del logits, share
+    model.zero_grad(set_to_none=True)
+    return dict(loss=float(loss), grads={n: acc[n].to(p.dtype).float() for n, p in params})
+
+
+def par_ref(torch, hp, seed, witness=False):
+    """The unsharded step from ``seed``'s weights and batch (every rank
+    alike) and, with ``witness``, first the rows witness from the same
+    weights: ``(batch, ref, rec)``."""
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, 32000, (TRAIN_BATCH, TRAIN_SEQ + 1), device="cuda", generator=gen)
+    batch = (toks[:, :-1].contiguous(), toks[:, 1:].contiguous())
+    t0 = time.perf_counter()
+    model = build_train_model(torch, TRAIN_LAYERS, seed)
+    rows = rows_witness(torch, model, batch) if witness else None
+    zeros = {n: b.clone() for n, b in packed_state(model).items() if n.endswith("zeros")}
+    rec = {}
+    with par_record(torch, rec, profiled=False):
+        rec["loss"] = float(make_train_step(model, par_loss(None), hp)(batch)["loss"])
+    after = packed_state(model)
+    ref = dict(loss=rec["loss"], after={n: b.clone() for n, b in after.items()},
+               grads=par_grads(model), rows=rows)
+    rec["build_and_step_s"] = time.perf_counter() - t0
+    rec["zeros_refreshed"] = sum(not torch.equal(b, after[n]) for n, b in zeros.items())
+    if rows is not None:
+        rels = {n: rel_err(rows["grads"][n], g) for n, g in ref["grads"].items()}
+        worst = max(rels, key=rels.get)
+        rec["rows_witness"] = dict(loss_rel=abs(rows["loss"] - ref["loss"]) / abs(ref["loss"]),
+                                   grad_rel=rels[worst], worst=worst)
+    del model
+    torch.cuda.empty_cache()
+    return batch, ref, rec
+
+
+def par_train_step(torch, rec, ref, model, mesh, meshes, batch, hp, against=None):
+    """One train step through ``make_train_step(mesh=)`` (profiled), its
+    loss and every gradient against the unsharded step's, and the packed
+    tensors after it against the unsharded step's.  ``against``: other
+    gradients by name (a witness's, another step's) whose distance is
+    recorded too.  Returns the step's f32 gradients."""
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    step = make_train_step(model, par_loss(mesh), hp, mesh=mesh)
+    with par_record(torch, rec, meshes):
+        rec["loss"] = float(step(batch)["loss"])
+    rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+    rels = grad_rels(model, ref["grads"])
+    rec["worst"] = max(rels, key=rels.get)
+    rec["grad_rel"] = rels[rec["worst"]]
+    if against is not None:
+        params = dict(model.named_parameters())
+        rels = grad_rels(model, against)
+        worst = max(rels, key=rels.get)
+        rec["against"] = dict(grad_rel=rels[worst], worst=worst, tensors=len(against),
+                              equal=sum(bool(torch.equal(params[n].grad.float(), g))
+                                        for n, g in against.items()))
+    rec["codes_differing"] = sum(int((b != ref["after"][n]).sum()) for n, b
+                                 in packed_state(model).items() if n.endswith("packed"))
+    rec["codes_total"] = sum(b.numel() * 32 // 4 for n, b in packed_state(model).items()
+                             if n.endswith("packed"))
+    del step
+    return par_grads(model)
+
+
+def par_rank():
+    """One rank of phase 20's world (two ranks on the one card, gloo), each
+    sub-phase against the unsharded 370M step both ranks run first from the
+    same weights and batch (``ref``):
+
+    * 20a: sp 2, ring and Ulysses, at the attention (``sp_attention_checks``)
+      and as a train step, from ``PAR_SEEDS``' weights and batches;
+    * 20b: dp 2 (a train step, also against rank 0's rows witness,
+      ``rows_witness``) and fsdp 2 (forward and backward on the
+      whole batch, the unsharded step's gradients put in their place, the
+      DiodeMix step with each rank's half of the rows);
+    * 20c: pp 2, the 24 blocks as 2 stages of 12 over 4 microbatches
+      (``models.llama.pipeline_forward``), loss and gradients;
+    * 20d: Mixtral-8x7B at 2 layers, ep 2 (4 experts a rank), prefill 8 ×
+      256 and ``EP_STEPS`` decode steps forced to rank 0's unsharded tokens.
+
+    Returns one JSON string (``json``) of its numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from bitorch_engine_tpu_torch.models.llama import pipeline_forward
+    from bitorch_engine_tpu_torch.models.llama_sharding import shard_llama_params
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.parallel import make_axes_mesh, make_mesh
+    from bitorch_engine_tpu_torch.training import cross_entropy_loss, make_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    mesh_sp, mesh_dp = make_axes_mesh(sp=PAR), make_mesh(dp=PAR, tp=1)
+    mesh_fsdp, mesh_pp = make_mesh(fsdp=PAR, tp=1), make_axes_mesh(pp=PAR)
+    mesh_ep = make_axes_mesh(ep=PAR)
+    out = dict(rank=rank, probe=probe_train_collectives(torch, mesh_sp))
+    # zeros refreshed every step: the fsdp step gathers refreshed zeros too
+    hp = DiodeHyperParams(lr=TRAIN_LR, zeros_update_interval=1)
+
+    # the unsharded step, on every rank (the same weights, batch and kernels);
+    # the first sp rank also runs the rows witness of the first seed
+    batch, ref, out["ref"] = par_ref(torch, hp, PAR_SEED, witness=rank == 0)
+    sums = torch.tensor([float(ref["loss"]), sum(float(g.double().sum()) for g in ref["grads"].values())],
+                        dtype=torch.float64)
+    both = [torch.empty_like(sums) for _ in range(PAR)]
+    dist.all_gather(both, sums)
+    out["ref_ranks_equal"] = bool(torch.equal(both[0], both[1]))
+
+    # 20a: sequence parallelism, from each seed's weights and batch; the
+    # Ulysses step's gradients also against the ring step's (the two differ
+    # only in the attention)
+    out["sp_attention"] = sp_attention_checks(torch, mesh_sp)
+    for seed in PAR_SEEDS:
+        tag = "" if seed == PAR_SEED else f"_seed{seed}"
+        seed_batch, seed_ref = batch, ref
+        if tag:
+            seed_batch, seed_ref, out[f"ref{tag}"] = par_ref(torch, hp, seed)
+        ring_grads = None
+        for kind in ("ring", "ulysses"):
+            rec = {}
+            model = build_train_model(torch, TRAIN_LAYERS, seed, sequence_parallel=kind,
+                                      sp_mesh=mesh_sp)
+            grads = par_train_step(torch, rec, seed_ref, model, mesh_sp, [mesh_sp], seed_batch, hp,
+                                   against=ring_grads)
+            ring_grads = grads if kind == "ring" else None
+            rec["expected"] = {k: v for k, v in sp_launches(kind, mesh_sp.coord("sp")).items() if v}
+            out[f"sp_{kind}{tag}"] = rec
+            del model, grads
+            torch.cuda.empty_cache()
+        if tag:
+            del seed_batch, seed_ref
+
+    # 20b: dp 2 (against the rows witness too), then fsdp 2
+    rec = {}
+    model = build_train_model(torch, TRAIN_LAYERS, PAR_SEED)
+    rows = ref.pop("rows")
+    par_train_step(torch, rec, ref, model, mesh_dp, [mesh_dp], batch, hp,
+                   against=None if rows is None else rows["grads"])
+    if rows is not None:
+        rec["against"]["loss_equal"] = rows["loss"] == rec["loss"]
+    rec["expected"] = {k: v for k, v in sp_launches("ulysses", 0).items() if v}
+    out["dp"] = rec
+    del model, rows
+    torch.cuda.empty_cache()
+    rec = {}
+    model = build_train_model(torch, TRAIN_LAYERS, PAR_SEED)
+    step = make_train_step(model, par_loss(mesh_fsdp), hp, mesh=mesh_fsdp)
+    opt = step.optimizer
+    params = dict(model.named_parameters())
+    with par_record(torch, rec, [mesh_fsdp]):
+        opt.zero_grad()
+        loss = par_loss(mesh_fsdp)(model, batch)
+        loss.backward()
+        rec["loss"] = float(loss)
+        rec["grads_equal_unsharded"] = sum(bool(torch.equal(params[n].grad.float(), g))
+                                           for n, g in ref["grads"].items())
+        for n, g in ref["grads"].items():  # the same gradients as the unsharded step
+            params[n].grad.copy_(g)
+        zeros = {n: b.clone() for n, b in packed_state(model).items() if n.endswith("zeros")}
+        opt.step()
+    rec["zeros_refreshed"] = sum(not torch.equal(b, dict(model.named_buffers())[n])
+                                 for n, b in zeros.items())
+    rec["zeros"] = len(zeros)
+    rec["row_gathers_expected"] = 2 * len(opt.mpq) + len(opt.rows) - len(opt.mpq)
+    rec["grads"] = len(ref["grads"])
+    rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+    after = packed_state(model)
+    rec["buffers_differing"] = {n: int((b != ref["after"][n]).sum()) for n, b in after.items()
+                                if not torch.equal(b, ref["after"][n])}
+    rec["buffers"] = len(after)
+    moments = opt.state["layer_0.attn.q_proj"]["exp_avg_l"]
+    rec["moment_rows"] = [moments.shape[0], model.layer_0.attn.q_proj.qweight.in_features]
+    rec["expected"] = {k: v for k, v in sp_launches("ulysses", 0).items() if v}
+    out["fsdp"] = rec
+    del model, step, opt, params, after, moments, zeros
+    torch.cuda.empty_cache()
+
+    # 20c: pp 2
+    rec = {}
+    model = build_train_model(torch, TRAIN_LAYERS, PAR_SEED)
+    with par_record(torch, rec, [mesh_pp]):
+        loss = cross_entropy_loss(pipeline_forward(model, batch[0], mesh_pp,
+                                                   num_microbatches=PP_MICRO), batch[1])
+        loss.backward()
+        rec["loss"] = float(loss)
+    rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+    per = TRAIN_LAYERS // PAR
+    mine = [f"layer_{i}." for i in range(mesh_pp.coord("pp") * per, (mesh_pp.coord("pp") + 1) * per)]
+    names = [n for n in ref["grads"] if not n.startswith("layer_") or n.startswith(tuple(mine))]
+    rels = grad_rels(model, ref["grads"], names)
+    rec["worst"] = max(rels, key=rels.get)
+    rec["grad_rel"], rec["grads"] = rels[rec["worst"]], len(names)
+    rec["others_without_grad"] = all(p.grad is None for n, p in model.named_parameters()
+                                     if p.requires_grad and n not in names)
+    rec["expected"] = {k: v for k, v in pp_launches().items() if v}
+    out["pp"] = rec
+    del model, loss
+    ref.clear()
+    torch.cuda.empty_cache()
+
+    # 20d: ep 2 on Mixtral, 2 layers
+    model = build_model(torch, EP_LAYERS, SEED, config="mixtral_8x7b_serving")
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
+    forced = torch.zeros((BATCH, EP_STEPS + 1), dtype=torch.int64)
+    rec = {}
+    if rank == 0:
+        want, want_toks = tp_serve(torch, model, prompt, EP_STEPS)
+        forced.copy_(want_toks.cpu())
+    dist.broadcast(forced, src=0)
+    forced = forced.cuda()
+    shard_llama_params(model, mesh_ep)
+    rec["experts_a_layer"] = len(model.layer_0.mlp.experts)
+    records = []
+    with par_record(torch, rec, [mesh_ep]):
+        got, _ = tp_serve(torch, model, prompt, EP_STEPS, mesh=mesh_ep, forced=forced,
+                          records=records)
+    rec["records"] = records
+    rec["expected"] = {"mpq_matmul": EP_LAYERS * (2 + 3 * MOE_EXPERTS // PAR) + 1}
+    rec["checksums"] = [float(g.double().sum()) for g in got]
+    if rank == 0:
+        rec["rel_errs"] = [rel_err(g, w) for g, w in zip(got, want)]
+        rec["passes_equal"] = sum(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    out["ep"] = rec
+    return {"json": json.dumps(out)}
+
+
+def phase_par(torch):
+    """Phase 20: the parallel training slice.  20's kernel rows in this
+    process, then the 2-rank world (``par_rank``), spawned with the kernels
+    already built, joined under a deadline; its numbers printed per rank
+    and sub-phase, then held to their checks."""
+    from bitorch_engine_tpu_torch.parallel.comm import CUDA_DIRECT
+    from bitorch_engine_tpu_torch.parallel.multiprocess import launch_world
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    rows = phase_par_kernels(torch, flush)
+    del flush
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = [json.loads(str(r["json"])) for r in launch_world(
+        "chip_smoke:par_rank", PAR, timeout=PAR_WORLD_TIMEOUT,
+        collective_timeout=PAR_COLLECTIVE_TIMEOUT)]
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    fails = []
+
+    def expect(ok, what):
+        if not ok:
+            fails.append(what)
+
+    def comm_text(comm):
+        return "  ".join(f"{k} {c['calls']}x {c['bytes'] / 2**20:.1f} MiB {c['ms']:.1f} ms "
+                         f"({c['staged']} staged)" for k, c in sorted(comm.items()))
+
+    def report(key, label):
+        for r in ranks:
+            rec = r[key]
+            busy = f"busy {rec['busy_ms']:.1f} ms, " if "busy_ms" in rec else ""
+            log(f"{label} rank {r['rank']}: wall {rec['wall_s']:.2f} s ({TP_LABEL}), {busy}"
+                f"peak {rec['peak_gib']:.2f} GiB, launches {rec['launches']} (expected "
+                f"{rec.get('expected')}); {comm_text(rec['comm'])}")
+
+    log(f"20 ({TP_LABEL}): world of {PAR} ran {world_s:.1f} s; collectives on CUDA tensors: "
+        f"{r0['probe']}")
+    for kind in CUDA_DIRECT["gloo"]:
+        expect(all(r0["probe"][f"{kind}_{dt}"] == "takes CUDA tensors" for dt in ("float32", "bfloat16")),
+               f"20: comm.CUDA_DIRECT names {kind} for gloo, which the probe refused")
+    for r in ranks:
+        for key in [k for k in r if k.startswith("ref") and isinstance(r[k], dict)]:
+            rec = r[key]
+            log(f"20 rank {r['rank']} unsharded step ({key}): loss {rec['loss']:.6f}, "
+                f"{rec['build_and_step_s']:.1f} s built and stepped; launches {rec['launches']}; "
+                f"zeros refreshed in {rec['zeros_refreshed']} buffers")
+    expect(r0["ref_ranks_equal"], "20: the two ranks' unsharded steps differ")
+    w = r0["ref"]["rows_witness"]
+    ring_bar = max(TRAIN_GRAD_REL, SP_RING_WITNESS_FACTOR * w["grad_rel"])
+    log(f"20 rows witness (one process, the batch's two row halves, f32 sum) vs the unsharded "
+        f"step: loss rel {w['loss_rel']:.3e}, max grad rel {w['grad_rel']:.3e} ({w['worst']}); "
+        f"the ring steps' gradient bar max({TRAIN_GRAD_REL}, {SP_RING_WITNESS_FACTOR} x witness) "
+        f"= {ring_bar:.3e}")
+
+    for kind in ("ulysses", "ring"):
+        for r in ranks:
+            a = r["sp_attention"][kind]
+            plain = (f", vs its plain version {a['vs_plain_differing']:.2e} of bf16 outputs differing "
+                     f"(rel {a['vs_plain_rel']:.3e})" if kind == "ring" else "")
+            log(f"20a {kind} attention rank {r['rank']} (8 x 16 heads x 2048, gathered) vs kernel 3 "
+                f"on the whole sequence: bit-equal {a['equal']}, {a['differing']:.2e} of bf16 outputs "
+                f"differing, rel {a['rel']:.3e}{plain}; {a['launches']} kernel-3 launches")
+            log(f"20a {kind} attention rank {r['rank']} gradients vs kernel 4 on the whole sequence: "
+                f"bit-equal {a['grads_equal']}, max|d|/max|ref| "
+                + ", ".join(f"{nm} {x:.3e}" for nm, x in a["grad_rel"].items()))
+            expect(a["close"], f"20a {kind} attention rank {r['rank']}: not within 1e-2 of kernel 3")
+            if kind == "ring":
+                expect(a["vs_plain_differing"] <= FWD_DIFFERING_MAX,
+                       f"20a ring attention rank {r['rank']}: {a['vs_plain_differing']} of outputs "
+                       "differ from its plain version")
+            else:
+                expect(a["differing"] <= FWD_DIFFERING_MAX,
+                       f"20a Ulysses attention rank {r['rank']}: {a['differing']} of outputs differ")
+    exact = r0["sp_attention"]["kernel_vs_exact"]
+    log("20a witness, against the exact f32 attention (max|d|/max|exact|): kernels 3 + 4 on the "
+        "whole sequence " + ", ".join(f"{nm} {x:.3e}" for nm, x in exact.items()))
+    for kind in ("ulysses", "ring"):
+        got = r0["sp_attention"][kind]["vs_exact"]
+        log(f"20a witness: {kind} " + ", ".join(
+            f"{nm} {x:.3e} ({x / exact[nm]:.2f}x the kernels')" for nm, x in got.items()))
+        for nm, x in got.items():
+            expect(x <= SP_EXACT_FACTOR * exact[nm],
+                   f"20a {kind} attention {nm}: {x} from the exact values, over {SP_EXACT_FACTOR} x "
+                   f"kernels 3 + 4's {exact[nm]}")
+    steps = [("sp_ring", "20a sp 2 ring"), ("sp_ulysses", "20a sp 2 Ulysses")]
+    steps += [(f"{key}_seed{seed}", f"{label}, seed {seed}") for seed in PAR_SEEDS[1:]
+              for key, label in list(steps)]
+    for key, label in steps + [("dp", "20b dp 2"), ("pp", "20c pp 2")]:
+        report(key, label)
+        for r in ranks:
+            rec = r[key]
+            codes = (f"; packed codes differing from the unsharded step's after it "
+                     f"{rec['codes_differing']} of {rec['codes_total']}" if "codes_differing" in rec else "")
+            log(f"{label} rank {r['rank']}: loss {rec['loss']:.6f} (rel {rec['loss_rel']:.3e}), max grad "
+                f"rel {rec['grad_rel']:.3e} ({rec['worst']}){codes}")
+            if "against" in rec:
+                a = rec["against"]
+                what = "the rows witness" if key == "dp" else "the ring step's"
+                log(f"{label} rank {r['rank']} gradients vs {what}: {a['equal']} of {a['tensors']} "
+                    f"bit-equal, max grad rel {a['grad_rel']:.3e} ({a['worst']})"
+                    + (f", loss equal {a['loss_equal']}" if "loss_equal" in a else ""))
+            if key == "dp" and r["rank"] == 0:
+                a = rec["against"]
+                expect(a["equal"] == a["tensors"] and a["loss_equal"],
+                       f"20b dp: {a['tensors'] - a['equal']} gradients (worst {a['worst']}, "
+                       f"{a['grad_rel']}) or the loss off the rows witness")
+            bar = ring_bar if key.startswith("sp_ring") else TRAIN_GRAD_REL
+            expect(rec["loss_rel"] <= TRAIN_LOSS_REL, f"{label} rank {r['rank']}: loss rel {rec['loss_rel']}")
+            expect(rec["grad_rel"] <= bar,
+                   f"{label} rank {r['rank']}: {rec['worst']} grad rel {rec['grad_rel']} > {bar}")
+            expect(rec["launches"] == rec["expected"],
+                   f"{label} rank {r['rank']}: launches {rec['launches']} != {rec['expected']}")
+        if key == "pp":
+            expect(all(r["pp"]["others_without_grad"] for r in ranks),
+                   "20c: a rank holds gradients of the other stage's blocks")
+    report("fsdp", "20b fsdp 2")
+    for r in ranks:
+        rec = r["fsdp"]
+        log(f"20b fsdp 2 rank {r['rank']}: loss {rec['loss']:.6f} (rel {rec['loss_rel']:.3e}); its own "
+            f"gradients bit-equal to the unsharded step's: {rec['grads_equal_unsharded']} of "
+            f"{rec['grads']}; given those, packed / zeros / scales differing after the step: "
+            f"{rec['buffers_differing'] or 'none'} of {rec['buffers']} buffers; moments keep "
+            f"{rec['moment_rows'][0]} of {rec['moment_rows'][1]} rows")
+        gathers = rec["comm"].get("all_gather", {}).get("calls", 0)
+        log(f"20b fsdp 2 rank {r['rank']}: zeros refreshed in {rec['zeros_refreshed']} of "
+            f"{rec['zeros']} buffers; {gathers} row all-gathers (expected "
+            f"{rec['row_gathers_expected']}: packed words and zeros of each MPQ weight, fp rows)")
+        expect(not rec["buffers_differing"], f"20b fsdp rank {r['rank']}: {rec['buffers_differing']}")
+        expect(rec["zeros_refreshed"] > 0, f"20b fsdp rank {r['rank']}: no zeros refreshed")
+        expect(gathers == rec["row_gathers_expected"],
+               f"20b fsdp rank {r['rank']}: {gathers} all-gathers != {rec['row_gathers_expected']}")
+        expect(rec["moment_rows"][0] * PAR == rec["moment_rows"][1], "20b fsdp: moments not row-cut")
+        expect(rec["launches"] == rec["expected"],
+               f"20b fsdp rank {r['rank']}: launches {rec['launches']} != {rec['expected']}")
+    report("ep", "20d ep 2")
+    ep_pass = counts_with(mpq_matmul=EP_LAYERS * (2 + 3 * MOE_EXPERTS // PAR) + 1)
+    ep_prefill = counts_with(dequant_mpq=EP_LAYERS * (2 + 3 * MOE_EXPERTS // PAR) + 1,
+                             flash_attention=EP_LAYERS)
+    for r in ranks:
+        rec = r["ep"]
+        recs = rec["records"]
+        log(f"20d ep 2 rank {r['rank']}: {rec['experts_a_layer']} experts a layer; prefill launches "
+            f"{recs[0]['launches']}, a decode step {recs[1]['launches']}; "
+            f"prefill {comm_text(recs[0]['comm'])}")
+        expect(rec["experts_a_layer"] == MOE_EXPERTS // PAR, "20d: experts not split")
+        expect(recs[0]["launches"] == {k: v for k, v in ep_prefill.items() if v},
+               f"20d rank {r['rank']} prefill launches {recs[0]['launches']}")
+        for one in recs[1:]:
+            expect(one["launches"] == {k: v for k, v in ep_pass.items() if v},
+                   f"20d rank {r['rank']} step {one['step']} launches {one['launches']}")
+    log(f"20d ep 2 vs unsharded: logits max|d|/max|ref| prefill {r0['ep']['rel_errs'][0]:.3e}, decode "
+        f"max {max(r0['ep']['rel_errs'][1:]):.3e}; {r0['ep']['passes_equal']} of {EP_STEPS + 1} passes "
+        "bit-equal")
+    expect(max(r0["ep"]["rel_errs"]) <= 2e-2, f"20d: ep logits {max(r0['ep']['rel_errs'])} > 2e-2")
+    expect(ranks[0]["ep"]["checksums"] == ranks[1]["ep"]["checksums"], "20d: the ranks' logits differ")
+    check(not fails, "; ".join(fails))
+    summary = dict(label=TP_LABEL, world_s=world_s, probe=r0["probe"],
+                   sp_attention=[r["sp_attention"] for r in ranks],
+                   **{key: [{k: v for k, v in r[key].items() if k != "records"} for r in ranks]
+                      for key in ("ref", "dp", "fsdp", "pp", "ep") + tuple(k for k, _ in steps)
+                      + tuple(f"ref_seed{seed}" for seed in PAR_SEEDS[1:])})
+    return rows, dict(ranks=ranks, summary=summary)
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -3933,6 +4655,9 @@ def main() -> int:
 
     # the parallel slice
     tp_rows, tp = phase_tp(torch)
+
+    # the parallel training slice
+    par_rows, par = phase_par(torch)
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -4121,10 +4846,42 @@ def main() -> int:
             {key: sub[key] for key in keys}, label=TP_LABEL,
             max_abs_err=max(r["max_abs_err"] for r in rows), max_err=max(r["rel_err"] for r in rows),
             rows=rows)
+    # the parallel training path (phase 20): one sp rank's launches in its
+    # train step, priced at the 370M projections (kernel 2) and at one sp
+    # rank's attention blocks (kernels 3 and 4: the ring's rank 1, which
+    # runs the diagonal and the earlier block, and a Ulysses rank)
+    p_ranks = par["ranks"]
+    proj_calls = {name: 4 * TRAIN_LAYERS for name in TRAIN_SHAPES}
+    ring1, uly0 = p_ranks[1]["sp_ring"]["launches"], p_ranks[0]["sp_ulysses"]["launches"]
+    par_passes = {
+        ("dequant_mpq", "sp"): (p_ranks[0]["sp_ring"]["launches"]["dequant_mpq"], proj_calls,
+                                "one train step of one sp rank (8 x 1024 tokens, sp 2)"),
+        ("flash_attention", "sp_ring"): (
+            ring1["flash_attention"], {SP_RING_DIAG: 2 * TRAIN_LAYERS, SP_RING_OFF: 2 * TRAIN_LAYERS},
+            "one train step of ring rank 1 (the diagonal and the earlier block a layer, twice)"),
+        ("flash_attention", "sp_ulysses"): (
+            uly0["flash_attention"], {SP_ULYSSES: 2 * TRAIN_LAYERS},
+            "one train step of a Ulysses rank (8 of 16 heads over 2048 positions a layer, twice)"),
+        ("flash_attention_bwd", "sp_ring"): (
+            ring1["flash_attention_bwd"], {SP_RING_DIAG: TRAIN_LAYERS, SP_RING_OFF: TRAIN_LAYERS},
+            "one train step of ring rank 1 (a backward of 2 launches per block)"),
+        ("flash_attention_bwd", "sp_ulysses"): (
+            uly0["flash_attention_bwd"], {SP_ULYSSES: TRAIN_LAYERS},
+            "one train step of a Ulysses rank (a backward of 2 launches a layer)"),
+    }
+    for (name, key), (launches, weights, per) in par_passes.items():
+        rows = [r for r in par_rows[name] if r["shape"] in weights]
+        sub = kernel_line(name, rows, launches, weights, per, checks[name])
+        keys = ("launches", "per", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        by_name[name][key] = dict(
+            {k: sub[k] for k in keys}, label=TP_LABEL,
+            max_abs_err=max(r["max_abs_err"] for r in rows), max_err=max(r["rel_err"] for r in rows),
+            rows=rows)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
                     "qat": qat, "checkpoint": ckpt, "ragged_g_idx": act_rows["ragged_counts"],
-                    "moe": moe, "tp": tp["summary"], "seconds": time.perf_counter() - t_start}))
+                    "moe": moe, "tp": tp["summary"], "par": par["summary"],
+                    "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

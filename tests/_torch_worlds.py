@@ -222,3 +222,351 @@ def overlap_world():
         except ValueError:
             out[f"raises_{name}"] = np.asarray(1)
     return out
+
+
+# (name, kind, ranks, seed, b, h, L, d): tests/test_ring_attention.py's inputs
+# at 2 and 4 ranks (L = 8 per rank), and its ring-vs-Ulysses input
+ATTENTION_CASES = [
+    *[(f"ring{n}", "ring", n, 0, 2, 4, 8 * n, 32) for n in (2, 4)],
+    *[(f"ulysses{n}", "ulysses", n, 3, 2, 8, 8 * n, 32) for n in (2, 4)],
+    *[(f"agree_{kind}", kind, 4, 4, 1, 8, 64, 16) for kind in ("ring", "ulysses")],
+]
+
+
+def attention_inputs(seed, b, h, L, d):
+    """q, k, v as the JAX test draws them, and a cotangent for the vjp."""
+    rng = np.random.default_rng(seed)
+    qkv = [rng.standard_normal((b, h, L, d)).astype(np.float32) for _ in range(3)]
+    return qkv + [np.random.default_rng(seed + 100).standard_normal((b, h, L, d)).astype(np.float32)]
+
+
+def attention_world():
+    """``test_torch_ring_attention.py``: each case's output shard and the
+    shards of its q / k / v gradients (the vjp of the cotangent) on a
+    4-rank world, ``sp`` 4 or ``sp`` 2 (a dp 2 × sp 2 mesh: ranks 0 and 1
+    hold the first group); Ulysses with heads the axis does not divide."""
+    from bitorch_engine_tpu_torch.parallel import make_axes_mesh, ring_attention, ulysses_attention
+
+    meshes = {4: make_axes_mesh(sp=4), 2: make_axes_mesh(dp=2, sp=2)}
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    out = {}
+    for name, kind, n, seed, b, h, L, d in ATTENTION_CASES:
+        mesh = meshes[n]
+        i, per = mesh.coord("sp"), L // n
+        q, k, v, g = (torch.from_numpy(a[:, :, i * per : (i + 1) * per].copy())
+                      for a in attention_inputs(seed, b, h, L, d))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        y = fns[kind](q, k, v, mesh)
+        y.backward(g)
+        out[f"{name}_out"], out[f"{name}_dq"] = y.detach(), q.grad
+        out[f"{name}_dk"], out[f"{name}_dv"] = k.grad, v.grad
+    try:
+        x = torch.zeros(1, 6, 8, 4)
+        ulysses_attention(x, x, x, meshes[4])
+        out["ulysses_heads_raise"] = np.asarray(0)
+    except ValueError as e:
+        out["ulysses_heads_raise"] = np.asarray(int("not divisible" in str(e)))
+    return out
+
+
+def lm_batch(tokens):
+    """``(tokens, labels)``: each position's next token, the last -100 (no
+    label), so a split of both along the sequence keeps every label."""
+    tokens = torch.from_numpy(np.array(tokens)).long()
+    return tokens, torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -100)], dim=1)
+
+
+def lm_loss(mesh):
+    from bitorch_engine_tpu_torch.training import cross_entropy_loss
+
+    def loss_fn(model, batch):
+        return cross_entropy_loss(model(batch[0])[0], batch[1], mesh)
+
+    return loss_fn
+
+
+def sp_world(ckpt, tokens):
+    """``test_torch_sequence_parallel.py`` on 4 ranks: the tiny f32 Llama
+    at sp 4, ring and Ulysses: its logits shard, and one DiodeMix step's
+    loss and summed gradients; then a dp 2 × sp 2 ring step with remat
+    (its packed codes after the step)."""
+    from bitorch_engine_tpu_torch.models.llama import tiny_llama
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.parallel import make_axes_mesh
+    from bitorch_engine_tpu_torch.training import make_train_step
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    batch = lm_batch(tokens)
+    out = {}
+    for key, kind, mesh, kw in (
+        ("ring", "ring", make_axes_mesh(sp=4), {}),
+        ("ulysses", "ulysses", make_axes_mesh(sp=4), {}),
+        ("dp2_sp2", "ring", make_axes_mesh(dp=2, sp=2), {"remat": True}),
+    ):
+        cfg = tiny_llama(dtype=torch.float32, sequence_parallel=kind, sp_mesh=mesh, **kw)
+        model = load_model(cfg, ckpt)
+        if key != "dp2_sp2":
+            with torch.no_grad():
+                out[f"{key}_logits"] = model(shard_seq(batch[0], mesh))[0]
+        model = prepare_for_training(model)
+        step = make_train_step(model, lm_loss(mesh), DiodeHyperParams(lr=1e-3), mesh=mesh)
+        out[f"{key}_loss"] = step(batch)["loss"]
+        for name, p in model.named_parameters():
+            out[f"{key}_grad_{name}"] = p.grad
+        for name, b in model.named_buffers():
+            if name.endswith("packed"):
+                out[f"{key}_after_{name}"] = b
+    return out
+
+
+def shard_seq(t, mesh):
+    """This rank's positions (dim 1) of ``t`` over ``sp``."""
+    n, i = mesh.size("sp"), mesh.coord("sp")
+    per = t.shape[1] // n
+    return t[:, i * per : (i + 1) * per]
+
+
+def pipeline_stages(case):
+    """``tests/test_pipeline.py``'s stages and input, case ``outputs``,
+    ``grads`` or ``quantized`` (the JAX test's draws, in its order)."""
+    if case == "outputs":
+        rng = np.random.default_rng(0)
+        stages = [{"w": rng.standard_normal((16, 16)).astype(np.float32) * 0.3,
+                   "b": rng.standard_normal(16).astype(np.float32)} for _ in range(4)]
+        return stages, rng.standard_normal((8, 16)).astype(np.float32)
+    if case == "grads":
+        rng = np.random.default_rng(1)
+        stages = [{"w": rng.standard_normal((8, 8)).astype(np.float32) * 0.3} for _ in range(4)]
+        return stages, rng.standard_normal((8, 8)).astype(np.float32)
+    rng = np.random.default_rng(2)
+    stages = [rng.standard_normal((64, 64)).astype(np.float32) * 0.2 for _ in range(4)]
+    return stages, rng.standard_normal((4, 64)).astype(np.float32)
+
+
+def _stage_fns():
+    import torch.nn.functional as F
+
+    from bitorch_engine_tpu_torch.ops.mpq_linear import mpq_linear
+
+    return {"outputs": lambda p, x: torch.tanh(x @ p["w"] + p["b"]),
+            "grads": lambda p, x: torch.tanh(x @ p["w"]),
+            "quantized": lambda qt, x: F.gelu(mpq_linear(x, qt), approximate="tanh")}
+
+
+def pipeline_world(tiny_tokens):
+    """``test_torch_pipeline.py`` on 4 ranks: the JAX test's three cases at
+    pp 4 (the output on every rank; this rank's stage gradients), and the
+    tiny f32 Llama through ``pipeline_forward`` at pp 2 (a dp 2 × pp 2
+    mesh) against the same model unpipelined: logits, loss gradients."""
+    from bitorch_engine_tpu_torch.models.llama import LlamaModel, pipeline_forward, tiny_llama
+    from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
+    from bitorch_engine_tpu_torch.parallel import (
+        make_axes_mesh, pipeline_apply, stack_stages, stage_shardings,
+    )
+    from bitorch_engine_tpu_torch.training import cross_entropy_loss
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    mesh = make_axes_mesh(pp=4)
+    fns, out = _stage_fns(), {}
+    for case, micro in (("outputs", 4), ("grads", 2), ("quantized", 4)):
+        stages, x = pipeline_stages(case)
+        if case == "quantized":
+            stages = [quantize_mpq(torch.from_numpy(w), w_bit=4, group_size=32) for w in stages]
+        else:
+            stages = [{k: torch.from_numpy(v) for k, v in st.items()} for st in stages]
+        mine = stage_shardings(mesh, stack_stages(stages))
+        if case == "grads":
+            mine["w"].requires_grad_()
+        y = pipeline_apply(fns[case], mine, torch.from_numpy(x), mesh, num_microbatches=micro)
+        out[f"{case}_out"] = y.detach()
+        if case == "grads":
+            torch.mean(y ** 2).backward()
+            out["grads_w"] = mine["w"].grad
+
+    mesh2 = make_axes_mesh(dp=2, pp=2)
+    tokens, labels = lm_batch(tiny_tokens)
+    model = prepare_for_training(LlamaModel(tiny_llama(dtype=torch.float32), device="cpu", seed=5))
+    for key, fwd in (("plain", lambda: model(tokens)[0]),
+                     ("piped", lambda: pipeline_forward(model, tokens, mesh2, num_microbatches=2))):
+        model.zero_grad(set_to_none=True)
+        logits = fwd()
+        cross_entropy_loss(logits, labels).backward()
+        out[f"llama_{key}_logits"] = logits.detach()
+        for name, p in model.named_parameters():
+            out[f"llama_{key}_grad_{name}"] = np.zeros(0) if p.grad is None else p.grad
+    out["llama_stage"] = np.asarray(mesh2.coord("pp"))
+    return out
+
+
+def failing_world(where):
+    """Rank 1 raises inside the pipeline's schedule (its second
+    microbatch) or the ring's backward (its first block, before it sends
+    its dK/dV on), while rank 0 waits on it in a collective or a receive."""
+    import importlib
+
+    from bitorch_engine_tpu_torch.parallel import make_axes_mesh, pipeline_apply, ring_attention
+
+    # the module (the package attribute of the same name is the function)
+    ring_mod = importlib.import_module("bitorch_engine_tpu_torch.parallel.ring_attention")
+    rank = torch.distributed.get_rank()
+    calls = []
+
+    def fail_at(n, fn):
+        def wrapped(*args, **kw):
+            calls.append(1)
+            if rank == 1 and len(calls) == n:
+                raise RuntimeError(f"rank 1 fails in the {where}")
+            return fn(*args, **kw)
+        return wrapped
+
+    if where == "pipeline":
+        mesh = make_axes_mesh(pp=2)
+        pipeline_apply(fail_at(2, lambda p, x: x * p), torch.tensor(2.0), torch.ones(4, 3), mesh,
+                       num_microbatches=4)
+    else:
+        mesh = make_axes_mesh(sp=2)
+        ring_mod._fa.flash_attention_bwd = fail_at(1, ring_mod._fa.flash_attention_bwd)
+        x = torch.ones(1, 2, 8, 4, requires_grad=True)
+        ring_attention(x, x, x, mesh).sum().backward()
+    return {}
+
+
+def _mpq_step(qt, x, y, mesh, hp, cut):
+    """``test_optimizer_state_sharding``'s step on this rank: ``cut`` the
+    record (``"tp"``: its columns; ``None``: whole, the moments' rows over
+    fsdp), the loss share ``sum((x @ W - y)²) / (8 · 256)`` over its
+    columns, one DiodeMix step; the packed codes gathered whole, and the
+    moments' specs."""
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+    from bitorch_engine_tpu_torch.parallel import optimizer_partition_specs, shard_params
+    from bitorch_engine_tpu_torch.parallel.comm import all_gather
+    from bitorch_engine_tpu_torch.optim import DiodeMix
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    local = shard_params({"q": qt}, mesh)["q"] if cut == "tp" else qt
+    layer = prepare_for_training(MPQLinear(local.in_features, local.out_features,
+                                           dtype=torch.float32, qweight=local))
+    opt = DiodeMix(layer, hp, mesh=mesh)
+    n = local.out_features
+    cols = slice(mesh.coord("tp") * n, (mesh.coord("tp") + 1) * n)
+    (torch.sum((layer(x) - y[:, cols]) ** 2) / y.numel()).backward()
+    opt.step()
+    packed = all_gather(mesh, layer.packed, "tp", dim=1)
+    specs = optimizer_partition_specs(opt, fsdp_axis="fsdp" if cut is None else None)
+    return packed, specs, opt.state[""]["exp_avg_l"].shape
+
+
+def training_world():
+    """``test_torch_parallel_training.py`` on 4 ranks: the optimizer-state
+    case at tp 4 (columns) and fsdp 4 (moment rows); the tiny f32 Llama
+    trained 5 steps (the zeros refresh at step 5) at dp 2 × fsdp 2, fsdp 4
+    and dp 4, and unsharded in the same process; the refusals."""
+    from bitorch_engine_tpu_torch.models.llama import LlamaModel, tiny_llama
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams, DiodeMix, GaLoreConfig
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.training import make_train_step
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    out = {}
+    hp = DiodeHyperParams(lr=1e-3)
+    qt = mk_qt(k=128, n=256, gs=32)
+    x, y = normal(7, (8, 128)), normal(8, (8, 256))
+    for key, mesh, cut in (("tp4", make_mesh(tp=4), "tp"), ("fsdp4", make_mesh(fsdp=4, tp=1), None)):
+        packed, specs, shape = _mpq_step(qt, x, y, mesh, hp, cut)
+        out[f"opt_{key}_packed"] = packed
+        out[f"opt_{key}_specs"] = np.asarray([list(specs["state"][""][k]) for k in
+                                              ("exp_avg_l", "exp_avg_s")], dtype=object).astype(str)
+        out[f"opt_{key}_moment_shape"] = np.asarray(shape)
+
+    rng = np.random.default_rng(9)
+    batches = [lm_batch(rng.integers(0, 256, (4, 16))) for _ in range(5)]
+    meshes = {"none": None, "dp2_fsdp2": make_mesh(dp=2, fsdp=2, tp=1),
+              "fsdp4": make_mesh(fsdp=4, tp=1), "dp4": make_mesh(dp=4, tp=1)}
+    for key, mesh in meshes.items():
+        model = prepare_for_training(LlamaModel(tiny_llama(dtype=torch.float32), device="cpu", seed=4))
+        step = make_train_step(model, lm_loss(mesh), hp, mesh=mesh)
+        out[f"llama_{key}_losses"] = np.asarray([float(step(b)["loss"]) for b in batches])
+        for name, t in list(model.named_buffers()) + list(model.named_parameters()):
+            if name.endswith(("packed", "zeros", "embed", "weight")):
+                out[f"llama_{key}_{name}"] = t.detach()
+        if mesh is not None and mesh.size("fsdp") > 1:
+            out[f"llama_{key}_moment_rows"] = np.asarray(
+                step.optimizer.state["layer_0.mlp.down_proj"]["exp_avg_l"].shape[0])
+
+    fsdp4 = meshes["fsdp4"]
+    refusals = {
+        "groups": lambda: DiodeMix(prepare_for_training(LlamaModel(
+            tiny_llama(dtype=torch.float32, group_size=128), device="cpu")), hp, mesh=fsdp4),
+        "galore": lambda: DiodeMix(prepare_for_training(LlamaModel(
+            tiny_llama(dtype=torch.float32), device="cpu")),
+            DiodeHyperParams(galore=GaLoreConfig(rank=4)), mesh=fsdp4),
+    }
+    for name, fn in refusals.items():
+        try:
+            fn()
+            out[f"raises_{name}"] = np.asarray("")
+        except (ValueError, NotImplementedError) as e:
+            out[f"raises_{name}"] = np.asarray(f"{type(e).__name__}: {e}")
+    return out
+
+
+def _experts_from(path, static):
+    """The stacked experts saved by ``test_torch_expert_parallel.py``: one
+    record a projection from its ``<proj>.<field>`` arrays."""
+    from bitorch_engine_tpu_torch.qtensor import MPQTensor
+
+    with np.load(path) as f:
+        arrays = {k: torch.from_numpy(f[k]) for k in f.files}
+    experts = {name: MPQTensor(**{k.split(".", 1)[1]: v for k, v in arrays.items()
+                                  if k.startswith(name + ".")}, **static)
+               for name in ("gate", "up", "down")}
+    return experts, arrays["router"], arrays["x"]
+
+
+def expert_world(path, static):
+    """``test_torch_expert_parallel.py`` on 4 ranks: ``moe_mlp`` at ep 4
+    (stacked and tuple forms) beside the unsharded call; a tiny f32 MoE
+    Llama at ep 2 (a dp 2 × ep 2 mesh): logits, a decode step over caches
+    and the gradients of a loss, before and after ``shard_llama_params``."""
+    from bitorch_engine_tpu_torch.models.llama import (
+        LlamaModel, decode_step, init_kv_caches, prefill, tiny_llama,
+    )
+    from bitorch_engine_tpu_torch.models.llama_sharding import shard_llama_params
+    from bitorch_engine_tpu_torch.ops.moe import _expert_slice, expert_shardings, moe_mlp
+    from bitorch_engine_tpu_torch.parallel import make_axes_mesh
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    experts, router, x = _experts_from(path, static)
+    mesh = make_axes_mesh(ep=4)
+    forms = {"stacked": experts, "tuple": tuple(_expert_slice(experts, e) for e in range(4))}
+    out = {}
+    for form, ex in forms.items():
+        out[f"{form}_unsharded"] = moe_mlp(x, router, ex, top_k=2, capacity_factor=None)[0]
+        y, aux, dropped = moe_mlp(x, router, expert_shardings(mesh, ex), top_k=2,
+                                  capacity_factor=None, mesh=mesh)
+        out[f"{form}_ep"], out[f"{form}_aux"], out[f"{form}_dropped"] = y, aux, dropped
+
+    mesh2 = make_axes_mesh(dp=2, ep=2)
+    model = prepare_for_training(LlamaModel(tiny_llama(dtype=torch.float32, moe_num_experts=4),
+                                            device="cpu", seed=7))
+    toks = torch.from_numpy(np.random.default_rng(10).integers(0, 256, (2, 8)))
+    for key in ("unsharded", "ep"):
+        if key == "ep":
+            shard_llama_params(model, mesh2)
+            out["experts_a_layer"] = np.asarray(len(model.layer_0.mlp.experts))
+        model.zero_grad(set_to_none=True)
+        logits = model(toks)[0]
+        (logits ** 2).mean().backward()
+        out[f"llama_{key}_logits"] = logits.detach()
+        for name, p in model.named_parameters():
+            if p.grad is not None and "experts" not in name:
+                out[f"llama_{key}_grad_{name}"] = p.grad
+        e0 = mesh2.coord("ep") * 2
+        for e in range(2):  # this rank's experts: 2 of 4 (global e0, e0 + 1)
+            mine = model.layer_0.mlp.experts[e if key == "ep" else e0 + e]
+            out[f"llama_{key}_expert{e}_grad"] = mine.up.grad_shadow.grad
+        with torch.no_grad():
+            caches = init_kv_caches(model.cfg, 2, 16, device="cpu")
+            _, caches = prefill(model, toks[:, :6], caches)
+            out[f"llama_{key}_decode"] = decode_step(model, toks[:, 6:7], caches, 6)[0]
+    return out

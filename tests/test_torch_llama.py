@@ -197,7 +197,22 @@ def test_out_of_slice_configs_raise(field, value, slice_):
     whose gradients test_torch_training.py checks; the checkpoint slice: fp
     projections, flax ``Dense`` layers, whose parity is in
     test_torch_llama_loader.py; the MoE slice: a ``QuantMoEMLP`` in every
-    block, whose parity is in test_torch_moe.py)."""
+    block, whose parity is in test_torch_moe.py; the parallel slice:
+    sequence parallelism on an ``sp`` mesh, whose parity is in
+    test_torch_sequence_parallel.py)."""
+    if field == "sequence_parallel":
+        from bitorch_engine_tpu_torch.parallel import make_axes_mesh
+
+        with pytest.raises(ValueError, match="sp_mesh"):
+            tl.LlamaModel(tl.tiny_llama(dtype=torch.float32, **{field: value}), device="cpu")
+        mesh = make_axes_mesh(sp=1)  # the one-process world
+        cfg = tl.tiny_llama(dtype=torch.float32, sp_mesh=mesh, **{field: value})
+        sp_model = tl.LlamaModel(cfg, device="cpu", seed=1)
+        plain = tl.LlamaModel(cfg.replace(sequence_parallel=None, sp_mesh=None), device="cpu",
+                              seed=1)
+        toks = torch.tensor([[1, 2, 3, 4]])
+        torch.testing.assert_close(sp_model(toks)[0], plain(toks)[0], rtol=1e-5, atol=1e-5)
+        return
     cfg = tl.tiny_llama(dtype=torch.float32, **{field: value})
     if field == "quantized":
         model = tl.LlamaModel(cfg, device="cpu")
@@ -229,9 +244,18 @@ def test_reference_only_config_fields_are_refused(field):
     """Fields of the JAX config that no code of the port reads yet are not
     accepted (and so never silently ignored); a field that a landed slice
     reads (``mbwq_container_bits``, the sub-4-bit slice; ``moe_top_k``,
-    ``moe_capacity_factor`` and ``moe_renormalize``, the MoE slice) is
-    accepted with the JAX default."""
+    ``moe_capacity_factor`` and ``moe_renormalize``, the MoE slice;
+    ``sp_mesh`` and ``sp_axis``, the parallel slice) is accepted with the
+    JAX default."""
     assert field in {f.name for f in dataclasses.fields(jl.tiny_llama())}
+    if field in ("sp_mesh", "sp_axis"):
+        from bitorch_engine_tpu_torch.parallel import make_axes_mesh
+
+        jax_default = getattr(jl.tiny_llama(), field)
+        assert getattr(tl.tiny_llama(), field) == jax_default
+        value = make_axes_mesh(sp=1) if field == "sp_mesh" else "seq"
+        assert getattr(tl.tiny_llama(**{field: value}), field) is value
+        return
     if field == "mbwq_container_bits":
         assert tl.tiny_llama(**{field: {2: 4}}).mbwq_container_bits == {2: 4}
         assert tl.tiny_llama().mbwq_container_bits == jl.tiny_llama().mbwq_container_bits

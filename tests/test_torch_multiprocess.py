@@ -1,10 +1,12 @@
 """The port's process worlds (``tests/test_multiprocess.py``): the payload's
-items 1, 3 and 4 (the tp MPQ linear, the tp tiny-Llama forward, the
-sharded paged batcher) agree between a 2-process gloo world (tp 2) and one
-process, and with the JAX package's numbers on the same inputs and
-parameters (the JAX parameters saved with ``save_checkpoint``, loaded by
-every rank)."""
+four items (the tp MPQ linear, the 1-bit MLP's DiodeMix losses with the
+batch split over the ranks, the tp tiny-Llama forward, the sharded paged
+batcher) agree between a 2-process gloo world (tp 2; dp 2 for item 2) and
+one process, and with the JAX package's numbers on the same inputs and
+parameters (the JAX parameters saved with ``save_checkpoint``, the MLP's
+and its DiodeMix state's with ``torch.save``, loaded by every rank)."""
 
+import functools
 import re
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -16,11 +18,18 @@ import pytest
 import torch
 
 from _torch_worlds import TESTS
+from bitorch_engine_tpu import training as jtraining
 from bitorch_engine_tpu.models import generate as jg
 from bitorch_engine_tpu.models import llama as jl
+from bitorch_engine_tpu.models.mlp import QuantMLP as JMLP
 from bitorch_engine_tpu.ops import quant as jquant
 from bitorch_engine_tpu.ops.mpq_linear import mpq_linear as jmpq_linear
+from bitorch_engine_tpu.optim import DiodeHyperParams as JHP
+from bitorch_engine_tpu.utils.convert import prepare_for_training as jprepare_for_training
+from bitorch_engine_tpu_torch import training
 from bitorch_engine_tpu_torch.models import llama as tl
+from bitorch_engine_tpu_torch.models.mlp import QuantMLP
+from bitorch_engine_tpu_torch.optim import DiodeHyperParams
 from bitorch_engine_tpu_torch.parallel import make_mesh
 from bitorch_engine_tpu_torch.parallel.multiprocess import (
     free_port,
@@ -29,9 +38,37 @@ from bitorch_engine_tpu_torch.parallel.multiprocess import (
     multiprocess_payload,
 )
 from bitorch_engine_tpu_torch.utils.checkpoint import save_checkpoint
-from bitorch_engine_tpu_torch.utils.convert import load_jax_params
+from bitorch_engine_tpu_torch.utils.convert import (
+    load_jax_diode_state,
+    load_jax_params,
+    prepare_for_training,
+)
 
-KEYS = ("mpq_y", "llama_logits", "serving_ids")
+KEYS = ("mpq_y", "train_losses", "llama_logits", "serving_ids")
+
+
+def _mlp_run(X, Y, path):
+    """Item 2 in the JAX package: the 1-bit MLP (init key 0) trained 3
+    DiodeMix steps (lr 1e-2) on the whole batch; its losses.  Its starting
+    parameters and DiodeMix state are saved at ``path`` for the port."""
+    mlp = JMLP(hidden=32, n_classes=10, bits=1)
+    params = jprepare_for_training(mlp.init(jax.random.PRNGKey(0), jnp.asarray(X[:1])))
+    hp = JHP(lr=1e-2)
+    state = jtraining.create_train_state(params, hp)
+    np_tree = functools.partial(jax.tree_util.tree_map, np.asarray)
+    model = prepare_for_training(load_jax_params(QuantMLP(32, 32, 10, bits=1, device="cpu"),
+                                                 np_tree(params)))
+    step = training.make_train_step(model, lambda m, b: training.cross_entropy_loss(m(b[0]), b[1]),
+                                    DiodeHyperParams(lr=1e-2))
+    load_jax_diode_state(step.optimizer, np_tree(state.opt_state))
+    torch.save({"model": model.state_dict(), "diode": step.optimizer.state_dict()}, path)
+    jstep = jtraining.make_train_step(
+        lambda p, b: jtraining.cross_entropy_loss(mlp.apply(p, b[0]), b[1]), hp)
+    losses = []
+    for _ in range(3):
+        state, metrics = jstep(state, (jnp.asarray(X), jnp.asarray(Y)))
+        losses.append(float(metrics["loss"]))
+    return np.asarray(losses)
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +85,9 @@ def jax_side(tmp_path_factory):
     qt = jquant.quantize_mpq(jnp.asarray(w), w_bit=4, group_size=64)
     out = {"mpq_y": np.asarray(jmpq_linear(jnp.asarray(x), qt)),
            "mpq_ref": x @ np.asarray(jquant.dequantize_mpq(qt, jnp.float32))}
-    rng.standard_normal((64, 32))
+    X = rng.standard_normal((64, 32)).astype(np.float32)
+    Y = np.argmax(X[:, :10], -1).astype(np.int32)
+    out["train_losses"] = _mlp_run(X, Y, str(tmp / "mlp.pt"))
     cfg = jl.tiny_llama(dtype=jnp.float32)
     toks = rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
     model = jl.LlamaModel(cfg)
@@ -61,7 +100,7 @@ def jax_side(tmp_path_factory):
         load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
         save_checkpoint(str(tmp / name), tmodel)
     out["ckpts"] = dict(llama_ckpt=str(tmp / "llama"), serving_ckpt=str(tmp / "serving"),
-                        device="cpu")
+                        mlp_state=str(tmp / "mlp.pt"), device="cpu")
     pool = ThreadPoolExecutor(max_workers=1)
     out["world"] = pool.submit(launch_workers, n_processes=2, timeout=240, **out["ckpts"])
     pool.shutdown(wait=False)
@@ -89,6 +128,7 @@ def test_payload_self_consistent_single_process(single):
     np.testing.assert_array_equal(np.asarray(single["mpq_y"]), np.asarray(single["mpq_ref"]))
     assert np.isfinite(np.asarray(single["llama_logits"])).all()
     assert single["serving_ids"].shape == (6, 5)
+    assert single["train_losses"].shape == (3,) and np.isfinite(single["train_losses"]).all()
 
 
 @pytest.mark.parametrize("key", KEYS)

@@ -39,11 +39,17 @@ and dropped share from the last forward.
 
 Tensor parallelism (``models/llama_sharding.shard_llama_params``) turns a
 model into one rank's part: attention over the rank's query and KV heads
-(``LlamaAttention.n_heads`` / ``n_kv_heads``), the MLP over its share of the
-intermediate features, an f32 ``all_reduce`` of the row-parallel o and down
-partials (cast once after it, as GSPMD sums the f32 dot of the JAX
-package), an ``all_gather`` of the column-parallel head's logits; ``cfg``
-stays the global configuration.  :func:`init_kv_caches` with a mesh holds
+(``LlamaAttention.n_heads`` / ``n_kv_heads``), the MLP (or each expert) over
+its share of the intermediate features, an f32 ``all_reduce`` of the
+row-parallel o and down partials (cast once after it, as GSPMD sums the f32
+dot of the JAX package), an ``all_gather`` of the column-parallel head's
+logits; ``cfg`` stays the global configuration.  The collectives are
+Megatron's differentiable pair, so a tp model trains: the input of every
+column-parallel projection is ``comm.sum_grad`` ("f": its cotangent summed
+over tp, so the norms, the embedding and the residual stream get whole
+gradients on every rank), the row-parallel sum is ``comm.all_reduce_diff``
+("g": the cotangent passed through), and the head's gather keeps this
+rank's slice of the cotangent.  :func:`init_kv_caches` with a mesh holds
 this rank's heads and its dp share of the batch.
 
 Sequence parallelism (``cfg.sequence_parallel`` ``"ring"`` or
@@ -83,7 +89,7 @@ from ..ops.mbwq_linear import strategy_dict
 from ..ops.moe import EXPERT_PROJS, init_moe_experts, moe_mlp
 from ..ops.mpq_linear import _matmul_f32, mpq_linear
 from ..ops.quant import concat_mpq
-from ..parallel.comm import all_gather, all_reduce
+from ..parallel.comm import all_gather_diff, all_reduce_diff, sum_grad
 from ..parallel.pipeline import pipeline_apply
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
@@ -390,24 +396,33 @@ def tp_size(mesh) -> int:
     return 1 if mesh is None or "tp" not in mesh.shape else mesh.size("tp")
 
 
+def _column_input(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The input of a tp model's column-parallel projections: itself, its
+    cotangent summed over tp in the backward (each rank's projections
+    give only their columns' share of it)."""
+    return x if tp_size(mesh) == 1 else sum_grad(mesh, x, "tp")
+
+
 def _row_parallel(proj: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
     """``proj(x)``; on a tp-sharded model ``proj`` holds this rank's rows
     of a row-parallel projection (no bias), and the result is the f32 sum
-    of every rank's partial, cast once.  A shard of an act-order tensor
-    (``tp_rows``: the logical rows of its stored rows) reads the whole
-    activation, gathered over tp."""
+    of every rank's partial, cast once (its backward hands every rank the
+    whole cotangent).  A shard of an act-order tensor (``tp_rows``: the
+    logical rows of its stored rows) reads the whole activation, gathered
+    over tp; the gather's backward sums the ranks' cotangents and keeps
+    this rank's slice."""
     if tp_size(mesh) == 1:
         return proj(x)
     rows = getattr(proj, "tp_rows", None)
     if rows is not None:
-        x = all_gather(mesh, x, "tp").index_select(-1, rows)
+        x = all_gather_diff(mesh, x, "tp", dim=-1, reduce=True).index_select(-1, rows)
     if isinstance(proj, MPQLinear):
         part = mpq_linear(x.to(proj.dtype), proj.qweight, out_dtype=torch.float32)
     else:  # Dense
         dtype = proj.dtype or x.dtype
         x2d = x.reshape(-1, x.shape[-1]).to(dtype)
         part = _matmul_f32(x2d, proj.kernel.to(dtype)).reshape(*x.shape[:-1], -1)
-    return all_reduce(mesh, part, "tp").to(proj.dtype or x.dtype)
+    return all_reduce_diff(mesh, part, "tp").to(proj.dtype or x.dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -466,6 +481,7 @@ class LlamaAttention(nn.Module):
         b, s, _ = x.shape
         hd, nh, nkv = cfg.head_dim, self.n_heads, self.n_kv_heads
         rep = nh // nkv
+        x = _column_input(x, self.mesh)
         if cfg.fuse_qkv:
             q, k, v = torch.split(self.qkv_proj(x), [nh * hd, nkv * hd, nkv * hd], dim=-1)
         else:
@@ -740,6 +756,7 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        x = _column_input(x, self.mesh)
         if cfg.fuse_gate_up:
             gate, up = torch.chunk(self.gate_up_proj(x), 2, dim=-1)
         else:
@@ -937,10 +954,10 @@ class LlamaModel(nn.Module):
         cfg = self.cfg
         x = self.final_norm(x)
         if self.lm_head is not None:
-            logits = self.lm_head(x).float()
+            logits = self.lm_head(_column_input(x, self.mesh)).float()
             if tp_size(self.mesh) > 1:
                 # a column-parallel head gives this rank's share of the vocabulary
-                logits = all_gather(self.mesh, logits, "tp")
+                logits = all_gather_diff(self.mesh, logits, "tp", dim=-1)
             logits = logits[..., : cfg.vocab_size]
         elif cfg.quantize_embed:
             e8 = self.embed.data.T.to(cfg.dtype).float()

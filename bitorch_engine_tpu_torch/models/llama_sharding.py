@@ -8,8 +8,21 @@ counterpart of ``bitorch_engine_tpu/models/llama_sharding.py``.
   (``models/llama.py`` ``_row_parallel``);
 * the embedding and the norms are replicated;
 * a MoE model's experts split over the ``ep`` axis (each rank holds E/ep
-  of every layer's experts, ``ops/moe.py``), the rest replicated (tp
-  inside a MoE model is not ported);
+  of every layer's experts, ``ops/moe.py``), the rest replicated; or,
+  over ``tp``, every expert's gate and up column-parallel over ``inter /
+  tp`` and its down row-parallel, the dense MLP's rule (a Megatron layout:
+  the JAX specs shard every expert leaf ``P(None, 'tp')`` and GSPMD adds
+  the collectives; the numbers agree up to the f32 split sum).  The router
+  stays replicated.  On a mesh with both, each rank keeps its ``E/ep``
+  experts, each cut over ``tp``;
+* a padded projection (``proj_pad_to``) loses its padding: a column shard
+  takes logical columns only, a row shard the logical output columns, so
+  no shard carries an ``out_slice``;
+* a layer in training mode (a grad shadow) gives its shard the shadow's
+  matching block, ``P(None, tp)`` for a column shard and ``P(tp, None)``
+  for a row shard, as the JAX specs cut it (an act-order row shard: the
+  shadow's rows ``tp_rows``); so ``prepare_for_training`` may run before
+  or after :func:`shard_llama_params`;
 * KV caches split their batch (slots) over dp and their heads over tp
   (``kv_cache_shardings`` / ``paged_kv_shardings``, kept beside the cache
   builders in ``models/paged_kv.py``, which read them).
@@ -39,6 +52,7 @@ from ..layers.linear import MBWQLinear, MPQLinear
 from ..ops.quant import slice_mpq_n
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import (
+    P,
     make_sharding_rules,
     mpq_row_parallel_spec,
     partition_specs,
@@ -76,13 +90,17 @@ Ranges = Sequence[Tuple[int, int]]
 def _cols_mpq(qt: MPQTensor, ranges: Ranges) -> MPQTensor:
     """The output columns ``[start, start + size)`` of each range, in
     order, as one contiguous tensor (an act-order tensor keeps its whole
-    ``q_perm`` / ``g_idx``: they index rows)."""
+    ``q_perm`` / ``g_idx``: they index rows), its grad shadow's columns
+    with them."""
     parts = [slice_mpq_n(qt, start, size) for start, size in ranges]
+    shadow = qt.grad_shadow
+    if shadow is not None:
+        shadow = torch.cat([shadow.detach()[:, s : s + n] for s, n in ranges], dim=1)
     return qt.replace(
         packed=torch.cat([p.packed for p in parts], dim=1),
         scales=torch.cat([p.scales for p in parts], dim=1),
         zeros=torch.cat([p.zeros for p in parts], dim=1),
-        grad_shadow=None,
+        grad_shadow=shadow,
     )
 
 
@@ -95,13 +113,15 @@ def _bias_cols(bias, ranges: Ranges):
 
 def _check_shardable(layer: nn.Module, where: str) -> None:
     if isinstance(layer, MBWQLinear):
-        raise NotImplementedError(f"{where}: tp sharding of MBWQ projections is not ported yet")
-    if getattr(layer, "out_slice", None) is not None:
-        raise ValueError(f"{where}: a padded projection (proj_pad_to) does not shard")
+        # the JAX package's row rule hands an MBWQ tensor to
+        # mpq_row_parallel_spec, which reads MPQ fields it does not have
+        raise NotImplementedError(f"{where}: tp sharding of MBWQ projections is not a feature "
+                                  "of the JAX package, nor of the port")
 
 
 def column_shard(layer: nn.Module, ranges: Ranges, where: str) -> nn.Module:
-    """A new layer holding the output columns of ``ranges`` (concatenated)."""
+    """A new layer holding the output columns of ``ranges`` (concatenated;
+    logical columns, so a padded layer's padding is left behind)."""
     _check_shardable(layer, where)
     if isinstance(layer, Dense):
         kernel = torch.cat([layer.kernel[:, s : s + n] for s, n in ranges], dim=1)
@@ -119,7 +139,10 @@ def row_shard(layer: nn.Module, mesh: Mesh, axis: str, where: str) -> nn.Module:
     """A new layer holding this rank's equal share of the input rows: whole
     quant groups and whole words (``mpq_row_parallel_spec``'s check).  A
     canonical act-order tensor (``q_perm``) is cut by its stored rows; the
-    logical rows they hold ride along as ``tp_rows``."""
+    logical rows they hold ride along as ``tp_rows``.  A ragged ``g_idx``
+    tensor keeps every group's scales and zeros and its rows' ``g_idx``
+    (whole words of rows).  A padded layer keeps its logical output
+    columns only."""
     _check_shardable(layer, where)
     n, i = mesh.size(axis), mesh.coord(axis)
     if getattr(layer, "bias", None) is not None:
@@ -130,16 +153,30 @@ def row_shard(layer: nn.Module, mesh: Mesh, axis: str, where: str) -> nn.Module:
         out.kernel = nn.Parameter(layer.kernel[i * k : (i + 1) * k].contiguous(),
                                   requires_grad=False)
         return out
-    qt = layer.qweight.replace(grad_shadow=None)
-    if qt.g_idx is not None:
-        raise NotImplementedError(f"{where}: a ragged g_idx has no whole groups to a row shard")
+    qt = layer.qweight
+    if layer.out_slice is not None:
+        qt = _cols_mpq(qt, [(0, layer.out_slice)])
+    shadow = qt.grad_shadow
     q_perm = qt.q_perm
-    qt = qt.replace(q_perm=None)
-    qt = shard_record(qt, mpq_row_parallel_spec(qt, axis, n_shards=n), mesh)
+    qt = qt.replace(q_perm=None, grad_shadow=None)
+    if qt.g_idx is not None:
+        # a ragged g_idx: this rank's rows read groups anywhere, so the
+        # shard keeps every group's scales and zeros and its rows' g_idx
+        spec = mpq_row_parallel_spec(qt, axis, n_shards=1)
+        spec = spec.replace(scales=P(), zeros=P())
+    else:
+        spec = mpq_row_parallel_spec(qt, axis, n_shards=n)
+    qt = shard_record(qt, spec, mesh)
+    k = qt.in_features
+    rows = None if q_perm is None else q_perm[i * k : (i + 1) * k].long().contiguous()
+    if shadow is not None:
+        # the shadow's rows are logical: the act-order shard's are tp_rows
+        shadow = shadow.detach()
+        shadow = shadow[i * k : (i + 1) * k] if rows is None else shadow[rows]
+        qt = qt.replace(grad_shadow=shadow.contiguous())
     out = MPQLinear(qt.in_features, qt.out_features, dtype=layer.dtype, qweight=qt)
-    if q_perm is not None:
-        k = qt.in_features
-        out.register_buffer("tp_rows", q_perm[i * k : (i + 1) * k].long().contiguous())
+    if rows is not None:
+        out.register_buffer("tp_rows", rows)
     return out
 
 
@@ -160,20 +197,36 @@ def _shard_experts(model: LlamaModel, mesh: Mesh) -> LlamaModel:
     return model
 
 
+def _shard_expert_tp(expert: nn.Module, mesh: Mesh, axis: str, where: str) -> None:
+    """An expert's gate and up cut to this rank's ``inter / tp`` columns,
+    its down to the matching rows, in place."""
+    tp, r = mesh.size(axis), mesh.coord(axis)
+    inter = expert.gate.qweight.out_features
+    if inter % tp:
+        raise ValueError(f"{where}: intermediate size {inter} does not split over tp={tp}")
+    cols = [(r * (inter // tp), inter // tp)]
+    expert.gate = column_shard(expert.gate, cols, f"{where}/gate")
+    expert.up = column_shard(expert.up, cols, f"{where}/up")
+    expert.down = row_shard(expert.down, mesh, axis, f"{where}/down")
+
+
 @torch.no_grad()
 def shard_llama_params(model: LlamaModel, mesh: Mesh, axis: str = "tp") -> LlamaModel:
     """Cut ``model`` (every rank holding the same whole model) down to this
     rank's tensor-parallel part, in place; returns it.  The model then
     runs its forward with this rank's heads and the collectives of
     ``mesh``'s ``axis`` group; ``model.cfg`` stays the global config.  A
-    MoE model keeps this rank's experts of the mesh's ``ep`` axis instead
-    (a ``tp`` axis, if the mesh has one, must have size 1)."""
+    MoE model on a mesh whose ``tp`` axis has size 1 (or none) keeps this
+    rank's experts of the mesh's ``ep`` axis instead; over ``tp`` its
+    experts (this rank's of ``ep``, where the mesh has one) are cut as the
+    dense MLP (see the module's notes)."""
     cfg = model.cfg
-    if cfg.moe_num_experts:
-        if axis in mesh.shape and mesh.size(axis) > 1:
-            raise NotImplementedError("tp sharding of MoE models is not ported yet")
-        return _shard_experts(model, mesh)
-    tp, r = mesh.size(axis), mesh.coord(axis)
+    tp = mesh.size(axis) if axis in mesh.shape else 1
+    if cfg.moe_num_experts and (tp == 1 or ("ep" in mesh.shape and mesh.size("ep") > 1)):
+        _shard_experts(model, mesh)  # this rank's experts of ep, then each cut over tp
+        if tp == 1:
+            return model
+    r = mesh.coord(axis)
     hd, nh, nkv, inter = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
     nh_l, nkv_l = nh // tp, local_kv_heads(cfg, tp)
     if inter % tp:
@@ -201,14 +254,18 @@ def shard_llama_params(model: LlamaModel, mesh: Mesh, axis: str = "tp") -> Llama
     for li, layer in enumerate(model.layers):
         attn, mlp = layer.attn, layer.mlp
         where = f"layer_{li}"
-        if not isinstance(mlp, LlamaMLP):
-            raise NotImplementedError(f"{where}: tp sharding of {type(mlp).__name__}")
         names = ["qkv_proj"] if cfg.fuse_qkv else ["q_proj", "k_proj", "v_proj"]
         for name in names + ["o_proj"]:
             cut(attn, name, f"{where}/attn/{name}")
-        names = ["gate_up_proj"] if cfg.fuse_gate_up else ["gate_proj", "up_proj"]
-        for name in names + ["down_proj"]:
-            cut(mlp, name, f"{where}/mlp/{name}")
+        if isinstance(mlp, QuantMoEMLP):
+            for e, expert in enumerate(mlp.experts):
+                _shard_expert_tp(expert, mesh, axis, f"{where}/mlp/experts/{e}")
+        elif isinstance(mlp, LlamaMLP):
+            names = ["gate_up_proj"] if cfg.fuse_gate_up else ["gate_proj", "up_proj"]
+            for name in names + ["down_proj"]:
+                cut(mlp, name, f"{where}/mlp/{name}")
+        else:
+            raise NotImplementedError(f"{where}: tp sharding of {type(mlp).__name__}")
         attn.n_heads, attn.n_kv_heads, attn.mesh, mlp.mesh = nh_l, nkv_l, mesh, mesh
     if model.lm_head is not None:
         n = model.lm_head.qweight.out_features
@@ -218,4 +275,3 @@ def shard_llama_params(model: LlamaModel, mesh: Mesh, axis: str = "tp") -> Llama
         cut(model, "lm_head", "lm_head")
     model.mesh = mesh
     return model
-

@@ -27,6 +27,12 @@ unsharded one.  An all-reduce of partial combines would change that order.
 In the backward each rank's experts give the gradient of their own
 dispatch rows only, so the dispatch buffer's gradient is summed over ep
 (``comm.sum_grad``) before it reaches ``x``.
+
+Tensor parallelism inside the experts (``mesh`` with a ``tp`` axis,
+``models.llama_sharding``): every expert's gate and up hold this rank's
+``inter / tp`` columns and its down the matching rows; the down's f32
+partials are summed over tp (``comm.all_reduce_diff``) and cast once, and
+the dispatch buffer's gradient is summed over tp, Megatron's rule.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import torch
 from torch.nn import functional as F
 
 from ..device import resolve_device
-from ..parallel.comm import all_gather_diff, sum_grad
+from ..parallel.comm import all_gather_diff, all_reduce_diff, sum_grad
 from ..qtensor import MPQTensor
 from .mpq_linear import mpq_linear
 from .quant import quantize_mpq
@@ -133,9 +139,20 @@ def num_experts(experts) -> int:
     return next(iter(experts.values())).packed.shape[0]
 
 
-def _expert_mlp(exp, x: torch.Tensor) -> torch.Tensor:
+def _expert_mlp(exp, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """One expert's SwiGLU on its buffer ``x``; over ``tp`` (its gate and
+    up this rank's columns, its down the matching rows) the down's f32
+    partials summed over the axis and cast once."""
     gate = F.silu(mpq_linear(x, exp["gate"]).float()).to(x.dtype)
-    return mpq_linear(gate * mpq_linear(x, exp["up"]), exp["down"])
+    h = gate * mpq_linear(x, exp["up"])
+    if _axis_size(mesh, "tp") == 1:
+        return mpq_linear(h, exp["down"])
+    part = mpq_linear(h, exp["down"], out_dtype=torch.float32)
+    return all_reduce_diff(mesh, part, "tp").to(x.dtype)
+
+
+def _axis_size(mesh, axis: str) -> int:
+    return 1 if mesh is None or axis not in mesh.shape else mesh.size(axis)
 
 
 def route(x2: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -195,14 +212,16 @@ def moe_mlp(
     disp = torch.zeros((E, C, d), dtype=x2.dtype, device=x.device).index_put(
         (flat_e, pos_c), routed, accumulate=True)
 
-    n_ep = 1 if mesh is None else mesh.size("ep")
+    n_ep = _axis_size(mesh, "ep")
     local = num_experts(experts)
     if local * n_ep != E:
         raise ValueError(f"{local} experts a rank over ep={n_ep} for a router of {E}")
-    e0 = 0 if mesh is None else mesh.coord("ep") * local
+    e0 = 0 if n_ep == 1 else mesh.coord("ep") * local
     if n_ep > 1:
         disp = sum_grad(mesh, disp, "ep")  # each rank's backward fills its experts' rows
-    outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e0 + e])
+    if _axis_size(mesh, "tp") > 1:
+        disp = sum_grad(mesh, disp, "tp")  # each rank's gate and up give their columns' share
+    outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e0 + e], mesh)
                         for e in range(local)])
     if n_ep > 1:
         outs = all_gather_diff(mesh, outs, "ep", dim=0)  # (E, C, d), every rank alike

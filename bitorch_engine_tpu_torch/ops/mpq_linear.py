@@ -109,10 +109,10 @@ def needs_grad(x: torch.Tensor, shadow) -> bool:
 
 class _MPQLinear(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, shadow, qt):
+    def forward(ctx, x, shadow, qt, out_dtype):
         ctx.save_for_backward(x)
         ctx.qt = qt
-        return _mpq_forward(x, qt)
+        return _mpq_forward(x, qt, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -126,18 +126,17 @@ class _MPQLinear(torch.autograd.Function):
             grad_x = torch.matmul(g2d, w.T).reshape(x.shape)
         if ctx.needs_input_grad[1]:
             gw = weight_grad(x.reshape(-1, k), g2d)
-        return grad_x, gw, None
+        return grad_x, gw, None, None
 
 
 def mpq_linear(x: torch.Tensor, qt: MPQTensor, out_dtype=None) -> torch.Tensor:
     """``x (..., K) @ dequant(qt)`` → ``(..., N)`` in ``out_dtype`` (default
     ``x.dtype``), differentiable in ``x`` and in ``qt.grad_shadow``.
     ``out_dtype=torch.float32`` returns the f32 product before any cast (a
-    row-parallel shard's partial sum); it is a forward-only form."""
+    row-parallel shard's partial sum); its backward reads the cotangent in
+    ``x.dtype``, as the cast after the unsharded product hands it back."""
     if needs_grad(x, qt.grad_shadow):
-        if out_dtype is not None:
-            raise ValueError("mpq_linear: out_dtype is a forward-only form")
-        return _MPQLinear.apply(x, qt.grad_shadow, qt)
+        return _MPQLinear.apply(x, qt.grad_shadow, qt, out_dtype)
     return _mpq_forward(x, qt, out_dtype)
 
 

@@ -37,16 +37,31 @@ layers (``Int8Embedding``) raises.
 
 Under ``fsdp`` (``DiodeMix(mesh=)`` with ``mesh.size("fsdp") > 1``; the
 moments' specs are ``parallel.sharding.optimizer_partition_specs``'s) each
-rank keeps only its share of the K rows of every 2-D moment (whole quant
-groups and whole words; a shape that does not split raises), updates those
-rows of every MPQ weight and 2-D fp parameter from the full gradient (the
-ranks hold the same), and all-gathers the rows: the packed words and the
-zeros of an MPQ weight (the scales are never written), the parameter's
-rows of an fp one.  The update is row-local (AdamW is elementwise, the
-requantization reads one group's scale and zero, the zeros refresh is a
-mean within a group), so the result equals the unsharded step's bit for
-bit.  GaLore's projection is not row-local and raises under fsdp, as do
-the other regimes (not ported).
+rank keeps only its share of every moment along one dimension (the
+*split*, ``DiodeMix.splits``), updates that share of the weight from the
+full gradient (the ranks hold the same) and all-gathers the result.  The
+update is local to the split (AdamW and the sign descents are elementwise,
+the requantization reads one group's scale and zero per element), so the
+result equals the unsharded step's bit for bit.  Per regime:
+
+* MPQ: the K rows in whole quant groups and whole words (the packed words
+  and, on a refresh, the zeros gathered; the scales are never written); a
+  weight whose rows do not split so (the 370M ``down_proj``'s tp 2 shard
+  holds 1408 rows, 5.5 groups of 128 a rank at fsdp 2) splits its N
+  columns instead, and a column share's zeros refresh reads the whole
+  update, gathered;
+* MBWQ: the N columns of every segment (its rows are permuted and cut into
+  segments of other widths);
+* binary, IntQ: the first dimension of the weight that splits (IntQ's
+  per-tensor requantization reads the maximum over every rank's share);
+* binary embedding: the vocabulary rows;
+* fp: the rows of a 2-D parameter, else its columns;
+* GaLore: the projection is computed from the whole gradient on every rank
+  (the same); the low-rank moments split their rows, and the normalized
+  low-rank direction is gathered before it is projected back.
+
+A share that does not split raises, as do act-order MPQ rows (``g_idx``,
+``q_perm``: the stored rows' groups are not the logical rows' groups).
 
 The step counter starts at 1, the bias corrections compute ``beta ** step``
 in f32 as the JAX package does; every update works in place under
@@ -68,7 +83,7 @@ from ..layers.linear import MBWQLinear, MPQLinear
 from ..ops import packing
 from ..ops.mbwq_linear import reconstruct_mbwq
 from ..ops.mpq_linear import reconstruct_weight
-from ..ops.quant import nv_tensor_quant, repack_mpq
+from ..ops.quant import nv_tensor_quant, repack_mpq, slice_mpq_n
 from ..parallel.comm import all_gather
 from ..qtensor import BinaryEmbeddingQTensor, BinaryQTensor, IntQTensor, MPQTensor
 from ..utils.convert import quantized_layers
@@ -125,20 +140,29 @@ def _group_mean(x: torch.Tensor, group_size: int) -> torch.Tensor:
 _REGIMES = {BinaryQTensor: "binary", IntQTensor: "intq", BinaryEmbeddingQTensor: "bemb"}
 
 
-def _fsdp_rows(name: str, k: int, n: int, i: int, multiple: int = 1) -> Tuple[int, int]:
-    """Rank ``i``'s rows ``[k0, k1)`` of ``k`` split ``n`` ways, each share a
-    multiple of ``multiple``."""
-    if k % n or (k // n) % multiple:
-        raise ValueError(f"{name}: {k} rows do not split over fsdp={n} into shares of whole "
-                         f"blocks of {multiple}")
-    return i * (k // n), (i + 1) * (k // n)
+Split = Tuple[int, int, int]  # (dim, start, end) of this fsdp rank's share
 
 
-def _mpq_row_block(qt: MPQTensor, rows: Tuple[int, int]) -> MPQTensor:
-    """The logical rows ``[k0, k1)`` of ``qt``: its words and its groups."""
-    k0, k1 = rows
-    words = slice(k0 // 32 * qt.w_bit, k1 // 32 * qt.w_bit)
-    groups = slice(k0 // qt.group_size, k1 // qt.group_size)
+def _share(size: int, n: int, i: int, multiple: int = 1) -> Optional[Tuple[int, int]]:
+    """Rank ``i``'s ``[start, end)`` of ``size`` split ``n`` ways, each share
+    a multiple of ``multiple``; ``None`` where it does not split so."""
+    if size % n or (size // n) % multiple:
+        return None
+    return i * (size // n), (i + 1) * (size // n)
+
+
+def _part(t: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+    return t if split is None else t.narrow(split[0], split[1], split[2] - split[1])
+
+
+def _mpq_part(qt: MPQTensor, split: Split) -> MPQTensor:
+    """The rows or columns ``[start, end)`` of ``qt``: its words and groups,
+    or its columns (asym zeros pack along N: whole words of them)."""
+    dim, a, b = split
+    if dim == 1:
+        return slice_mpq_n(qt.replace(grad_shadow=None), a, b - a)
+    words = slice(a // 32 * qt.w_bit, b // 32 * qt.w_bit)
+    groups = slice(a // qt.group_size, b // qt.group_size)
     return qt.replace(packed=qt.packed[words], scales=qt.scales[groups],
                       zeros=qt.zeros[groups], grad_shadow=None)
 
@@ -164,6 +188,12 @@ class DiodeMix:
                     f"{names[id(mod)]}: a quantized layer without a grad shadow "
                     "(call utils.convert.prepare_for_training first)"
                 )
+            if isinstance(mod, MPQLinear) and not isinstance(mod, MBWQLinear):
+                qt = mod.qweight
+                if qt.g_idx is not None and qt.scales.shape[0] * qt.group_size != qt.in_features:
+                    raise NotImplementedError(
+                        f"{names[id(mod)]}: a tp row shard of a ragged g_idx tensor holds every "
+                        "group's zeros, whose refresh reads other ranks' rows (not ported)")
             if isinstance(mod, MBWQLinear):
                 kind = "mbwq"
             elif isinstance(mod, MPQLinear):
@@ -181,7 +211,7 @@ class DiodeMix:
                 )
         self.fp = [(n, p) for n, p in model.named_parameters()
                    if p.requires_grad and id(p) not in owned]
-        self.rows = self._fsdp_plan()  # name → this fsdp rank's rows [k0, k1)
+        self.splits = self._fsdp_plan()  # name → this fsdp rank's share of its moments
         self.state: Dict[str, Dict[str, Any]] = {}
         gens: Dict[torch.device, torch.Generator] = {}
 
@@ -191,61 +221,93 @@ class DiodeMix:
 
         for name, mod in self.mpq + self.mbwq + self.intq:
             kind = "mpq" if isinstance(mod, MPQLinear) else "quant"
-            self.state[name] = self._init_state(self._local_shape(name, mod.grad_shadow), kind,
+            self.state[name] = self._init_state(name, tuple(mod.grad_shadow.shape), kind,
                                                 mod.grad_shadow.device)
+        # the binary regimes' initial moments: the whole draw, then this rank's share
         for name, mod in self.binary:
             w = mod.data.float()
-            self.state[name] = {"exp_avg_l": torch.zeros_like(w),
-                                "exp_avg_s": -(torch.sign(w) * delta(w.shape, w.device))}
+            st = {"exp_avg_l": torch.zeros_like(w),
+                  "exp_avg_s": -(torch.sign(w) * delta(w.shape, w.device))}
+            self.state[name] = {k: _part(v, self.splits.get(name)).clone() for k, v in st.items()}
         for name, mod in self.bemb:
             k = mod.qweight.logical_shape[1]
             w_sign = packing.unpack_signs(mod.data)[:, :k]
-            self.state[name] = {"exp_avg_s": -(w_sign * delta(w_sign.shape, w_sign.device))}
+            st = -(w_sign * delta(w_sign.shape, w_sign.device))
+            self.state[name] = {"exp_avg_s": _part(st, self.splits.get(name)).clone()}
         for name, p in self.fp:
-            self.state[name] = self._init_state(self._local_shape(name, p), "fp", p.device)
+            self.state[name] = self._init_state(name, tuple(p.shape), "fp", p.device)
 
-    def _fsdp_plan(self) -> Dict[str, Tuple[int, int]]:
-        """This fsdp rank's rows of each MPQ weight (whole groups and whole
-        words) and each 2-D fp parameter; ``{}`` without fsdp."""
+    def _fsdp_plan(self) -> Dict[str, Split]:
+        """This fsdp rank's share of each weight (see the module's notes);
+        ``{}`` without fsdp."""
         mesh = self.mesh
         n = 1 if mesh is None or "fsdp" not in mesh.shape else mesh.size("fsdp")
         if n == 1:
             return {}
-        if self.hp.galore is not None:
-            raise NotImplementedError("GaLore under fsdp: its projection is not row-local")
-        for kind in ("mbwq", "binary", "intq", "bemb"):
-            if getattr(self, kind):
-                raise NotImplementedError(f"fsdp sharding of {kind} layers is not ported")
-        i, rows = mesh.coord("fsdp"), {}
+        i, splits = mesh.coord("fsdp"), {}
+
+        def plan(name, choices):
+            """The first of ``choices`` (dim, size, multiple) that splits."""
+            for dim, size, multiple in choices:
+                share = _share(size, n, i, multiple)
+                if share is not None:
+                    splits[name] = (dim, *share)
+                    return
+            sizes = " or ".join(f"{size} (whole blocks of {m})" for _, size, m in choices)
+            raise ValueError(f"{name}: {sizes} do not split over fsdp={n}")
+
         for name, mod in self.mpq:
             qt = mod.qweight
             if qt.g_idx is not None or qt.q_perm is not None:
                 raise ValueError(f"{name}: act-order rows do not split over fsdp")
-            multiple = 32 * qt.group_size // math.gcd(32, qt.group_size)
-            rows[name] = _fsdp_rows(name, qt.in_features, n, i, multiple)
+            k, cols = qt.logical_shape
+            plan(name, [(0, k, 32 * qt.group_size // math.gcd(32, qt.group_size)),
+                        (1, cols, 32 // qt.w_bit if qt.asym else 1)])
+        for name, mod in self.mbwq:
+            segs = mod.qweight.segments
+            plan(name, [(1, mod.qweight.out_features,
+                         max(32 // s.w_bit if s.asym else 1 for s in segs))])
+        for name, mod in self.binary + self.intq:
+            plan(name, [(d, size, 1) for d, size in enumerate(mod.data.shape)])
+        for name, mod in self.bemb:
+            plan(name, [(0, mod.data.shape[0], 1)])
         for name, p in self.fp:
             if p.dim() == 2:
-                rows[name] = _fsdp_rows(name, p.shape[0], n, i)
-        return rows
+                plan(name, [(0, p.shape[0], 1), (1, p.shape[1], 1)])
+        return splits
 
-    def _local_shape(self, name: str, t: torch.Tensor) -> Tuple[int, ...]:
-        rows = self.rows.get(name)
-        return tuple(t.shape) if rows is None else (rows[1] - rows[0], *t.shape[1:])
+    def moment_split(self, name: str) -> Optional[Split]:
+        """The share of the whole moments of ``name`` that this rank holds
+        (its projected moments' under GaLore); ``None`` for all of them."""
+        st = self.state[name]
+        return st.get("low_split") if "galore" in st else self.splits.get(name)
 
-    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        return all_gather(self.mesh, t, "fsdp", dim=0)
+    def _gather(self, t: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+        """Every fsdp rank's share of ``t`` along the split's dimension."""
+        return t if split is None else all_gather(self.mesh, t, "fsdp", dim=split[0])
 
     def trainable(self) -> List[torch.Tensor]:
         """Every tensor whose ``.grad`` the step reads: the grad shadows,
         then the fp parameters."""
         return [mod.grad_shadow for _, mod in self._quantized()] + [p for _, p in self.fp]
 
-    def _init_state(self, shape, kind: str, device) -> Dict[str, Any]:
+    def _init_state(self, name: str, shape, kind: str, device) -> Dict[str, Any]:
+        """Zero moments of this rank's share of a weight of ``shape`` (under
+        GaLore: of its projected shape, whose rows split over fsdp)."""
         st: Dict[str, Any] = {}
-        galore = self.hp.galore
+        galore, split = self.hp.galore, self.splits.get(name)
         if galore is not None and _galore_eligible(shape, kind, galore.rank):
             st["galore"] = galore_init(shape, galore.rank)
             shape = st["galore"].projected_shape(shape)
+            if split is not None:
+                n = self.mesh.size("fsdp")
+                share = _share(shape[0], n, self.mesh.coord("fsdp"))
+                if share is None:
+                    raise ValueError(f"{name}: GaLore's {shape[0]} projected rows do not split "
+                                     f"over fsdp={n}")
+                split = st["low_split"] = (0, *share)
+        if split is not None:
+            shape = shape[: split[0]] + (split[2] - split[1],) + shape[split[0] + 1 :]
         st["exp_avg_l"] = torch.zeros(shape, dtype=torch.float32, device=device)
         st["exp_avg_s"] = torch.zeros(shape, dtype=torch.float32, device=device)
         return st
@@ -266,14 +328,19 @@ class DiodeMix:
         st["exp_avg_s"].mul_(hp.beta2).add_(grad * grad * (1.0 - hp.beta2))
         return st["exp_avg_l"] / (torch.sqrt(st["exp_avg_s"]) + hp.eps)
 
-    def _direction(self, grad: torch.Tensor, st: Dict[str, Any], step: int) -> torch.Tensor:
-        """AdamW's normalized gradient, through GaLore's projection where
-        the state has one."""
+    def _direction(self, grad: torch.Tensor, st: Dict[str, Any], step: int,
+                   split: Optional[Split] = None) -> torch.Tensor:
+        """AdamW's normalized gradient of this rank's share (``split``) of
+        the whole ``grad``, through GaLore's projection where the state has
+        one (the whole gradient projected, the low-rank moments' share
+        updated, the direction gathered and projected back)."""
         galore: Optional[GaLoreState] = st.get("galore")
         if galore is None:
-            return self._adamw(grad, st)
+            return self._adamw(_part(grad, split), st)
         low = galore_project(galore, grad, step, self.hp.galore)
-        return galore_project_back(galore, self._adamw(low, st), self.hp.galore)
+        low_split = st.get("low_split")
+        d = self._gather(self._adamw(_part(low, low_split), st), low_split)
+        return _part(galore_project_back(galore, d, self.hp.galore), split)
 
     @staticmethod
     def _shadow_grad(mod: nn.Module) -> torch.Tensor:
@@ -286,36 +353,39 @@ class DiodeMix:
         step = self.step_count
         size = _step_size(self.hp, step)
         refresh = step % self.hp.zeros_update_interval == 0
+        split = self.splits.get
         for name, mod in self.mpq:
-            self._update_mpq(mod, self.state[name], step, size, refresh, self.rows.get(name))
+            self._update_mpq(mod, self.state[name], step, size, refresh, split(name))
         for name, mod in self.mbwq:
-            self._update_mbwq(mod, self.state[name], step, size, refresh)
+            self._update_mbwq(mod, self.state[name], step, size, refresh, split(name))
         for name, mod in self.binary:
-            self._update_binary(mod, self.state[name])
+            self._update_binary(mod, self.state[name], split(name))
         for name, mod in self.intq:
-            self._update_intq(mod, self.state[name], size)
+            self._update_intq(mod, self.state[name], size, split(name))
         for name, mod in self.bemb:
-            self._update_binary_embedding(mod, self.state[name])
+            self._update_binary_embedding(mod, self.state[name], split(name))
         for name, p in self.fp:
-            self._update_fp(p, self.state[name], step, size, self.rows.get(name))
+            self._update_fp(p, self.state[name], step, size, split(name))
 
-    def _update_fp(self, p: nn.Parameter, st, step: int, size: float, rows=None) -> None:
+    def _group_mean(self, x: torch.Tensor, group_size: int, split: Optional[Split]) -> torch.Tensor:
+        """The group means of this rank's share of ``x``; a column share's
+        taken over the whole of ``x``, gathered, then cut (a reduction's
+        order may depend on its width; a row share holds whole groups)."""
+        if split is None or split[0] == 0:
+            return _group_mean(x, group_size)
+        return _part(_group_mean(self._gather(x, split), group_size), split)
+
+    def _update_fp(self, p: nn.Parameter, st, step: int, size: float, split=None) -> None:
         g = torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
-        w = p.float()
-        if rows is not None:
-            g, w = g[rows[0] : rows[1]], w[rows[0] : rows[1]]
-        w = w - size * self._direction(g, st, step)
+        w = _part(p.float(), split) - size * self._direction(g, st, step, split)
         if self.hp.weight_decay > 0.0:
             w = w - self.hp.lr * self.hp.weight_decay * w
-        w = w.to(p.dtype)
-        p.copy_(w if rows is None else self._gather_rows(w))
+        p.copy_(self._gather(w.to(p.dtype), split))
 
     def _update_mpq(self, mod: MPQLinear, st, step: int, size: float, refresh: bool,
-                    rows=None) -> None:
-        qt, grad = mod.qweight, self._shadow_grad(mod)
-        if rows is not None:
-            qt, grad = _mpq_row_block(qt, rows), grad[rows[0] : rows[1]]
-        update = size * self._direction(grad, st, step)
+                    split=None) -> None:
+        qt = mod.qweight if split is None else _mpq_part(mod.qweight, split)
+        update = size * self._direction(self._shadow_grad(mod), st, step, split)
         w = reconstruct_weight(qt, torch.float32) - update
         zeros = qt.zeros
         if qt.asym:
@@ -325,26 +395,27 @@ class DiodeMix:
                 g = qt.g_idx.long() if qt.g_idx is not None else (
                     torch.arange(k, device=w.device) // qt.group_size)
                 full_z = z_int.float()[g] + update
-                grouped = _group_mean(full_z[torch.argsort(g, stable=True)], qt.group_size)
+                grouped = self._group_mean(full_z[torch.argsort(g, stable=True)],
+                                           qt.group_size, split)
                 z_int = torch.clamp(torch.round(grouped), 1, 2 ** qt.w_bit).to(torch.int32)
                 zeros = packing.pack_cols(z_int, qt.w_bit)
             packed = repack_mpq(w, qt.replace(zeros=zeros), unpacked_zeros=z_int.float())
         else:
             if refresh:
-                zeros = zeros + _group_mean(update, qt.group_size).to(zeros.dtype)
+                zeros = zeros + self._group_mean(update, qt.group_size, split).to(zeros.dtype)
                 mod._zeros_mid = False  # the zeros are no longer mid * scales
             packed = repack_mpq(w, qt.replace(zeros=zeros))
-        if rows is not None:
-            packed = self._gather_rows(packed)
-            if refresh:
-                zeros = self._gather_rows(zeros)
-        mod.packed.copy_(packed)
+        mod.packed.copy_(self._gather(packed, split))
         if refresh:
-            mod.zeros.copy_(zeros)
+            mod.zeros.copy_(self._gather(zeros, split))
 
-    def _update_mbwq(self, mod: MBWQLinear, st, step: int, size: float, refresh: bool) -> None:
+    def _update_mbwq(self, mod: MBWQLinear, st, step: int, size: float, refresh: bool,
+                     split=None) -> None:
         qt = mod.qweight
-        update = size * self._direction(self._shadow_grad(mod), st, step)
+        if split is not None:
+            qt = qt.replace(segments=tuple(_mpq_part(s, split) for s in qt.segments),
+                            grad_shadow=None)
+        update = size * self._direction(self._shadow_grad(mod), st, step, split)
         w = reconstruct_mbwq(qt, torch.float32) - update
         if qt.q_perm is not None:
             perm = qt.q_perm.long()
@@ -352,38 +423,46 @@ class DiodeMix:
         off = 0
         for seg_mod, seg in zip(mod.segments, qt.segments):
             rows = slice(off, off + seg.in_features)
+            zeros = seg.zeros
             if refresh:
-                seg_mod.zeros.add_(_group_mean(update[rows], seg.group_size).to(seg_mod.zeros.dtype))
+                zeros = zeros + self._group_mean(update[rows], seg.group_size,
+                                                 split).to(zeros.dtype)
+                seg_mod.zeros.copy_(self._gather(zeros, split))
                 seg_mod._zeros_mid = False
-            seg_mod.packed.copy_(repack_mpq(w[rows], seg.replace(zeros=seg_mod.zeros)))
+            seg_mod.packed.copy_(self._gather(repack_mpq(w[rows], seg.replace(zeros=zeros)),
+                                              split))
             off += seg.in_features
 
-    def _update_binary(self, mod: nn.Module, st) -> None:
+    def _update_binary(self, mod: nn.Module, st, split=None) -> None:
         hp = self.hp
-        g = self._shadow_grad(mod)
+        g = _part(self._shadow_grad(mod), split)
         st["exp_avg_l"].add_((g - st["exp_avg_l"]) * (1.0 - hp.beta1))
         v = torch.sign(st["exp_avg_l"]) * hp.lr
         st["exp_avg_s"].add_((v - st["exp_avg_s"]) * (1.0 - hp.beta2))
         u = -torch.sign(st["exp_avg_s"])
         u = torch.where(u == 0, 1.0, u)
-        w = mod.data
-        mod.data.copy_(torch.where(u != torch.sign(w.float()), -w, w))
+        w = _part(mod.data, split)
+        mod.data.copy_(self._gather(torch.where(u != torch.sign(w.float()), -w, w), split))
 
-    def _update_intq(self, mod: nn.Module, st, size: float) -> None:
-        w = mod.data.float() - size * self._adamw(self._shadow_grad(mod), st)
+    def _update_intq(self, mod: nn.Module, st, size: float, split=None) -> None:
+        g = _part(self._shadow_grad(mod), split)
+        w = _part(mod.data, split).float() - size * self._adamw(g, st)
         if self.hp.weight_decay > 0.0:
             w = w - self.hp.lr * self.hp.weight_decay * w
-        mod.data.copy_(nv_tensor_quant(w, num_bits=mod._w_bit)[0].to(torch.int8))
+        # the per-tensor requantization's amax: the largest of every share's
+        amax = None if split is None else self._gather(w.max().reshape(1), (0, 0, 1)).max()
+        q = nv_tensor_quant(w, amax=amax, num_bits=mod._w_bit)[0].to(torch.int8)
+        mod.data.copy_(self._gather(q, split))
 
-    def _update_binary_embedding(self, mod: nn.Module, st) -> None:
-        g = self._shadow_grad(mod)
+    def _update_binary_embedding(self, mod: nn.Module, st, split=None) -> None:
+        g = _part(self._shadow_grad(mod), split)
         active = (g != 0.0).any(dim=1, keepdim=True)
         v = torch.sign(g)
         v = torch.where(v == 0, -1.0, v) * self.hp.lr
         st["exp_avg_s"].add_((v - st["exp_avg_s"]) * (1.0 - self.hp.beta2))
         bits = torch.where(st["exp_avg_s"] >= 0, 1.0, -1.0)
         packed = packing.pack_signs(packing.pad_to_multiple(bits, 1, 32, value=-1.0)[0])
-        mod.data.copy_(torch.where(active, packed, mod.data))
+        mod.data.copy_(self._gather(torch.where(active, packed, _part(mod.data, split)), split))
 
     def state_dict(self) -> Dict[str, Any]:
         def leaf(st):

@@ -23,11 +23,15 @@ the ring's, whose wait is counted under ``ring_wait``, and ``send``, which
 returns at once) and ``staged``.
 
 The kinds a backward needs are differentiable through their autograd
-Functions: :func:`all_to_all_diff` (backward: the inverse all-to-all) and
+Functions: :func:`all_to_all_diff` (backward: the inverse all-to-all),
 :func:`all_gather_diff` (backward: this rank's slice, for an output every
-rank holds whole and reads alike); :func:`sum_grad` is the identity whose
+rank holds whole and reads alike; with ``reduce=True`` the cotangent is
+summed over the axis first, for an output each rank reads only in part)
+and :func:`all_reduce_diff` (backward: the cotangent as it is, Megatron's
+"g" after a row-parallel product); :func:`sum_grad` is the identity whose
 backward sums the cotangent over an axis (a replicated tensor that each
-rank uses for its own part of the work).
+rank uses for its own part of the work: Megatron's "f" before a
+column-parallel product).
 
 A backend that does not take CUDA tensors for a kind of collective
 (:data:`CUDA_DIRECT`) gets them through pinned host memory: copied out,
@@ -247,21 +251,50 @@ def all_to_all_diff(mesh: Mesh, t: torch.Tensor, axis: str, split_dim: int,
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, mesh, axis, dim):
-        ctx.args = (mesh, axis, dim, t.shape[dim])
+    def forward(ctx, t, mesh, axis, dim, reduce):
+        ctx.args = (mesh, axis, dim, t.shape[dim], reduce)
         return all_gather(mesh, t, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axis, dim, size = ctx.args
-        return g.narrow(dim, mesh.coord(axis) * size, size), None, None, None
+        mesh, axis, dim, size, reduce = ctx.args
+        if reduce:
+            g = all_reduce(mesh, g.contiguous().clone(), axis)
+        return g.narrow(dim, mesh.coord(axis) * size, size), None, None, None, None
 
 
-def all_gather_diff(mesh: Mesh, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
-    """:func:`all_gather`, differentiable for an output that every rank
-    holds whole and reads alike (one loss, replicated): the backward keeps
-    this rank's slice of the cotangent and sums nothing."""
-    return _AllGather.apply(t, mesh, axis, dim)
+def all_gather_diff(mesh: Mesh, t: torch.Tensor, axis: str, dim: int,
+                    reduce: bool = False) -> torch.Tensor:
+    """:func:`all_gather`, differentiable.  For an output that every rank
+    holds whole and reads alike (one loss, replicated) the backward keeps
+    this rank's slice of the cotangent and sums nothing; with ``reduce``,
+    for an output each rank reads only in part (its own rows of it), the
+    cotangent is summed over ``axis`` before the slice is kept (a
+    reduce-scatter)."""
+    return _AllGather.apply(t, mesh, axis, dim, reduce)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return all_reduce(mesh, t.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def all_reduce_diff(mesh: Mesh, t: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+    """The sum of ``t`` over ``axis`` (a new tensor), differentiable for a
+    sum that every rank then reads alike (a row-parallel product's
+    partials): the backward passes the cotangent through unchanged, each
+    rank's partial having the whole sum's.  Without autograd it is
+    :func:`all_reduce` in place."""
+    if mesh.group(axis) is None:
+        return t
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return all_reduce(mesh, t, axis)
+    return _AllReduce.apply(t, mesh, axis)
 
 
 class _SumGrad(torch.autograd.Function):

@@ -23,8 +23,19 @@ and sequence-parallel step, every rank holding the whole weights:
   K/V (the ring's or the all-to-all's backward carried it); the sum adds
   the weights' shares;
 * DiodeMix runs on the summed gradients (``DiodeMix(mesh=)``: each
-  ``fsdp`` rank updates its rows and gathers the rest); the returned loss
+  ``fsdp`` rank updates its share and gathers the rest); the returned loss
   is the global one.
+
+A tp-sharded model (``models.llama_sharding.shard_llama_params`` on the
+same ``(dp, fsdp, tp)`` mesh, before or after ``prepare_for_training``)
+trains through the same step, as the JAX package's one GSPMD program over
+that mesh: every tp rank takes the same batch (``shard_batch`` splits over
+dp and sp only) and computes the whole loss (the model's collectives give
+every rank the whole logits); its grad shadows are its shards' and hold
+its shards' gradients, its replicated parameters' gradients are whole and
+equal on every tp rank (the model's backward sums the column-parallel
+inputs' cotangents over tp), so nothing is summed over tp here; DiodeMix
+keeps each shard's moments on its rank.
 """
 
 from __future__ import annotations
@@ -110,11 +121,7 @@ def make_train_step(
     backward, one DiodeMix step.  The gradients of the step stay in
     ``.grad`` until the next one.  With a ``mesh``: this rank's part of the
     batch, its loss share, the gradients summed over dp and sp (see the
-    module's notes).  Tensor parallelism inside the step is not ported: a
-    tp-sharded model (``models.llama_sharding``) raises."""
-    tp_mesh = getattr(model, "mesh", None)
-    if tp_mesh is not None and "tp" in tp_mesh.shape and tp_mesh.size("tp") > 1:
-        raise NotImplementedError("training a tp-sharded model is not ported yet")
+    module's notes); a tp-sharded model trains on the same mesh."""
     optimizer = create_train_state(model, hp, seed, mesh)
 
     def train_step(batch) -> Dict[str, Any]:

@@ -389,9 +389,12 @@ def load_jax_diode_state(optimizer, state: Any) -> None:
     ...)``: ``step`` and ``leaf_states``, a tree of the parameters' paths
     holding ``{"exp_avg_l", "exp_avg_s"}`` dicts) into the port's
     ``DiodeMix``: the step count and every moment, by the flax path of
-    its parameter or quantized layer.  The binary regimes' random initial
-    ``exp_avg_s`` decides their first flips, so a run held against the JAX
-    package starts from its moments.  GaLore states are not carried."""
+    its parameter or quantized layer (a MoE layer's tuple of experts walked
+    as ``experts.<i>``, the names ``load_jax_params`` gives them).  The
+    binary regimes' random initial ``exp_avg_s`` decides their first flips,
+    so a run held against the JAX package starts from its moments.  Under
+    fsdp (``DiodeMix(mesh=)``) each whole moment is cut to this rank's
+    share (``DiodeMix.moment_split``).  GaLore states are not carried."""
     tree = state.leaf_states
     if set(tree) == {"params"}:
         tree = tree["params"]
@@ -402,8 +405,9 @@ def load_jax_diode_state(optimizer, state: Any) -> None:
             # a quantized layer's state is keyed by its module, others by parameter
             found[".".join(path[:-1] if path[-1] == "qweight" else path)] = node
             return
-        for key, val in node.items():
-            walk(val, path + (key,))
+        items = enumerate(node) if isinstance(node, (tuple, list)) else node.items()
+        for key, val in items:
+            walk(val, path + (str(key),))
 
     walk(tree, ())
     if set(found) != set(optimizer.state):
@@ -414,6 +418,9 @@ def load_jax_diode_state(optimizer, state: Any) -> None:
         for key in ("exp_avg_l", "exp_avg_s"):
             if key in moments:
                 src = as_tensor(moments[key], mine[key].device)
+                split = optimizer.moment_split(name)
+                if split is not None and tuple(src.shape) != tuple(mine[key].shape):
+                    src = src.narrow(split[0], split[1], split[2] - split[1])
                 if tuple(src.shape) != tuple(mine[key].shape):
                     raise ValueError(f"{name}/{key}: shape {tuple(src.shape)} != "
                                      f"{tuple(mine[key].shape)}")

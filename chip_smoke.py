@@ -492,6 +492,22 @@ SP_EXACT_FACTOR = 4.0
 # attention by SP_EXACT_FACTOR
 SP_RING_WITNESS_FACTOR = 2.5
 
+# the tp training slice (phase 21): the 370M train step at tp 2 (two ranks
+# sharing the card through gloo) and at fsdp 2 x tp 2 (four ranks), and
+# Mixtral-8x7B (2 layers) at tp 2.  One tp rank's 370M projections (K, N):
+# q, k and v by 8 of the 16 heads, o by their rows, gate and up by 1408 of
+# the 2816 intermediate features, down by their rows
+TPT_SHAPES = {"tpt_q": (1024, 512), "tpt_k": (1024, 512), "tpt_v": (1024, 512),
+              "tpt_o": (512, 1024), "tpt_gate": (1024, 1408), "tpt_up": (1024, 1408),
+              "tpt_down": (1408, 1024)}
+TPT_COLUMN = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+TPT_ROW = ("o_proj", "down_proj")
+# one tp rank's attention (name, b, nh, nkv, s, d, causal): 8 of 16 heads
+TPT_FLASH = ("tpt_b8_nh8_s2048_d64", TRAIN_BATCH, 16 // TP, 16 // TP, TRAIN_SEQ, 64, True)
+TPT_FSDP_LAYERS = 4  # 21c's depth: the 370M width, 4 of its 24 layers
+TPT_WITNESS_FACTOR = 2.5  # 21b's gradient bar: max(TRAIN_GRAD_REL, this x the witness)
+TPT_WORLD_TIMEOUT, TPT_FSDP_WORLD_TIMEOUT, TPT_COLLECTIVE_TIMEOUT = 500, 300, 200  # s
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -3983,6 +3999,12 @@ def packed_state(model):
     return {n: b for n, b in model.named_buffers() if n.endswith(("packed", "zeros", "scales"))}
 
 
+def comm_text(comm):
+    """One line of a rank's collectives by kind (``parallel.comm`` counts)."""
+    return "  ".join(f"{k} {c['calls']}x {c['bytes'] / 2**20:.1f} MiB {c['ms']:.1f} ms "
+                     f"({c['staged']} staged)" for k, c in sorted(comm.items()))
+
+
 def par_loss(mesh):
     """The bench's next-token loss on a ``(tokens, labels)`` batch, this
     rank's share of the global mean with a mesh."""
@@ -4314,7 +4336,7 @@ def par_rank():
     rec["zeros_refreshed"] = sum(not torch.equal(b, dict(model.named_buffers())[n])
                                  for n, b in zeros.items())
     rec["zeros"] = len(zeros)
-    rec["row_gathers_expected"] = 2 * len(opt.mpq) + len(opt.rows) - len(opt.mpq)
+    rec["row_gathers_expected"] = 2 * len(opt.mpq) + len(opt.splits) - len(opt.mpq)
     rec["grads"] = len(ref["grads"])
     rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
     after = packed_state(model)
@@ -4401,10 +4423,6 @@ def phase_par(torch):
     def expect(ok, what):
         if not ok:
             fails.append(what)
-
-    def comm_text(comm):
-        return "  ".join(f"{k} {c['calls']}x {c['bytes'] / 2**20:.1f} MiB {c['ms']:.1f} ms "
-                         f"({c['staged']} staged)" for k, c in sorted(comm.items()))
 
     def report(key, label):
         for r in ranks:
@@ -4543,6 +4561,346 @@ def phase_par(torch):
     return rows, dict(ranks=ranks, summary=summary)
 
 
+def phase_tpt_kernels(torch, flush):
+    """Phase 21, the parent's part: kernel 2 at one tp rank's 370M
+    projections (``TPT_SHAPES``) and kernels 3 and 4 at one tp rank's
+    attention (``TPT_FLASH``) against their plain versions, then timed
+    (the card to itself)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rows = {"dequant_mpq": [], "flash_attention": [], "flash_attention_bwd": []}
+    for name, (k, n) in TPT_SHAPES.items():
+        qt = mpq_weight(torch, gen, k, n, 4)
+        x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+        rows["dequant_mpq"].append(mpq_kernel_rows(torch, name, x, qt, flush)[2])
+        del qt
+    name, b, nh, nkv, s, d, causal = TPT_FLASH
+    rows["flash_attention"].append(flash_row(torch, gen, name, b, nh, nkv, s, d, flush, causal))
+    rows["flash_attention_bwd"].append(flash_bwd_row(torch, gen, name, b, nh, nkv, s, d, causal,
+                                                     flush))
+    for name, rs in rows.items():
+        for r in rs:
+            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            log(f"time {name:19s} {r['shape']:32s} kernel {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {lib} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def split_cols(torch, model):
+    """The column half of 21b's witness, in place on the unsharded
+    ``model``: q, k, v, gate and up each as its ``TP`` column shards
+    (``column_shard``, the cut ``shard_llama_params`` makes: heads, or
+    intermediate features), their outputs concatenated, so that the
+    backward sums the input's cotangent from the shards' partials as the
+    tp ranks' all-reduce does."""
+    from bitorch_engine_tpu_torch.models.llama_sharding import column_shard
+
+    class SplitCols(torch.nn.Module):
+        def __init__(self, whole, where):
+            super().__init__()
+            n = whole.qweight.out_features // TP
+            self.parts = torch.nn.ModuleList(column_shard(whole, [(i * n, n)], where)
+                                             for i in range(TP))
+
+        def forward(self, x):
+            return torch.cat([p(x) for p in self.parts], dim=-1)
+
+    for li, layer in enumerate(model.layers):
+        for parent, names in ((layer.attn, TPT_COLUMN[:3]), (layer.mlp, TPT_COLUMN[3:])):
+            for name in names:
+                setattr(parent, name, SplitCols(getattr(parent, name), f"layer_{li}/{name}"))
+    return model
+
+
+def tpt_witness(torch, batch, ref):
+    """21b's one-process witness of tp's rounding: the unsharded model from
+    ``PAR_SEED``'s weights with both of tp 2's split sums (``split_cols``,
+    ``split_rows``), one forward and backward on the batch; its loss and
+    its gradients' distance from the unsharded step's (each shard's
+    gradient put back in its place)."""
+    model = split_rows(torch, split_cols(torch, build_train_model(torch, TRAIN_LAYERS, PAR_SEED)))
+    loss = par_loss(None)(model, batch)
+    loss.backward()
+    grads = {}
+    for li, layer in enumerate(model.layers):
+        for parent, names in ((layer.attn, ("q_proj", "k_proj", "v_proj", "o_proj")),
+                              (layer.mlp, ("gate_proj", "up_proj", "down_proj"))):
+            for name in names:
+                mod = getattr(parent, name)
+                dim = 0 if name in TPT_ROW else 1
+                where = f"layer_{li}.{'attn' if parent is layer.attn else 'mlp'}.{name}.grad_shadow"
+                grads[where] = torch.cat([p.grad_shadow.grad.float() for p in mod.parts], dim=dim)
+    for name, p in model.named_parameters():
+        if name in ref["grads"] and name not in grads:
+            grads[name] = p.grad.float()
+    rels = {n: rel_err(g, ref["grads"][n]) for n, g in grads.items()}
+    worst = max(rels, key=rels.get)
+    out = dict(loss_rel=abs(float(loss.detach()) - ref["loss"]) / abs(ref["loss"]), grad_rel=rels[worst],
+               worst=worst, tensors=len(rels), of=len(ref["grads"]))
+    del model, loss, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_share(name, t, coord):
+    """The part of the unsharded tensor ``name`` (a parameter, grad shadow
+    or buffer of the 370M model) that tp rank ``coord`` holds: columns of
+    q, k, v, gate and up, rows of o and down (a packed tensor's words, the
+    zeros' and scales' groups), the rest whole."""
+    proj = name.split(".")[-2] if name.count(".") >= 2 else ""
+    if proj in TPT_COLUMN:
+        n = t.shape[1] // TP
+        return t[:, coord * n : (coord + 1) * n]
+    if proj in TPT_ROW:
+        k = t.shape[0] // TP
+        return t[coord * k : (coord + 1) * k]
+    return t
+
+
+def tpt_rank():
+    """One rank of phase 21's two-rank world (the card shared, gloo):
+
+    * 21b: the unsharded 370M step on every rank (``par_ref``) and, on rank
+      0, the split-sum witness (``tpt_witness``); then the model cut by
+      ``shard_llama_params`` and trained one step by ``make_train_step`` on
+      the same tp 2 mesh: its loss, each gradient against the unsharded
+      step's share (``tp_share``), the packed codes after the step;
+    * 21d: Mixtral-8x7B at 2 layers cut over tp 2 (every expert's gate and
+      up by columns, down by rows), prefill 8 × 256 and ``EP_STEPS`` decode
+      steps forced to rank 0's unsharded tokens.
+
+    Returns one JSON string (``json``) of its numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from bitorch_engine_tpu_torch.models.llama_sharding import shard_llama_params
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    mesh = make_mesh(tp=TP)
+    coord = mesh.coord("tp")
+    out = dict(rank=rank)
+    hp = DiodeHyperParams(lr=TRAIN_LR, zeros_update_interval=1)
+
+    # 21b: tp 2 against the unsharded step (every rank) and the witness (rank 0)
+    batch, ref, out["ref"] = par_ref(torch, hp, PAR_SEED)
+    if rank == 0:
+        out["witness"] = tpt_witness(torch, batch, ref)
+    rec = {}
+    model = shard_llama_params(build_train_model(torch, TRAIN_LAYERS, PAR_SEED), mesh)
+    step = make_train_step(model, par_loss(mesh), hp, mesh=mesh)
+    with par_record(torch, rec, [mesh]):
+        rec["loss"] = float(step(batch)["loss"])
+    rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+    params = dict(model.named_parameters())
+    rels = {n: rel_err(params[n].grad.float(), tp_share(n, g, coord))
+            for n, g in ref["grads"].items()}
+    rec["worst"] = max(rels, key=rels.get)
+    rec["grad_rel"], rec["grads"] = rels[rec["worst"]], len(rels)
+    after = packed_state(model)
+    rec["codes_differing"] = sum(int((b != tp_share(n, ref["after"][n], coord)).sum())
+                                 for n, b in after.items() if n.endswith("packed"))
+    rec["codes_total"] = sum(b.numel() * 32 // 4 for n, b in after.items() if n.endswith("packed"))
+    rec["zeros_max_rel"] = max(rel_err(b.float(), tp_share(n, ref["after"][n], coord).float())
+                               for n, b in after.items() if n.endswith("zeros"))
+    rec["heads"] = [model.layer_0.attn.n_heads, model.layer_0.attn.n_kv_heads]
+    rec["moment_shape"] = list(step.optimizer.state["layer_0.mlp.down_proj"]["exp_avg_l"].shape)
+    rec["expected"] = {k: v for k, v in sp_launches("ulysses", 0).items() if v}
+    out["tp"] = rec
+    del model, step, params, after, ref
+    torch.cuda.empty_cache()
+
+    # 21d: Mixtral at tp 2, 2 layers
+    model = build_model(torch, EP_LAYERS, SEED, config="mixtral_8x7b_serving")
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
+    forced = torch.zeros((BATCH, EP_STEPS + 1), dtype=torch.int64)
+    rec = {}
+    if rank == 0:
+        want, want_toks = tp_serve(torch, model, prompt, EP_STEPS)
+        forced.copy_(want_toks.cpu())
+    dist.broadcast(forced, src=0)
+    forced = forced.cuda()
+    shard_llama_params(model, mesh)
+    expert = model.layer_0.mlp.experts[0]
+    rec["expert_shapes"] = [list(getattr(expert, p).qweight.logical_shape)
+                            for p in ("gate", "up", "down")]
+    records = []
+    with par_record(torch, rec, [mesh]):
+        got, _ = tp_serve(torch, model, prompt, EP_STEPS, mesh=mesh, forced=forced,
+                          records=records)
+    rec["records"] = records
+    rec["checksums"] = [float(g.double().sum()) for g in got]
+    if rank == 0:
+        rec["rel_errs"] = [rel_err(g, w) for g, w in zip(got, want)]
+        rec["passes_equal"] = sum(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    out["moe"] = rec
+    return {"json": json.dumps(out)}
+
+
+def tpt_fsdp_rank():
+    """One rank of phase 21c's four-rank world (the card shared, gloo): the
+    370M width at ``TPT_FSDP_LAYERS`` layers cut over the tp axis of one
+    fsdp 2 × tp 2 mesh, one step on the whole batch with the zeros
+    refreshed, twice from the same weights: tp 2 alone (``make_train_step``
+    without a mesh: every moment on its rank) and fsdp 2 × tp 2 (each fsdp
+    rank's share of its tp shard's moments).  Every packed code, zero and
+    parameter after the step compared."""
+    import torch
+
+    from bitorch_engine_tpu_torch.models.llama_sharding import shard_llama_params
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(fsdp=2, tp=TP)
+    hp = DiodeHyperParams(lr=TRAIN_LR, zeros_update_interval=1)
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    toks = torch.randint(0, 32000, (TRAIN_BATCH, TRAIN_SEQ + 1), device="cuda", generator=gen)
+    batch = (toks[:, :-1].contiguous(), toks[:, 1:].contiguous())
+    out, states = dict(rank=mesh.rank, coords=[mesh.coord("fsdp"), mesh.coord("tp")]), {}
+    for key, step_mesh in (("tp", None), ("fsdp_tp", mesh)):
+        model = shard_llama_params(build_train_model(torch, TPT_FSDP_LAYERS, PAR_SEED), mesh)
+        zeros = {n: b.clone() for n, b in model.named_buffers() if n.endswith("zeros")}
+        step = make_train_step(model, par_loss(mesh), hp, mesh=step_mesh)
+        rec = {}
+        with par_record(torch, rec, [mesh], profiled=False):
+            rec["loss"] = float(step(batch)["loss"])
+        bufs = dict(model.named_buffers())
+        rec["zeros_refreshed"] = sum(not torch.equal(b, bufs[n]) for n, b in zeros.items())
+        rec["splits"] = {n: list(s) for n, s in step.optimizer.splits.items()
+                         if n.startswith("layer_0.")}
+        states[key] = {n: t.detach().clone() for n, t in
+                       list(model.named_buffers()) + list(model.named_parameters())
+                       if not n.endswith("grad_shadow")}
+        out[key] = rec
+        del model, step, zeros, bufs
+        torch.cuda.empty_cache()
+    a, b = states["tp"], states["fsdp_tp"]
+    out["tensors"] = len(a)
+    out["differing"] = {n: int((a[n] != b[n]).sum()) for n in a if not torch.equal(a[n], b[n])}
+    out["codes"] = sum(t.numel() * 32 // 4 for n, t in a.items() if n.endswith("packed"))
+    return {"json": json.dumps(out)}
+
+
+def phase_tpt(torch):
+    """Phase 21: tp inside the train step.  21a's kernel rows in this
+    process; then 21b + 21d in a two-rank world (``tpt_rank``) and 21c in a
+    four-rank world (``tpt_fsdp_rank``), each spawned with the kernels
+    already built and joined under its deadline; their numbers printed per
+    rank, then held to their checks."""
+    from bitorch_engine_tpu_torch.parallel.multiprocess import launch_world
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    rows = phase_tpt_kernels(torch, flush)
+    del flush
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = [json.loads(str(r["json"])) for r in launch_world(
+        "chip_smoke:tpt_rank", TP, timeout=TPT_WORLD_TIMEOUT,
+        collective_timeout=TPT_COLLECTIVE_TIMEOUT)]
+    world_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fsdp_ranks = [json.loads(str(r["json"])) for r in launch_world(
+        "chip_smoke:tpt_fsdp_rank", 2 * TP, timeout=TPT_FSDP_WORLD_TIMEOUT,
+        collective_timeout=TPT_COLLECTIVE_TIMEOUT)]
+    fsdp_world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    fails = []
+
+    def expect(ok, what):
+        if not ok:
+            fails.append(what)
+
+    log(f"21 ({TP_LABEL}): world of {TP} ran {world_s:.1f} s; world of {2 * TP} (fsdp 2 x tp 2, "
+        f"{TPT_FSDP_LAYERS} layers) ran {fsdp_world_s:.1f} s")
+    for r in ranks:
+        rec = r["ref"]
+        log(f"21 rank {r['rank']} unsharded step: loss {rec['loss']:.6f}, "
+            f"{rec['build_and_step_s']:.1f} s built and stepped; launches {rec['launches']}")
+    w = r0["witness"]
+    bar = max(TRAIN_GRAD_REL, TPT_WITNESS_FACTOR * w["grad_rel"])
+    log(f"21b witness (one process, tp 2's column and row split sums) vs the unsharded step: loss "
+        f"rel {w['loss_rel']:.3e}, max grad rel {w['grad_rel']:.3e} ({w['worst']}, {w['tensors']} "
+        f"of {w['of']} tensors); the tp step's gradient bar max({TRAIN_GRAD_REL}, "
+        f"{TPT_WITNESS_FACTOR} x witness) = {bar:.3e}")
+    expect(w["tensors"] == w["of"], "21b witness: a gradient missing")
+    for r in ranks:
+        rec = r["tp"]
+        log(f"21b tp 2 rank {r['rank']}: wall {rec['wall_s']:.2f} s ({TP_LABEL}), busy "
+            f"{rec['busy_ms']:.1f} ms, peak {rec['peak_gib']:.2f} GiB, launches {rec['launches']} "
+            f"(expected {rec['expected']}); {comm_text(rec['comm'])}")
+        log(f"21b tp 2 rank {r['rank']}: {rec['heads'][0]} query / {rec['heads'][1]} KV heads; loss "
+            f"{rec['loss']:.6f} (rel {rec['loss_rel']:.3e}), max grad rel {rec['grad_rel']:.3e} "
+            f"({rec['worst']}, {rec['grads']} tensors, each against its share of the unsharded "
+            f"step's); packed codes differing from the unsharded step's share after it "
+            f"{rec['codes_differing']} of {rec['codes_total']}; zeros max rel "
+            f"{rec['zeros_max_rel']:.3e}; down_proj moments {rec['moment_shape']}")
+        expect(rec["loss_rel"] <= TRAIN_LOSS_REL, f"21b rank {r['rank']}: loss rel {rec['loss_rel']}")
+        expect(rec["grad_rel"] <= bar,
+               f"21b rank {r['rank']}: {rec['worst']} grad rel {rec['grad_rel']} > {bar}")
+        expect(rec["launches"] == rec["expected"],
+               f"21b rank {r['rank']}: launches {rec['launches']} != {rec['expected']}")
+        expect(rec["heads"] == [16 // TP, 16 // TP], f"21b rank {r['rank']}: heads {rec['heads']}")
+    f0 = fsdp_ranks[0]
+    for r in fsdp_ranks:
+        for key, label in (("tp", "tp 2 alone"), ("fsdp_tp", "fsdp 2 x tp 2")):
+            rec = r[key]
+            log(f"21c {label} rank {r['rank']} (fsdp {r['coords'][0]}, tp {r['coords'][1]}): wall "
+                f"{rec['wall_s']:.2f} s, peak {rec['peak_gib']:.2f} GiB, loss {rec['loss']:.6f}, "
+                f"launches {rec['launches']}, zeros refreshed in {rec['zeros_refreshed']} buffers; "
+                f"{comm_text(rec['comm'])}")
+        log(f"21c rank {r['rank']}: layer 0's fsdp shares {r['fsdp_tp']['splits']}; after the step "
+            f"{len(r['differing'])} of {r['tensors']} tensors differ from tp 2 alone "
+            f"({r['differing'] or 'none'}; {r['codes']} codes)")
+        expect(not r["differing"], f"21c rank {r['rank']}: {r['differing']}")
+        expect(r["fsdp_tp"]["loss"] == r["tp"]["loss"], f"21c rank {r['rank']}: losses differ")
+        expect(r["fsdp_tp"]["zeros_refreshed"] > 0, f"21c rank {r['rank']}: no zeros refreshed")
+        expect(r["fsdp_tp"]["splits"].get("layer_0.mlp.down_proj", [None])[0] == 1,
+               f"21c rank {r['rank']}: down_proj's share is not its columns")
+        want = counts_with(dequant_mpq=4 * TRAIN_PROJ * TPT_FSDP_LAYERS,
+                           flash_attention=2 * TPT_FSDP_LAYERS,
+                           flash_attention_bwd=2 * TPT_FSDP_LAYERS)
+        for key in ("tp", "fsdp_tp"):
+            expect(r[key]["launches"] == {k: v for k, v in want.items() if v},
+                   f"21c {key} rank {r['rank']}: launches {r[key]['launches']}")
+    pass_n = EP_LAYERS * (2 + 3 * MOE_EXPERTS) + 1
+    moe_step = counts_with(mpq_matmul=pass_n)
+    moe_prefill = counts_with(dequant_mpq=pass_n, flash_attention=EP_LAYERS)
+    for r in ranks:
+        rec = r["moe"]
+        recs = rec["records"]
+        log(f"21d Mixtral tp 2 rank {r['rank']}: expert shards (gate, up, down) "
+            f"{rec['expert_shapes']}; prefill launches {recs[0]['launches']}, a decode step "
+            f"{recs[1]['launches']}; prefill {comm_text(recs[0]['comm'])}; a decode step "
+            f"{comm_text(recs[1]['comm'])}; peak {rec['peak_gib']:.2f} GiB")
+        expect(recs[0]["launches"] == {k: v for k, v in moe_prefill.items() if v},
+               f"21d rank {r['rank']} prefill launches {recs[0]['launches']}")
+        for one in recs[1:]:
+            expect(one["launches"] == {k: v for k, v in moe_step.items() if v},
+                   f"21d rank {r['rank']} step {one['step']} launches {one['launches']}")
+    log(f"21d Mixtral tp 2 vs unsharded: logits max|d|/max|ref| prefill "
+        f"{r0['moe']['rel_errs'][0]:.3e}, decode max {max(r0['moe']['rel_errs'][1:]):.3e}; "
+        f"{r0['moe']['passes_equal']} of {EP_STEPS + 1} passes bit-equal")
+    expect(max(r0["moe"]["rel_errs"]) <= 2e-2,
+           f"21d: tp logits {max(r0['moe']['rel_errs'])} > 2e-2")
+    expect(ranks[0]["moe"]["checksums"] == ranks[1]["moe"]["checksums"],
+           "21d: the ranks' logits differ")
+    check(not fails, "; ".join(fails))
+    summary = dict(label=TP_LABEL, world_s=world_s, fsdp_world_s=fsdp_world_s, witness=w, bar=bar,
+                   ref=[r["ref"] for r in ranks], tp=[r["tp"] for r in ranks],
+                   fsdp=fsdp_ranks, moe=[{k: v for k, v in r["moe"].items()} for r in ranks],
+                   fsdp_layers=TPT_FSDP_LAYERS, f0_tensors=f0["tensors"])
+    return rows, dict(ranks=ranks, summary=summary)
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -4658,6 +5016,9 @@ def main() -> int:
 
     # the parallel training slice
     par_rows, par = phase_par(torch)
+
+    # tp inside the train step
+    tpt_rows, tpt = phase_tpt(torch)
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -4877,10 +5238,30 @@ def main() -> int:
             {k: sub[k] for k in keys}, label=TP_LABEL,
             max_abs_err=max(r["max_abs_err"] for r in rows), max_err=max(r["rel_err"] for r in rows),
             rows=rows)
+    # tp inside the train step (phase 21): one tp rank's launches in its
+    # 370M step, priced at its projection shards (kernel 2) and its 8 heads'
+    # attention (kernels 3 and 4)
+    t_rank = tpt["ranks"][0]["tp"]["launches"]
+    tpt_passes = {
+        "dequant_mpq": (t_rank["dequant_mpq"], {name: 4 * TRAIN_LAYERS for name in TPT_SHAPES},
+                        "one train step of one tp rank (8 x 2048 tokens, tp 2)"),
+        "flash_attention": (t_rank["flash_attention"], {TPT_FLASH[0]: 2 * TRAIN_LAYERS},
+                            "one train step of one tp rank (8 of 16 heads a layer, twice)"),
+        "flash_attention_bwd": (t_rank["flash_attention_bwd"], {TPT_FLASH[0]: TRAIN_LAYERS},
+                                "one train step of one tp rank (a backward of 2 launches a layer)"),
+    }
+    for name, (launches, weights, per) in tpt_passes.items():
+        rows = tpt_rows[name]
+        sub = kernel_line(name, rows, launches, weights, per, checks[name])
+        keys = ("launches", "per", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        by_name[name]["tp_train"] = dict(
+            {k: sub[k] for k in keys}, label=TP_LABEL,
+            max_abs_err=max(r["max_abs_err"] for r in rows), max_err=max(r["rel_err"] for r in rows),
+            rows=rows)
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
                     "qat": qat, "checkpoint": ckpt, "ragged_g_idx": act_rows["ragged_counts"],
-                    "moe": moe, "tp": tp["summary"], "par": par["summary"],
+                    "moe": moe, "tp": tp["summary"], "par": par["summary"], "tp_train": tpt["summary"],
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -95,14 +95,23 @@ def sharding_world():
     out["act_order_ref"] = layer(x)
     shard = row_shard(layer, mesh, "tp", "act_order")
     out["act_order"] = _row_parallel(shard, x[:, r * 64 : (r + 1) * 64], mesh)
+    # a ragged g_idx: every group's scales and zeros, this rank's rows' g_idx
+    g_idx = torch.from_numpy((np.random.default_rng(4).permutation(256) // 64).astype(np.int32))
+    layer = MPQLinear(256, 256, dtype=torch.float32, qweight=qt.replace(g_idx=g_idx))
+    out["ragged_ref"] = layer(x)
+    shard = row_shard(layer, mesh, "tp", "ragged")
+    out["ragged_scales_shape"] = np.asarray(shard.scales.shape)
+    out["ragged"] = _row_parallel(shard, x[:, r * 64 : (r + 1) * 64], mesh)
     return out
 
 
 @torch.no_grad()
-def llama_world(ckpt, ckpt_fused, tokens):
+def llama_world(ckpt, ckpt_fused, tokens, variants):
     """The tp forward at tp 2 (a dp 2 × tp 2 mesh) and tp 4 (fewer KV heads
     than ranks), fused and unfused, and prefill + one decode step over
-    dp/tp-sharded dense caches (``test_llama_sharding.py``)."""
+    dp/tp-sharded dense caches (``test_llama_sharding.py``); the padded
+    and MoE models of ``variants`` (name → ``(cfg_kw, ckpt)``) at tp 2 and
+    tp 4; the refusal of an MBWQ model."""
     from bitorch_engine_tpu_torch.models.llama import (
         LlamaModel, decode_step, init_kv_caches, prefill, tiny_llama,
     )
@@ -134,6 +143,19 @@ def llama_world(ckpt, ckpt_fused, tokens):
     fp = LlamaModel(cfg.replace(quantized=False), device="cpu", seed=3)
     out["fp_forward"] = fp(tokens)[0]
     out["fp_forward_tp2"] = shard_llama_params(fp, meshes["tp2"])(tokens)[0]
+    for name, (kw, path) in variants.items():
+        for key, mesh in meshes.items():
+            model = shard_llama_params(load_model(tiny_llama(dtype=torch.float32, **kw), path), mesh)
+            out[f"{name}_forward_{key}"] = model(tokens)[0]
+            out[f"{name}_out_slices_{key}"] = np.asarray(sum(
+                getattr(m, "out_slice", None) is not None for m in model.modules()))
+    mbwq = LlamaModel(tiny_llama(dtype=torch.float32, mbwq_strategy=((4, 0.5), (2, 0.5)),
+                                 group_size=32), device="cpu")
+    try:
+        shard_llama_params(mbwq, meshes["tp2"])
+        out["mbwq_raises"] = np.asarray("")
+    except NotImplementedError as e:
+        out["mbwq_raises"] = np.asarray(str(e))
     return out
 
 
@@ -456,11 +478,54 @@ def _mpq_step(qt, x, y, mesh, hp, cut):
     return packed, specs, opt.state[""]["exp_avg_l"].shape
 
 
-def training_world():
+def _regime_runs(path):
+    """DiodeMix over every regime's leaves (``path``: a ``torch.save`` of
+    ``{"module", "grads", "moments", "galore"}``), with and without GaLore,
+    unsharded and at fsdp 4, from the JAX package's initial moments, fed
+    the saved gradients; each leaf's weight after the last step."""
+    import types
+
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams, DiodeMix, GaLoreConfig
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.utils.convert import load_jax_diode_state, prepare_for_training
+
+    payload = torch.load(path, weights_only=False)
+    fsdp4 = make_mesh(fsdp=4, tp=1)
+    out = {}
+    for galore in (False, True):
+        hp = DiodeHyperParams(lr=5e-3, galore=GaLoreConfig(rank=8) if galore else None)
+        moments = payload["galore_moments" if galore else "moments"]
+        for key, mesh in (("none", None), ("fsdp4", fsdp4)):
+            module = prepare_for_training(torch.load(path, weights_only=False)["module"])
+            for name, p in module.named_parameters():
+                if name.endswith(("scale_a", "bias_a")):  # the JAX leaves have none
+                    p.requires_grad_(False)
+            opt = DiodeMix(module, hp, mesh=mesh)
+            load_jax_diode_state(opt, types.SimpleNamespace(leaf_states=moments, step=0))
+            for grads in payload["grads"]:
+                for name, g in grads.items():
+                    target = getattr(module, name)
+                    if isinstance(target, torch.nn.Parameter):
+                        target.grad = g.clone()
+                    else:
+                        target.grad_shadow.grad = g.clone()
+                opt.step()
+            tag = f"regime_{'galore' if galore else 'plain'}_{key}"
+            for name, t in list(module.named_buffers()) + list(module.named_parameters()):
+                if not name.endswith("grad_shadow"):
+                    out[f"{tag}_{name}"] = t.detach()
+            if mesh is not None:
+                out[f"{tag}_splits"] = np.asarray(
+                    [[n, *map(str, sp)] for n, sp in sorted(opt.splits.items())])
+    return out
+
+
+def training_world(regimes):
     """``test_torch_parallel_training.py`` on 4 ranks: the optimizer-state
     case at tp 4 (columns) and fsdp 4 (moment rows); the tiny f32 Llama
     trained 5 steps (the zeros refresh at step 5) at dp 2 × fsdp 2, fsdp 4
-    and dp 4, and unsharded in the same process; the refusals."""
+    and dp 4, and unsharded in the same process; every DiodeMix regime
+    unsharded and at fsdp 4 (:func:`_regime_runs`); the refusals."""
     from bitorch_engine_tpu_torch.models.llama import LlamaModel, tiny_llama
     from bitorch_engine_tpu_torch.optim import DiodeHyperParams, DiodeMix, GaLoreConfig
     from bitorch_engine_tpu_torch.parallel import make_mesh
@@ -493,13 +558,22 @@ def training_world():
             out[f"llama_{key}_moment_rows"] = np.asarray(
                 step.optimizer.state["layer_0.mlp.down_proj"]["exp_avg_l"].shape[0])
 
+    out.update(_regime_runs(regimes))
+
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+
     fsdp4 = meshes["fsdp4"]
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(256).astype(np.int32))
     refusals = {
-        "groups": lambda: DiodeMix(prepare_for_training(LlamaModel(
-            tiny_llama(dtype=torch.float32, group_size=128), device="cpu")), hp, mesh=fsdp4),
+        # 256 rows: 64 a rank, not whole groups of 128; 198 columns: not 4 equal shares
+        "groups": lambda: DiodeMix(prepare_for_training(MPQLinear(
+            256, 198, group_size=128, dtype=torch.float32, device="cpu")), hp, mesh=fsdp4),
+        # gate_proj (256, 512) projects on the left: 3 rows of moments
         "galore": lambda: DiodeMix(prepare_for_training(LlamaModel(
             tiny_llama(dtype=torch.float32), device="cpu")),
-            DiodeHyperParams(galore=GaLoreConfig(rank=4)), mesh=fsdp4),
+            DiodeHyperParams(galore=GaLoreConfig(rank=3)), mesh=fsdp4),
+        "act_order": lambda: DiodeMix(prepare_for_training(MPQLinear(
+            256, 256, dtype=torch.float32, qweight=mk_qt().replace(q_perm=perm))), hp, mesh=fsdp4),
     }
     for name, fn in refusals.items():
         try:
@@ -527,7 +601,8 @@ def expert_world(path, static):
     """``test_torch_expert_parallel.py`` on 4 ranks: ``moe_mlp`` at ep 4
     (stacked and tuple forms) beside the unsharded call; a tiny f32 MoE
     Llama at ep 2 (a dp 2 × ep 2 mesh): logits, a decode step over caches
-    and the gradients of a loss, before and after ``shard_llama_params``."""
+    and the gradients of a loss, before and after ``shard_llama_params``;
+    the same model at ep 2 × tp 2: logits and gradients."""
     from bitorch_engine_tpu_torch.models.llama import (
         LlamaModel, decode_step, init_kv_caches, prefill, tiny_llama,
     )
@@ -561,6 +636,9 @@ def expert_world(path, static):
         for name, p in model.named_parameters():
             if p.grad is not None and "experts" not in name:
                 out[f"llama_{key}_grad_{name}"] = p.grad
+        if key == "unsharded":
+            out["llama_unsharded_up_grads"] = torch.stack(
+                [ex.up.grad_shadow.grad for ex in model.layer_0.mlp.experts])
         e0 = mesh2.coord("ep") * 2
         for e in range(2):  # this rank's experts: 2 of 4 (global e0, e0 + 1)
             mine = model.layer_0.mlp.experts[e if key == "ep" else e0 + e]
@@ -569,4 +647,77 @@ def expert_world(path, static):
             caches = init_kv_caches(model.cfg, 2, 16, device="cpu")
             _, caches = prefill(model, toks[:, :6], caches)
             out[f"llama_{key}_decode"] = decode_step(model, toks[:, 6:7], caches, 6)[0]
+
+    # ep 2 × tp 2: this rank's 2 experts, each cut over tp, and tp attention
+    mesh3 = make_axes_mesh(ep=2, tp=2)
+    model = shard_llama_params(prepare_for_training(LlamaModel(
+        tiny_llama(dtype=torch.float32, moe_num_experts=4), device="cpu", seed=7)), mesh3)
+    logits = model(toks)[0]
+    (logits ** 2).mean().backward()
+    out["llama_ep_tp_logits"] = logits.detach()
+    for name, p in model.named_parameters():
+        if p.grad is not None and "experts" not in name and "_proj" not in name:
+            out[f"llama_ep_tp_grad_{name}"] = p.grad
+    for e in range(2):
+        out[f"llama_ep_tp_expert{e}_grad"] = model.layer_0.mlp.experts[e].up.grad_shadow.grad
+    out["llama_ep_tp_inter"] = np.asarray(model.layer_0.mlp.experts[0].up.qweight.out_features)
+    return out
+
+
+TP_MESHES = {"tp4": dict(tp=4), "dp2_tp2": dict(dp=2, tp=2), "fsdp2_tp2": dict(fsdp=2, tp=2)}
+
+
+def tp_training_world(ckpt, cfg_kw, batches, lr, interval):
+    """``test_torch_tp_training.py`` on 4 ranks: the tiny f32 Llama (JAX
+    start weights from ``ckpt``) prepared for training, cut by
+    ``shard_llama_params`` and trained ``len(batches)`` DiodeMix steps at
+    each layout of :data:`TP_MESHES` (one ``(dp, fsdp, tp)`` mesh for the
+    model and the step) and unsharded (``none``): the losses, the first
+    step's gradients and the shards after the last step; then the act-order row shard's backward at
+    tp 4 beside the unsharded layer's."""
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+    from bitorch_engine_tpu_torch.models.llama import _row_parallel, tiny_llama
+    from bitorch_engine_tpu_torch.models.llama_sharding import row_shard, shard_llama_params
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.training import make_train_step
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    cfg = tiny_llama(dtype=torch.float32, **cfg_kw)
+    hp = DiodeHyperParams(lr=lr, zeros_update_interval=interval)
+    out = {}
+    for key, sizes in [("none", None)] + list(TP_MESHES.items()):
+        mesh = None if sizes is None else make_mesh(**sizes)
+        model = prepare_for_training(load_model(cfg, ckpt))
+        if mesh is not None:
+            shard_llama_params(model, mesh)
+        step = make_train_step(model, lm_loss(mesh), hp, mesh=mesh)
+        losses = []
+        for i, toks in enumerate(batches):
+            toks = torch.tensor(toks)
+            losses.append(float(step((toks[:, :-1], toks[:, 1:]))["loss"]))
+            if i == 0:
+                for name, p in model.named_parameters():
+                    out[f"{key}_grad_{name}"] = p.grad
+        out[f"{key}_losses"] = np.asarray(losses)
+        for name, t in list(model.named_buffers()) + list(model.named_parameters()):
+            if not name.endswith("grad_shadow"):
+                out[f"{key}_{name}"] = t.detach()
+
+    mesh, x = make_mesh(tp=4), normal(11, (8, 256))
+    r = mesh.coord("tp")
+    perm = torch.from_numpy(np.random.default_rng(12).permutation(256).astype(np.int32))
+    layer = prepare_for_training(MPQLinear(256, 256, dtype=torch.float32,
+                                           qweight=mk_qt(seed=13).replace(q_perm=perm)))
+    c = normal(14, (8, 256))
+    xs = {"unsharded": x.clone().requires_grad_(),
+          "sharded": x[:, r * 64 : (r + 1) * 64].clone().requires_grad_()}
+    for key, xi in xs.items():
+        mod = layer if key == "unsharded" else row_shard(layer, mesh, "tp", "act_order")
+        y = mod(xi) if key == "unsharded" else _row_parallel(mod, xi, mesh)
+        (y * c).sum().backward()
+        out[f"act_order_{key}_x_grad"] = xi.grad
+        out[f"act_order_{key}_w_grad"] = mod.grad_shadow.grad
+        out[f"act_order_{key}_y"] = y.detach()
+    out["act_order_rows"] = row_shard(layer, mesh, "tp", "act_order").tp_rows
     return out

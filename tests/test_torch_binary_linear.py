@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu import qtensor as jqt
 from bitorch_engine_tpu.ops import conv as jconv
 from bitorch_engine_tpu.ops import quant as jq

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops import mpq_linear as jlin
 from bitorch_engine_tpu.ops import packing as jpk
 from bitorch_engine_tpu.ops import quant as jq

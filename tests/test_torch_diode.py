@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch import nn
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu import qtensor as jqtensor
 from bitorch_engine_tpu.ops import mbwq_linear as jmb
 from bitorch_engine_tpu.ops import quant as jq

@@ -14,6 +14,7 @@ import optax
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.models import eval as jeval
 from bitorch_engine_tpu.models import llama as jl
 from bitorch_engine_tpu.models import llama_loader as jloader

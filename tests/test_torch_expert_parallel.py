@@ -5,8 +5,11 @@ the JAX sharded call (atol 1e-5, rtol 1e-4: f32 sums in other orders) and
 bit for bit against the port's unsharded call (the expert outputs are
 gathered before the combine, which keeps its order); and a tiny f32 MoE
 Llama cut with ``shard_llama_params`` at ep 2 against itself unsharded:
-logits, a decode step and the gradients bit for bit.  One gloo world of
-4 CPU processes (``_torch_worlds.expert_world``).
+logits, a decode step and the gradients bit for bit; and at ep 2 × tp 2
+(each rank's 2 experts cut over tp, the JAX package runs this layout too:
+its GSPMD logits read 7e-7 from its unsharded ones) within rtol 1e-5 /
+atol 1e-6 (the tp sums in f32 in another order).  One gloo world of 4 CPU
+processes (``_torch_worlds.expert_world``).
 """
 
 import dataclasses
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import start_world
 from bitorch_engine_tpu.ops import moe as jmoe
 
@@ -90,3 +94,26 @@ def test_moe_llama_at_ep2_equals_unsharded(world):
         for name in grads:
             np.testing.assert_array_equal(out[f"llama_ep_grad_{name}"],
                                           out[f"llama_unsharded_grad_{name}"], err_msg=name)
+
+
+def test_moe_llama_at_ep2_tp2_matches_unsharded(world):
+    """Logits and the gradients of the replicated parameters (router,
+    norms, embedding) and of this rank's experts' up columns."""
+    for r in range(4):
+        out = world[r]
+        ep, tp = r // 2, r % 2
+        inter = int(out["llama_ep_tp_inter"])
+        assert inter == 512 // 2  # tiny_llama: intermediate 512
+        np.testing.assert_allclose(out["llama_ep_tp_logits"], out["llama_unsharded_logits"],
+                                   rtol=1e-5, atol=1e-6)
+        grads = [k.removeprefix("llama_ep_tp_grad_") for k in out
+                 if k.startswith("llama_ep_tp_grad_")]
+        assert any("router" in g for g in grads) and any("norm" in g for g in grads)
+        for name in grads:
+            np.testing.assert_allclose(out[f"llama_ep_tp_grad_{name}"],
+                                       out[f"llama_unsharded_grad_{name}"], rtol=1e-5, atol=1e-6,
+                                       err_msg=name)
+        for e in range(2):
+            want = out["llama_unsharded_up_grads"][ep * 2 + e][:, tp * inter : (tp + 1) * inter]
+            np.testing.assert_allclose(out[f"llama_ep_tp_expert{e}_grad"], want, rtol=1e-5,
+                                       atol=1e-6)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops.pallas.flash_attention import _fwd_call, _pick_block
 from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,

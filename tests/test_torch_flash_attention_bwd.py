@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops.pallas import flash_attention as jax_fa
 from bitorch_engine_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from bitorch_engine_tpu_torch.ops.cuda.flash_attention import (

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.models import generate as jg
 from bitorch_engine_tpu.models import llama as jl
 from bitorch_engine_tpu_torch.models import generate as tg

@@ -19,6 +19,7 @@ import pytest
 import torch
 from safetensors import numpy as st_numpy
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops import mbwq_linear as jmbwq
 from bitorch_engine_tpu.ops import quant as jquant
 from bitorch_engine_tpu.utils import ingest as jingest

@@ -9,6 +9,7 @@ import sys
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 import bitorch_engine_tpu_torch
 from bitorch_engine_tpu_torch import device as tdevice
 from bitorch_engine_tpu_torch.layers.linear import MBWQLinear, MPQLinear

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from test_torch_ingest import assert_records_equal
 
 from bitorch_engine_tpu.models import generate as jgen

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.models import generate as jg
 from bitorch_engine_tpu.models import llama as jl
 from bitorch_engine_tpu.utils.convert import relayout_params_for_tpu

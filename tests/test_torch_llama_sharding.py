@@ -2,7 +2,10 @@
 (``tests/test_llama_sharding.py``): the Megatron specs, the tp forward, and
 decode over dp/tp-sharded caches on ``tiny_llama(dtype=float32)``, against
 JAX's sharded result and the port's unsharded one at 5e-4; the fused model
-against the unfused one.
+against the unfused one; a padded model (``proj_pad_to=384``) and a MoE
+model (4 experts, each cut as the dense MLP) at tp 2 and tp 4 against the
+JAX ``apply`` on dp 2 × tp 4 sharded parameters, at the same 5e-4; an
+MBWQ model refused (the JAX package's row rule cannot take one either).
 
 The JAX parameters are carried over with ``load_jax_params`` and saved with
 ``save_checkpoint``; a gloo world of 4 CPU processes loads them, cuts each
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import start_world
 from bitorch_engine_tpu.models import llama as jl
 from bitorch_engine_tpu.models.llama_sharding import llama_partition_specs as jspecs
@@ -87,15 +91,47 @@ def port_side(setup, pending_world):
     return out
 
 
+VARIANTS = {"padded": dict(proj_pad_to=384), "moe": dict(moe_num_experts=4)}
+
+
 @pytest.fixture(scope="module")
-def pending_world(setup):
+def variants(setup):
+    """Each variant's JAX model and parameters, saved for the world."""
+    _, _, tokens, _, _, tmp = setup
+    out = {}
+    for name, kw in VARIANTS.items():
+        model = jl.LlamaModel(jl.tiny_llama(dtype=jnp.float32, **kw))
+        params = jax.jit(model.init)(jax.random.PRNGKey(2), jnp.asarray(tokens))
+        tmodel = tl.LlamaModel(tl.tiny_llama(dtype=torch.float32, **kw), device="cpu")
+        load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
+        save_checkpoint(str(tmp / name), tmodel)
+        out[name] = (model, params, str(tmp / name))
+    return out
+
+
+@pytest.fixture(scope="module")
+def pending_world(setup, variants):
     _, _, tokens, _, tmodel, tmp = setup
     save_checkpoint(str(tmp / "unfused"), tmodel)
     fused = tl.LlamaModel(tl.tiny_llama(dtype=torch.float32), device="cpu", seed=1)
     fused.load_state_dict(tmodel.state_dict())
     save_checkpoint(str(tmp / "fused"), tl.fuse_llama_params(fused))
     return start_world("llama_world", 4, ckpt=str(tmp / "unfused"),
-                       ckpt_fused=str(tmp / "fused"), tokens=tokens.tolist())
+                       ckpt_fused=str(tmp / "fused"), tokens=tokens.tolist(),
+                       variants={name: (VARIANTS[name], path)
+                                 for name, (_, _, path) in variants.items()})
+
+
+@pytest.fixture(scope="module")
+def jax_variants(setup, variants, pending_world):
+    """Each variant's JAX forward on dp 2 × tp 4 sharded parameters."""
+    tokens = setup[2]
+    mesh = jmake_mesh(dp=2, tp=4)
+    out = {}
+    with mesh:
+        for name, (model, params, _) in variants.items():
+            out[name] = np.asarray(jax.jit(model.apply)(jshard(params, mesh), tokens)[0])
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -205,3 +241,19 @@ def test_cache_specs():
         assert c.k_pool.shape == c.v_pool.shape == (5, 8, heads * hd)
         assert c.k_scale.shape == c.v_scale.shape == (4 // dp, 16, heads)
         assert c.page_table.shape == (4 // dp, 2) and c.kv_heads == heads
+
+
+@pytest.mark.parametrize("tp", ["tp2", "tp4"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_padded_and_moe_models_shard(world, jax_variants, variant, tp):
+    """A padded model's shards hold logical columns only (no ``out_slice``
+    left); a MoE model's experts are cut as the dense MLP.  Both give the
+    JAX package's sharded logits."""
+    for rank in world:
+        np.testing.assert_allclose(rank[f"{variant}_forward_{tp}"], jax_variants[variant], **TOL)
+        assert int(rank[f"{variant}_out_slices_{tp}"]) == 0
+
+
+def test_mbwq_model_is_refused(world):
+    for rank in world:
+        assert "MBWQ projections is not a feature of the JAX package" in str(rank["mbwq_raises"])

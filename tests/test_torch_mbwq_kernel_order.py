@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import jax
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops import mbwq_linear as jmb
 from bitorch_engine_tpu.ops import quant as jq
 from bitorch_engine_tpu.ops.pallas.dequant_matmul import mpq_matmul_pallas

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops import mbwq_linear as jmb
 from bitorch_engine_tpu.ops.pallas.dequant_matmul import relayout_tpu
 from bitorch_engine_tpu.ops.pallas.mbwq_matmul import mbwq_matmul_pallas

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.models import generate as jg
 from bitorch_engine_tpu.models import llama as jl
 from bitorch_engine_tpu.ops import moe as jmoe
@@ -404,3 +405,80 @@ def test_mixtral_configs():
     assert serving.dtype == torch.bfloat16 and serving.max_seq_len == 1024
     skeleton = tl.LlamaModel(serving.replace(num_layers=1), device="meta")
     assert skeleton.layer_0.mlp.experts[7].down.packed.shape == (14336 // 8, 4096)
+
+
+def _jax_at(tree, name):
+    """The leaf of a JAX tree at the port's dotted ``name`` (a tuple's
+    items by index: ``experts.<i>``)."""
+    for key in name.split("."):
+        tree = tree[int(key)] if isinstance(tree, (tuple, list)) else tree[key]
+    return tree
+
+
+def test_moe_diode_state_loads_and_steps_as_jax():
+    """The tiny MoE Llama's DiodeMix state from the JAX package
+    (``diode_init``'s tree, the experts a tuple; its moments replaced by
+    random ones so that the load decides the step) and one step, the zeros
+    refreshed, fed the same random gradients in each package: every packed
+    code and zero of every expert and projection equal, the moments and fp
+    parameters within rtol 1e-5 (f32 on both sides; XLA may contract
+    multiply-adds)."""
+    from bitorch_engine_tpu.optim import DiodeHyperParams as JHP
+    from bitorch_engine_tpu.optim import diode_init, diode_update
+    from bitorch_engine_tpu.utils.convert import prepare_for_training as jprepare
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams, DiodeMix
+    from bitorch_engine_tpu_torch.ops import packing as tpk
+    from bitorch_engine_tpu_torch.utils.convert import load_jax_diode_state
+
+    from bitorch_engine_tpu.qtensor import QTensorBase
+
+    params = jprepare({"params": _variables()["params"]})
+    rng = np.random.default_rng(4)
+
+    def rand(shape, scale):
+        return jnp.asarray(rng.standard_normal(shape).astype(np.float32) * scale)
+
+    grads = jax.tree_util.tree_map(
+        lambda x: x.replace(grad_shadow=rand(x.grad_shadow.shape, 1e-2))
+        if isinstance(x, QTensorBase) else rand(x.shape, 1e-2),
+        params, is_leaf=lambda x: isinstance(x, QTensorBase))
+    hp = JHP(lr=1e-3, zeros_update_interval=1)  # the zeros refresh in this step
+    state = diode_init(params, hp=hp)
+    state = state._replace(leaf_states=jax.tree_util.tree_map(
+        lambda m: jnp.abs(rand(m.shape, 1e-4)), state.leaf_states))
+    new_params, new_state = jax.jit(lambda g, s, p: diode_update(g, s, p, hp))(grads, state, params)
+    new_params = jax.tree_util.tree_map(np.asarray, new_params)["params"]
+    new_state = jax.tree_util.tree_map(np.asarray, new_state)
+
+    model = load_jax_params(tl.LlamaModel(tl.tiny_llama(dtype=torch.float32, **MOE_KW),
+                                          device="cpu"), jax.tree_util.tree_map(np.asarray, params))
+    opt = DiodeMix(prepare_for_training(model), DiodeHyperParams(lr=1e-3, zeros_update_interval=1))
+    load_jax_diode_state(opt, jax.tree_util.tree_map(np.asarray, state))
+    assert any(".experts." in name for name in opt.state)
+    jgrads = jax.tree_util.tree_map(np.asarray, grads)["params"]
+    for name, mod in opt.mpq:
+        mod.grad_shadow.grad = torch.from_numpy(np.array(_jax_at(jgrads, name)["qweight"].grad_shadow
+                                                         if "experts" not in name else
+                                                         _jax_at(jgrads, name).grad_shadow))
+    for name, p in opt.fp:
+        p.grad = torch.from_numpy(np.array(_jax_at(jgrads, name)))
+    opt.step()
+    n_experts = 0
+    for name, mod in opt.mpq:
+        want = _jax_at(new_params, name)
+        want = want if "experts" in name else want["qweight"]
+        n_experts += ".experts." in name
+        assert torch.equal(tpk.unpack_rows(mod.packed, 4),
+                           tpk.unpack_rows(torch.from_numpy(np.array(want.packed)), 4)), name
+        np.testing.assert_allclose(mod.zeros.numpy(), want.zeros, rtol=1e-5, atol=1e-7,
+                                   err_msg=name)
+    assert n_experts == 2 * 4 * 3
+    for name, p in opt.fp:
+        np.testing.assert_allclose(p.detach().numpy(), _jax_at(new_params, name), rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+    for name, st in opt.state.items():
+        jst = _jax_at(new_state.leaf_states["params"], name)
+        jst = jst.get("qweight", jst) if isinstance(jst, dict) and "exp_avg_s" not in jst else jst
+        for key in ("exp_avg_l", "exp_avg_s"):
+            np.testing.assert_allclose(st[key].numpy(), jst[key], rtol=1e-5,
+                                       atol=1e-6 * np.abs(jst[key]).max(), err_msg=f"{name} {key}")

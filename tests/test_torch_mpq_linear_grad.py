@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu import qtensor as jqtensor
 from bitorch_engine_tpu.ops import mbwq_linear as jmb
 from bitorch_engine_tpu.ops import mpq_linear as jlin

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import TESTS
 from bitorch_engine_tpu import training as jtraining
 from bitorch_engine_tpu.models import generate as jg

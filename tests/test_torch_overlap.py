@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import start_world
 from bitorch_engine_tpu.ops import quant as jquant
 from bitorch_engine_tpu.ops.mpq_linear import mpq_linear as jmpq_linear

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.models import llama as jl
 from bitorch_engine_tpu.models import paged_kv as jpk
 from bitorch_engine_tpu_torch.models import llama as tl

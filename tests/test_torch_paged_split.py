@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops.pallas import paged_attention as jpa
 from bitorch_engine_tpu_torch.ops.cuda import paged_attention as tpa
 

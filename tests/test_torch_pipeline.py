@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import TESTS, pipeline_stages, start_world
 from bitorch_engine_tpu.ops.mpq_linear import mpq_linear as jmpq_linear
 from bitorch_engine_tpu.ops.quant import quantize_mpq as jquantize

@@ -25,6 +25,7 @@ import pytest
 import torch
 from torch import nn
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu import qtensor as jqt
 from bitorch_engine_tpu.layers.attention import BMHA as JBMHA
 from bitorch_engine_tpu.ops import embedding as jemb

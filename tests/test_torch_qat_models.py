@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu import qtensor as jqt
 from bitorch_engine_tpu import training as jtraining
 from bitorch_engine_tpu.models.cnn import QuantConvNet as JConvNet

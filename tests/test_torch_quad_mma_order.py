@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu.ops import quant as jq
 from bitorch_engine_tpu.ops.pallas.dequant_matmul import _mpq_matmul_call, relayout_tpu
 from bitorch_engine_tpu_torch.ops.cuda import dequant_matmul as tdm

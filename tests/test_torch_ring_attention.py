@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import ATTENTION_CASES, attention_inputs, start_world
 from bitorch_engine_tpu.parallel.ring_attention import ring_attention as jring
 from bitorch_engine_tpu.parallel.ulysses import ulysses_attention as julysses

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import lm_batch, lm_loss, start_world
 from bitorch_engine_tpu import training as jtraining
 from bitorch_engine_tpu.models import llama as jl

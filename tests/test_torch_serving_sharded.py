@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import SERVING_MESHES, start_world
 from bitorch_engine_tpu_torch.models.generate import ContinuousBatcher
 from bitorch_engine_tpu_torch.models.llama import LlamaModel, tiny_llama

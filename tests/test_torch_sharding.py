@@ -14,6 +14,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as JP
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from _torch_worlds import mk_qt, start_world
 from bitorch_engine_tpu.ops import quant as jquant
 from bitorch_engine_tpu.ops.mpq_linear import mpq_linear as jmpq_linear
@@ -65,6 +66,12 @@ def jax_side(pending_world):
     qt_row = jax.device_put(qt, jax.tree_util.tree_map(lambda s: NamedSharding(mesh, s), spec))
     out["row_ref"] = np.asarray(jmpq_linear(x2, qt))
     out["row"] = np.asarray(jax.jit(jmpq_linear)(x2, qt_row))
+    # a ragged g_idx under the JAX row spec: GSPMD reads the groups across shards
+    g_idx = jnp.asarray((np.random.default_rng(4).permutation(256) // 64).astype(np.int32))
+    ragged = qt.replace(g_idx=g_idx)
+    spec = jrow_spec(ragged, "tp", n_shards=4)
+    put = jax.device_put(ragged, jax.tree_util.tree_map(lambda s: NamedSharding(mesh, s), spec))
+    out["ragged"] = np.asarray(jax.jit(jmpq_linear)(x2, put))
     return out
 
 
@@ -95,6 +102,16 @@ def test_row_shard_of_an_act_order_tensor(world):
     the logical rows it holds."""
     for rank in world:
         np.testing.assert_allclose(rank["act_order"], rank["act_order_ref"], rtol=1e-5, atol=1e-5)
+
+
+def test_row_shard_of_a_ragged_g_idx_tensor(world, jax_side):
+    """Each shard keeps every group's scales and zeros and its rows'
+    ``g_idx``: the unsharded layer's product and the JAX package's under
+    its row spec."""
+    for rank in world:
+        assert tuple(rank["ragged_scales_shape"]) == (4, 256)
+        np.testing.assert_allclose(rank["ragged"], rank["ragged_ref"], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(rank["ragged"], jax_side["ragged"], rtol=1e-4, atol=1e-5)
 
 
 def test_row_parallel_rejects_unalignable():

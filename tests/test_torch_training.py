@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread a test process)
 from bitorch_engine_tpu import training as jtraining
 from bitorch_engine_tpu.models import llama as jl
 from bitorch_engine_tpu.optim import DiodeHyperParams as JHP

@@ -214,7 +214,32 @@ then, failing on the first check that does not hold:
     (4 experts a rank), prefill 8 × 256 and 8 decode steps forced to the
     unsharded tokens, logits within 2e-2 of the unsharded model's.  Every
     sub-phase prints its collectives (calls, bytes, ms, staged), each
-    rank's device busy ms (``torch.profiler``), peak GiB and wall seconds.
+    rank's device busy ms (``torch.profiler``), peak GiB and wall seconds;
+21. tp inside the train step (``phase_tpt``: the 370M step at tp 2 and at
+    fsdp 2 × tp 2, Mixtral at tp 2; see its docstring);
+22. the entry points: 22a the host bitpack library (``native``) built with
+    g++ and bit-equal to the port's torch packing ops at a Llama-3-8B
+    projection (4096 × 14336, w2 / w4 / w8, and its signs), each timed;
+    22b a seeded fp bf16 HF-layout Llama-3-8B export at full width, cut to
+    2 layers (about 3 GiB), quantized by ``tools.cli`` on the card, one
+    layer's tensors bit-equal to the CPU's, ``inspect`` listing every
+    tensor; 22c the quantize-and-generate twin on that export (int8 KV and
+    embedding, w4 head; batch 8, prompt 256, 32 new tokens) under
+    ``utils.profiling.trace``: the launches of kernels 1 and 2 read from
+    the trace equal the port's launch counters (``generate`` reads the
+    whole cache at prefill, as the JAX package's does: no kernel 3), the
+    prefill logits within 2e-2 of the plain path and the ids equal to an
+    in-process ``generate``; 22d the serve twin on Llama-3-8B at full width and depth
+    (paged KV of 64, prefill chunks of 256, 8 slots, 8 requests of 4-512
+    prompt tokens): req/s,
+    generated tok/s and time to first token, then a traced run whose
+    kernel 1, 2, 3 and 6 launches equal the counters; 22e the MNIST, the
+    bring-your-own-trainer (its checkpoint reloaded with every tensor
+    equal) and the CIFAR twins at their defaults on synthetic data, the
+    fine-tune twin for 5 steps unsharded and at tp 2 over two ranks
+    sharing the card (the loss falls; every step's loss within 1e-3 of the
+    unsharded run's), and the perplexity-gate tool at its smallest
+    settings (its JSON and verdict).
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -232,6 +257,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from unittest import mock
@@ -507,6 +533,27 @@ TPT_FLASH = ("tpt_b8_nh8_s2048_d64", TRAIN_BATCH, 16 // TP, 16 // TP, TRAIN_SEQ,
 TPT_FSDP_LAYERS = 4  # 21c's depth: the 370M width, 4 of its 24 layers
 TPT_WITNESS_FACTOR = 2.5  # 21b's gradient bar: max(TRAIN_GRAD_REL, this x the witness)
 TPT_WORLD_TIMEOUT, TPT_FSDP_WORLD_TIMEOUT, TPT_COLLECTIVE_TIMEOUT = 500, 300, 200  # s
+
+# the entry points (phase 22): the native packers at a full-width 8B
+# projection; the 8B export cut to 2 layers (depth only) for the CLI and
+# the quantize-and-generate twin; the serve twin's queue; the fine-tune
+# twin's steps
+NATIVE_SHAPE, NATIVE_BITS = (4096, 14336), (2, 4, 8)
+ENTRY_LAYERS = 2
+# the serve twin as phase 5b serves (a cache of 1024 in pages of 64, chunks
+# of 256): prompts of 4-512 tokens, so that some waves take kernel 3 (a
+# bucket of 128 or 256) and some are chunked (kernel 6's read-only form)
+ENTRY_SERVE = dict(slots=8, requests=8, new_tokens=32, max_len=1024, prompt_len=512)
+ENTRY_FINETUNE_STEPS = 5
+# kernel wrapper -> the device kernels it launches, as the profiler names
+# them (kernel 1's bf16 route runs kernel 7's body; kernel 6's two forms
+# are counted together)
+ENTRY_DEVICE_KERNELS = {
+    "mpq_matmul": ("mbwq_mma_kernel", "mpq_matmul_kernel"),
+    "dequant_mpq": ("dequant_kernel",),
+    "flash_attention": ("flash_fwd_kernel",),
+    "paged_attention": ("paged_decode_kernel", "paged_attention_kernel", "paged_chunk_kernel"),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -1082,33 +1129,12 @@ def serve_chunked(torch, model, prompt, steps, forced=None):
     return last, torch.stack(toks, dim=1)
 
 
-def _device_summary(torch, prof, wall_s: float, calls: int, top: int = 8) -> dict:
-    """Host wall ms, device busy ms (kernel time summed), idle share
-    ``1 - busy / wall``, launches and the largest kernels, per call."""
-    from torch.autograd import DeviceType
-
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return dict(
-        wall_ms_per_call=wall_s * 1e3 / calls,
-        device_busy_ms_per_call=busy_us / 1e3 / calls,
-        idle_share=1.0 - busy_us / 1e6 / wall_s,
-        launches_per_call=sum(e.count for e in kernels) / calls,
-        top_kernels=[
-            dict(name=e.key[:80], ms_per_call=e.self_device_time_total / 1e3 / calls,
-                 launches_per_call=e.count / calls)
-            for e in kernels[:top]
-        ],
-    )
-
-
 def profile_serve(torch, model, prompt, steps):
     """The serving loop once more under ``torch.profiler``: one profiler
     over the prefill, a second over the decode steps."""
-    from torch.profiler import ProfilerActivity, profile
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
-    profs = [profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) for _ in range(2)]
+    profs = [profiler() for _ in range(2)]
     marks = []
 
     def switch(_logits):
@@ -1124,8 +1150,8 @@ def profile_serve(torch, model, prompt, steps):
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     profs[1].stop()
-    out = dict(prefill=_device_summary(torch, profs[0], marks[0] - t0, 1),
-               decode=_device_summary(torch, profs[1], t_end - marks[1], steps))
+    out = dict(prefill=device_summary(profs[0], marks[0] - t0, 1),
+               decode=device_summary(profs[1], t_end - marks[1], steps))
     for phase, r in out.items():
         log(f"profile {phase}: wall {r['wall_ms_per_call']:.2f} ms/call (profiled), device busy "
             f"{r['device_busy_ms_per_call']:.2f} ms/call, idle share {r['idle_share']:.3f}, "
@@ -1338,15 +1364,14 @@ def phase_paged_vs_dense(torch, model):
 
         def busy(arm, steps=4):
             """Device busy ms per step and the largest kernels, profiled."""
-            from torch.profiler import ProfilerActivity, profile
+            from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
-            with kernels_of(arm), profile(activities=[ProfilerActivity.CPU,
-                                                      ProfilerActivity.CUDA]) as prof:
+            with kernels_of(arm), profiler() as prof:
                 t0 = time.perf_counter()
                 for _ in range(steps):
                     decode_step(model, tok, arms[arm], clen, attn_window=window)
                 torch.cuda.synchronize()
-            return _device_summary(torch, prof, time.perf_counter() - t0, steps, top=4)
+            return device_summary(prof, time.perf_counter() - t0, steps, top=4)
 
         ms = {arm: [] for arm in arm_names}
         for arm in ("dense", "paged", "paged_first_kernels", "paged_first_kernels", "paged", "dense"):
@@ -1783,17 +1808,17 @@ def set_regime(torch, model, act_bits: int):
 
 def profile_steps(torch, model, tok, caches, pos, steps):
     """``steps`` decode steps from ``pos`` under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
     from bitorch_engine_tpu_torch.models.llama import decode_step
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             decode_step(model, tok, caches, pos + i, attn_window=bucket(pos + i + 1, MBWQ_WINDOW_FLOOR))
         torch.cuda.synchronize()
-    return _device_summary(torch, prof, time.perf_counter() - t0, steps)
+    return device_summary(prof, time.perf_counter() - t0, steps)
 
 
 def phase_mbwq_e2e(torch, gen, model):
@@ -2054,7 +2079,7 @@ def lm_loss(model, toks):
 def phase_train(torch, gen):
     """Phase 12: the training path at full width: warm-up, timed steps with
     the launch counts, one split step, one profiled step."""
-    from torch.profiler import ProfilerActivity, profile
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from bitorch_engine_tpu_torch.optim import DiodeHyperParams
@@ -2103,10 +2128,10 @@ def phase_train(torch, gen):
     torch.cuda.synchronize()
     split = dict(fwd_bwd_ms=(t1 - t0) * 1e3, optimizer_ms=(time.perf_counter() - t1) * 1e3)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         t0 = time.perf_counter()
         float(step(toks)["loss"])
-    prof_summary = _device_summary(torch, prof, time.perf_counter() - t0, 1, top=10)
+    prof_summary = device_summary(prof, time.perf_counter() - t0, 1, top=10)
     ms = statistics.median(step_ms)
     out = dict(
         batch=TRAIN_BATCH, seq=TRAIN_SEQ, layers=TRAIN_LAYERS, lr=TRAIN_LR, quantized_weights=n_params,
@@ -2364,7 +2389,7 @@ def _train(torch, model, batches, lr=MLP_LR):
 def phase_qat_e2e(torch, gen):
     """Phase 15: QuantMLP at 1, 4 and 8 bits trained, packed and served at
     full width; QuantConvNet at 1 and 4 bits trained."""
-    from torch.profiler import ProfilerActivity, profile
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
     from bitorch_engine_tpu_torch.models.cnn import QuantConvNet
     from bitorch_engine_tpu_torch.models.mlp import QuantMLP
@@ -2388,10 +2413,10 @@ def phase_qat_e2e(torch, gen):
         check(train_counts == counts_with(), f"MLP w{bits} training launched {train_counts}")
         prof_summary = None
         if bits == 1:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiler() as prof:
                 t0 = time.perf_counter()
                 float(step(data[MLP_STEPS])["loss"])
-            prof_summary = _device_summary(torch, prof, time.perf_counter() - t0, 1, top=6)
+            prof_summary = device_summary(prof, time.perf_counter() - t0, 1, top=6)
         peak_train = torch.cuda.max_memory_allocated() / 2**30
         prepare_for_inference(model)
         x8, x128 = data[-1][0][:SERVE_BATCH], data[-1][0]
@@ -2415,12 +2440,12 @@ def phase_qat_e2e(torch, gen):
             serve[batch] = dict(ms_per_forward=ms, launches=counts["binary_packed_linear"],
                                 words_launches=counts["xnor_gemm"])
             if bits == 1:  # the packed forward's device kernels, all of them
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profiler() as prof:
                     t0 = time.perf_counter()
                     for _ in range(SERVE_REPS):
                         model(x)
                     torch.cuda.synchronize()
-                fwd = _device_summary(torch, prof, time.perf_counter() - t0, SERVE_REPS, top=4)
+                fwd = device_summary(prof, time.perf_counter() - t0, SERVE_REPS, top=4)
                 serve[batch].update(device_launches_per_forward=fwd["launches_per_call"],
                                     device_busy_ms_per_forward=fwd["device_busy_ms_per_call"])
                 # the same forwards on the unpack branch (the port's route above
@@ -2433,12 +2458,12 @@ def phase_qat_e2e(torch, gen):
                         model(x)
                     torch.cuda.synchronize()
                     serve[batch]["unpack_ms_per_forward"] = (time.perf_counter() - t0) * 1e3 / SERVE_REPS
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    with profiler() as prof:
                         t0 = time.perf_counter()
                         for _ in range(SERVE_REPS):
                             model(x)
                         torch.cuda.synchronize()
-                fwd = _device_summary(torch, prof, time.perf_counter() - t0, SERVE_REPS, top=4)
+                fwd = device_summary(prof, time.perf_counter() - t0, SERVE_REPS, top=4)
                 serve[batch]["unpack_device_launches_per_forward"] = fwd["launches_per_call"]
         acc = float((model(x128).argmax(-1) == data[-1][1]).float().mean())
         out["mlp"][bits] = dict(losses=losses, train_acc=accs, step_ms=step_ms,
@@ -2637,31 +2662,24 @@ def decode_step_ms(torch, model, prompt):
 
 def host_profile(torch, model, prompt, steps=PROFILE_STEPS):
     """``cProfile`` over ``steps`` greedy decode steps after an unprofiled
-    prefill: the wall ms a step under the profiler and, per Python
-    function, its calls, own ms and cumulative ms a step."""
-    import cProfile
-    import pstats
-
+    prefill (``utils.profiling.host_profile``): the wall ms a step under
+    the profiler and, per Python function, its calls, own ms and
+    cumulative ms a step."""
     from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
+    from bitorch_engine_tpu_torch.utils import profiling
 
     caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda")
     logits, caches = prefill(model, prompt, caches)
     tok = torch.argmax(logits[:, -1], dim=-1)
-    torch.cuda.synchronize()
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.enable()
-    for i in range(steps):
-        pos = PROMPT + i
-        last, caches = decode_step(model, tok[:, None], caches, pos, attn_window=bucket(pos + 1))
-        tok = torch.argmax(last, dim=-1)
-    torch.cuda.synchronize()
-    prof.disable()
-    wall = (time.perf_counter() - t0) * 1e3 / steps
-    stats = pstats.Stats(prof).stats
-    return wall, {f"{pathlib.Path(f).name}:{line}({fn})": (nc / steps, tt * 1e3 / steps,
-                                                            ct * 1e3 / steps)
-                  for (f, line, fn), (_cc, nc, tt, ct, _callers) in stats.items()}
+
+    def decode():
+        nonlocal tok, caches
+        for i in range(steps):
+            pos = PROMPT + i
+            last, caches = decode_step(model, tok[:, None], caches, pos, attn_window=bucket(pos + 1))
+            tok = torch.argmax(last, dim=-1)
+
+    return profiling.host_profile(decode, steps)
 
 
 # the projection's host path, read per call in the decode step's profile:
@@ -3130,7 +3148,6 @@ def phase_ckpt(torch, gen):
     """Phase 17, the checkpoint slice: 17a-d in a temporary directory that is
     removed at the end, whatever the outcome."""
     import shutil
-    import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -3448,7 +3465,7 @@ def tp_serve(torch, model, prompt, steps, mesh=None, forced=None, records=None, 
     ``records`` each pass's wall ms, launches and collectives appended;
     with ``busy`` each pass run under its own ``torch.profiler`` and its
     device busy ms appended."""
-    from torch.profiler import ProfilerActivity, profile
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
     from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -3466,7 +3483,7 @@ def tp_serve(torch, model, prompt, steps, mesh=None, forced=None, records=None, 
                 reset_comm_counts(mesh)
         prof = None
         if busy is not None:
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof = profiler()
             prof.start()
         t0 = time.perf_counter()
         if i == 0:
@@ -3480,7 +3497,7 @@ def tp_serve(torch, model, prompt, steps, mesh=None, forced=None, records=None, 
         wall_s = time.perf_counter() - t0
         if prof is not None:
             prof.stop()
-            busy.append(_device_summary(torch, prof, wall_s, 1)["device_busy_ms_per_call"])
+            busy.append(device_summary(prof, wall_s, 1)["device_busy_ms_per_call"])
         if records is not None:
             records.append(dict(
                 step=i, wall_ms=wall_s * 1e3,
@@ -4022,7 +4039,7 @@ def par_record(torch, rec, meshes=(), profiled=True):
     """Around one sub-phase's measured pass: launches, collectives (per
     kind over ``meshes``), wall s, peak GiB and, under ``torch.profiler``,
     device busy ms, into ``rec``."""
-    from torch.profiler import ProfilerActivity, profile
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from bitorch_engine_tpu_torch.parallel.comm import reset_comm_counts
@@ -4032,7 +4049,7 @@ def par_record(torch, rec, meshes=(), profiled=True):
     reset_launch_counts()
     for m in meshes:
         reset_comm_counts(m)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+    prof = profiler() if profiled else None
     if prof is not None:
         prof.start()
     t0 = time.perf_counter()
@@ -4041,7 +4058,7 @@ def par_record(torch, rec, meshes=(), profiled=True):
     wall = time.perf_counter() - t0
     if prof is not None:
         prof.stop()
-        rec["busy_ms"] = _device_summary(torch, prof, wall, 1)["device_busy_ms_per_call"]
+        rec["busy_ms"] = device_summary(prof, wall, 1)["device_busy_ms_per_call"]
     rec["wall_s"] = wall
     rec["launches"] = {k: v for k, v in launch_counts().items() if v}
     comm = {}
@@ -4901,6 +4918,427 @@ def phase_tpt(torch):
     return rows, dict(ranks=ranks, summary=summary)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the entry points (the native packers, the CLI, the twins of
+# examples/ and the perplexity-gate tool)
+# ---------------------------------------------------------------------------
+
+
+def traced_launches(table) -> dict:
+    """Launches per kernel wrapper read from a trace table
+    (``utils.profiling.device_op_table``), by the device kernels each
+    wrapper launches (:data:`ENTRY_DEVICE_KERNELS`)."""
+    import re
+
+    return {name: sum(row["count"] for row in table
+                      if any(re.search(rf"\b{k}\b", row["key"]) for k in kernels))
+            for name, kernels in ENTRY_DEVICE_KERNELS.items()}
+
+
+def counted_launches(counts) -> dict:
+    """The port's launch counters in :func:`traced_launches`' terms (kernel
+    6's two forms as one)."""
+    out = {name: counts[name] for name in ENTRY_DEVICE_KERNELS if name in counts}
+    out["paged_attention"] = (counts["paged_prefix_attention"]
+                              + counts["paged_prefix_attention_update"])
+    return out
+
+
+@contextmanager
+def quiet():
+    """The twins' own printing (8 rows of ids, every step) into a buffer."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        yield buf
+
+
+@contextmanager
+def traced_run(torch, tmp, name):
+    """Around one run: the launch counters from 0 and ``utils.profiling
+    .trace`` into ``<tmp>/<name>``; fills ``out`` with the seconds, the
+    counted and the traced launches after it."""
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.utils import profiling
+
+    logdir = str(pathlib.Path(tmp) / name)
+    out = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        yield out
+    out["seconds"] = time.perf_counter() - t0
+    out["counted"] = counted_launches(launch_counts())
+    t0 = time.perf_counter()
+    table = profiling.device_op_table(logdir, top=None)
+    out["traced"] = traced_launches(table)
+    out["trace_read_s"] = time.perf_counter() - t0
+    out["trace_mib"] = sum(p.stat().st_size for p in pathlib.Path(logdir).rglob("*")) / 2**20
+    out["device_kernels"] = len(table)
+
+
+def check_traced(what, run, launched):
+    """Every kernel's launches read from the trace equal its counter; those
+    in ``launched`` ran."""
+    log(f"{what}: launches counted {run['counted']}, read from the trace {run['traced']} "
+        f"({run['trace_mib']:.1f} MiB trace read in {run['trace_read_s']:.1f} s)")
+    for name in launched:
+        check(run["counted"][name] > 0, f"{what}: kernel {name} was not launched")
+    for name, n in run["counted"].items():
+        check(run["traced"][name] == n,
+              f"{what}: the trace holds {run['traced'][name]} launches of {name}, the counter {n}")
+
+
+def phase_entry_native(torch):
+    """22a: the host bitpack library at a full-width 8B projection, bit for
+    bit against the port's torch packing ops (on the card), each timed."""
+    import numpy as np
+
+    from bitorch_engine_tpu_torch import native
+    from bitorch_engine_tpu_torch.ops import packing
+
+    t0 = time.perf_counter()
+    check(native.available(), "native: the bitpack library did not build or load")
+    out = {"build_s": time.perf_counter() - t0, "shape": list(NATIVE_SHAPE)}
+    rng = np.random.default_rng(SEED + 22)
+    k, n = NATIVE_SHAPE
+
+    def host(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def card(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    for w_bit in NATIVE_BITS:
+        codes = rng.integers(0, 2**w_bit, (k, n), dtype=np.uint8)
+        codes_t = torch.from_numpy(codes).to("cuda", torch.int32)
+        packing.unpack_rows(packing.pack_rows(codes_t, w_bit), w_bit)  # warm-up
+        packed, pack_ms = host(lambda: native.pack_gptq_codes(codes, w_bit))
+        want, torch_pack_ms = card(lambda: packing.pack_rows(codes_t, w_bit))
+        check(np.array_equal(packed, want.cpu().numpy()), f"native: pack_gptq_codes w{w_bit}")
+        unpacked, unpack_ms = host(lambda: native.unpack_gptq_codes(packed, w_bit))
+        packed_t = torch.from_numpy(packed).cuda()
+        back, torch_unpack_ms = card(lambda: packing.unpack_rows(packed_t, w_bit))
+        check(np.array_equal(unpacked, codes) and np.array_equal(back.cpu().numpy(), codes),
+              f"native: unpack_gptq_codes w{w_bit}")
+        out[f"w{w_bit}"] = dict(pack_ms=pack_ms, torch_pack_ms=torch_pack_ms, unpack_ms=unpack_ms,
+                                torch_unpack_ms=torch_unpack_ms)
+        del codes_t, packed_t, want, back
+    x = rng.standard_normal((k, n), dtype=np.float32)
+    x_t = torch.from_numpy(x).cuda()
+    packing.pack_signs(x_t)
+    signs, signs_ms = host(lambda: native.pack_signs(x))
+    want, torch_signs_ms = card(lambda: packing.pack_signs(x_t))
+    check(np.array_equal(signs.view(np.int32), want.cpu().numpy()), "native: pack_signs")
+    out["signs"] = dict(pack_ms=signs_ms, torch_pack_ms=torch_signs_ms)
+    for key in [f"w{b}" for b in NATIVE_BITS]:
+        r = out[key]
+        log(f"22a native {key} at {k} x {n}: pack {r['pack_ms']:.2f} ms (torch on the card "
+            f"{r['torch_pack_ms']:.2f}), unpack {r['unpack_ms']:.2f} ms (torch "
+            f"{r['torch_unpack_ms']:.2f}); bit-equal")
+    log(f"22a native pack_signs at {k} x {n}: {signs_ms:.2f} ms (torch on the card "
+        f"{torch_signs_ms:.2f}); bit-equal")
+    return out
+
+
+def write_fp_export(torch, path, layers, seed):
+    """A seeded fp bf16 HF-layout Llama-3-8B (embedding, untied head, norms,
+    ``layers`` unfused blocks at full width) through the port's writer;
+    returns its GiB."""
+    from bitorch_engine_tpu_torch.models.llama import llama3_8b
+    from bitorch_engine_tpu_torch.utils.ingest import save_safetensors
+
+    cfg = llama3_8b()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, hd = cfg.hidden_size, cfg.head_dim
+
+    def rand(*shape, scale=0.02):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16).cpu()
+
+    t = {"model.embed_tokens.weight": rand(cfg.vocab_size, d),
+         "lm_head.weight": rand(cfg.vocab_size, d),
+         "model.norm.weight": torch.ones(d, dtype=torch.bfloat16)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = (1 + rand(d, scale=0.1).float()).to(torch.bfloat16)
+        t[p + "post_attention_layernorm.weight"] = torch.ones(d, dtype=torch.bfloat16)
+        for name, (o, k) in {
+            "self_attn.q_proj": (cfg.num_heads * hd, d),
+            "self_attn.k_proj": (cfg.num_kv_heads * hd, d),
+            "self_attn.v_proj": (cfg.num_kv_heads * hd, d),
+            "self_attn.o_proj": (d, cfg.num_heads * hd),
+            "mlp.gate_proj": (cfg.intermediate_size, d),
+            "mlp.up_proj": (cfg.intermediate_size, d),
+            "mlp.down_proj": (d, cfg.intermediate_size),
+        }.items():
+            t[p + name + ".weight"] = rand(o, k)
+    save_safetensors(path, t)
+    return sum(v.numel() * v.element_size() for v in t.values()) / 2**30
+
+
+def phase_entry_cli(torch, tmp):
+    """22b: the seeded 2-layer export quantized by ``tools.cli`` on the card;
+    one layer's tensors quantized on the CPU equal it bit for bit;
+    ``inspect`` lists every tensor."""
+    from bitorch_engine_tpu_torch.tools import cli
+    from bitorch_engine_tpu_torch.utils.ingest import load_safetensors, save_safetensors
+
+    fp, q = str(pathlib.Path(tmp) / "fp.safetensors"), str(pathlib.Path(tmp) / "q.safetensors")
+    t0 = time.perf_counter()
+    gib = write_fp_export(torch, fp, ENTRY_LAYERS, SEED + 22)
+    out = dict(layers=ENTRY_LAYERS, fp_gib=gib, write_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with quiet() as buf:
+        check(cli.main(["quantize", "--input", fp, "--output", q]) == 0, "cli quantize on the card")
+    out["quantize_cuda_s"] = time.perf_counter() - t0
+    out["quantized_gib"] = pathlib.Path(q).stat().st_size / 2**30
+    log(f"22b cli: {buf.getvalue().strip()}")
+    # one layer on the CPU
+    layer = {k: v for k, v in load_safetensors(fp).items() if k.startswith("model.layers.0.")}
+    fp1, q1 = str(pathlib.Path(tmp) / "fp1.safetensors"), str(pathlib.Path(tmp) / "q1.safetensors")
+    save_safetensors(fp1, layer)
+    t0 = time.perf_counter()
+    with quiet():
+        check(cli.main(["quantize", "--input", fp1, "--output", q1, "--device", "cpu"]) == 0,
+              "cli quantize on the CPU")
+    out["quantize_cpu_one_layer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with quiet():
+        check(cli.main(["quantize", "--input", fp1, "--output", q1 + ".cuda"]) == 0,
+              "cli quantize of one layer on the card")
+    out["quantize_cuda_one_layer_s"] = time.perf_counter() - t0
+    got, want = load_safetensors(q), load_safetensors(q1)
+    for name, w in want.items():
+        g = got[name]
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+              f"cli: {name} from the card differs from the CPU's")
+    out["cpu_equal_tensors"] = len(want)
+    with quiet() as buf:
+        check(cli.main(["inspect", "--input", q]) == 0, "cli inspect")
+    lines = buf.getvalue().splitlines()
+    check(len(lines) == len(got) + 1 and [ln.split()[0] for ln in lines[:-1]] == sorted(got),
+          "cli inspect does not list every tensor")
+    out["tensors"] = len(got)
+    log(f"22b cli: wrote the fp export ({gib:.2f} GiB, {ENTRY_LAYERS} layers) in "
+        f"{out['write_s']:.1f} s; quantized on the card in {out['quantize_cuda_s']:.1f} s "
+        f"({out['quantized_gib']:.2f} GiB, {len(got)} tensors); one layer on the CPU "
+        f"{out['quantize_cpu_one_layer_s']:.1f} s, on the card "
+        f"{out['quantize_cuda_one_layer_s']:.1f} s, {len(want)} tensors bit-equal; inspect "
+        f"lists {len(lines) - 1} tensors, '{lines[-1]}'")
+    return fp, out
+
+
+def phase_entry_generate(torch, fp, tmp):
+    """22c: the quantize-and-generate twin on 22b's export (its config cut
+    to the export's depth), traced; then the same model's prefill logits
+    against the plain path and its ids against an in-process ``generate``."""
+    import numpy as np
+
+    from bitorch_engine_tpu_torch.models import llama
+    from bitorch_engine_tpu_torch.models.generate import generate
+    from bitorch_engine_tpu_torch.models.llama import init_kv_caches, prefill
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from examples_torch.llm import quantize_and_generate as qg
+
+    rng = np.random.default_rng(SEED + 23)
+    rows = rng.integers(0, 128256, (BATCH, PROMPT))
+    argv = ["--checkpoint", fp, "--config", "llama3-8b", "--int8-kv", "--int8-embed",
+            "--head-bits", "4", "--max-new-tokens", str(DECODE_STEPS),
+            "--prompt-ids", ";".join(",".join(str(t) for t in r) for r in rows)]
+    full = llama.llama3_8b
+    with mock.patch.object(llama, "llama3_8b", lambda **kw: full(num_layers=ENTRY_LAYERS, **kw)):
+        with traced_run(torch, tmp, "generate") as run, quiet() as buf:
+            ids = qg.main(argv)
+        # generate reads the whole cache at prefill, as the JAX package's
+        # does (models/generate.py): kernel 3 is not on its path
+        check_traced("22c quantize_and_generate", run, ("mpq_matmul", "dequant_mpq"))
+        check(run["counted"] == dict(mpq_matmul=15 * (DECODE_STEPS - 1), dequant_mpq=15,
+                                     flash_attention=0, paged_attention=0),
+              "22c: launches are not 15 kernel-2 a prefill and 15 kernel-1 a decode step")
+        printed = buf.getvalue().splitlines()
+        check(len(printed) == BATCH and printed[0] == f"generated ids: {ids[0].tolist()}",
+              "22c: the twin's printed ids")
+        model, prompt, _ = qg.build(argv)
+    check(ids.shape == (BATCH, PROMPT + DECODE_STEPS)
+          and np.array_equal(ids[:, :PROMPT], rows), "22c: ids shape / prompt")
+    cfg = model.cfg
+    check(cfg.num_layers == ENTRY_LAYERS and cfg.hidden_size == 4096
+          and cfg.vocab_size == 128256, "22c: the model is not the 8B at the export's depth")
+    want_ids = generate(model, prompt, max_new_tokens=DECODE_STEPS).cpu().numpy()
+    check(np.array_equal(ids, want_ids), "22c: the twin's ids differ from an in-process generate")
+
+    def last_logits():
+        caches = init_kv_caches(cfg, BATCH, PROMPT, device="cuda")
+        with torch.no_grad():
+            logits, _ = prefill(model, prompt, caches)
+        return logits[:, -1].float()
+
+    got = last_logits()
+    reset_launch_counts()
+    with plain_kernels():
+        want = last_logits()
+    check(all(v == 0 for v in launch_counts().values()), "22c: the plain path launched a kernel")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    check(bool(torch.isfinite(got).all()) and rel <= 2e-2,
+          f"22c: prefill logits {rel} from the plain path (> 2e-2)")
+    out = dict(run, rel_err=rel, ids_equal=True, first_ids=ids[0, PROMPT:PROMPT + 8].tolist())
+    log(f"22c quantize_and_generate ({ENTRY_LAYERS}-layer 8B export, b{BATCH}, prompt {PROMPT}, "
+        f"{DECODE_STEPS} new tokens, int8 KV and embedding, w4 head): {run['seconds']:.1f} s "
+        f"traced (load + generate), ids equal to generate(); prefill logits {rel:.3e} from the "
+        f"plain path")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry_serve(torch, tmp):
+    """22d: the serve twin at full width and depth (Llama-3-8B, paged KV of
+    64, prefill chunks of 256, 8 slots, 8 seeded requests of 4-512 prompt
+    tokens): one run timed (req/s, tok/s, time to first token), one
+    traced."""
+    import numpy as np
+
+    from bitorch_engine_tpu_torch.models.generate import ContinuousBatcher
+    from examples_torch.llm import serve as sv
+
+    argv = ["--model", "llama3_8b", "--page-size", "64", "--prefill-chunk", "256"]
+    for key, v in ENTRY_SERVE.items():
+        argv += ["--" + key.replace("_", "-"), str(v)]
+    first, start = {}, {}
+    run_, admit_ = ContinuousBatcher.run, ContinuousBatcher._admit
+
+    def run(self):
+        start["t"] = time.perf_counter()
+        return run_(self)
+
+    def admit(self):
+        pending = list(self.queue)
+        admit_(self)  # ends in a host read of the first tokens
+        now = time.perf_counter()
+        for r in pending:
+            if r.generated and r.uid not in first:
+                first[r.uid] = now - start["t"]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ContinuousBatcher, "run", run), \
+            mock.patch.object(ContinuousBatcher, "_admit", admit), quiet() as buf:
+        timed = sv.main(argv)
+    timed_s = time.perf_counter() - t0
+    n_req = ENTRY_SERVE["requests"]
+    gen = timed["generated"]
+    check(gen.shape == (n_req, ENTRY_SERVE["new_tokens"]) and (gen >= 0).all()
+          and (gen < 128256).all(), f"22d: generated ids {gen.shape}")
+    check(len(first) == n_req, f"22d: {len(first)} of {n_req} requests got a first token")
+    ttft = sorted(first.values())
+    out = dict(ENTRY_SERVE, seconds=timed["seconds"], requests_per_s=n_req / timed["seconds"],
+               generated_tok_s=timed["tok_s"], ttft_median_ms=statistics.median(ttft) * 1e3,
+               ttft_max_ms=ttft[-1] * 1e3, twin_s=timed_s, printed=buf.getvalue().splitlines()[0])
+    with traced_run(torch, tmp, "serve") as traced, quiet():
+        again = sv.main(argv)
+    check(np.array_equal(again["generated"], gen), "22d: the traced run's ids differ")
+    check_traced("22d serve", traced, ("mpq_matmul", "dequant_mpq", "flash_attention",
+                                        "paged_attention"))
+    out["traced"] = traced
+    log(f"22d serve (llama3_8b, 32 layers, {n_req} requests of 4-{ENTRY_SERVE['prompt_len']} "
+        f"prompt tokens, {ENTRY_SERVE['slots']} slots, pages of 64, chunks of 256): "
+        f"{out['requests_per_s']:.3f} req/s, {out['generated_tok_s']:.1f} "
+        f"generated tok/s, median time to first token {out['ttft_median_ms']:.1f} ms (max "
+        f"{out['ttft_max_ms']:.1f}); the twin with its build {timed_s:.1f} s; traced run "
+        f"{traced['seconds']:.1f} s, ids equal")
+    return out
+
+
+def phase_entry_small(torch):
+    """22e: the small twins at their defaults (synthetic data: no sklearn on
+    this machine), the fine-tune twin unsharded and at tp 2 over two ranks
+    sharing the card (gloo: a correctness run), the perplexity-gate tool at
+    its smallest settings."""
+    import numpy as np
+
+    from bitorch_engine_tpu_torch.tools import ppl_gate
+    from examples_torch.cifar import train_cifar
+    from examples_torch.llm import finetune
+    from examples_torch.mnist import train_lightning_style, train_mnist
+
+    out = {}
+
+    def timed(name, fn):
+        """``fn()``'s result (a dict; an array of losses as ``losses``) with
+        its seconds and last printed line, kept as ``out[name]``."""
+        t0 = time.perf_counter()
+        with quiet() as buf:
+            r = fn()
+        r = r if isinstance(r, dict) else {"losses": np.asarray(r).tolist()}
+        r.update(seconds=time.perf_counter() - t0, last_line=buf.getvalue().splitlines()[-1])
+        log(f"22e {name}: {r['last_line']} ({r['seconds']:.1f} s)")
+        out[name] = r
+        return r
+
+    m = timed("train_mnist", lambda: train_mnist.main([]))
+    check(np.isfinite(m["loss"]) and m["test_acc"] > 0.5, f"22e train_mnist: {m}")
+    with tempfile.TemporaryDirectory() as run_dir:
+        lt = timed("train_lightning_style", lambda: train_lightning_style.main(["--out", run_dir]))
+        check((pathlib.Path(run_dir) / "metrics.csv" / "metrics.csv").exists()
+              and (pathlib.Path(run_dir) / "metrics.jsonl" / "metrics.jsonl").exists(),
+              "22e train_lightning_style: no logs")
+    check(lt["reload_max_abs_diff"] == 0.0 and lt["reload_tensors"] == 9,
+          f"22e train_lightning_style: the reloaded checkpoint differs {lt}")
+    c = timed("train_cifar", lambda: train_cifar.main([]))
+    check(np.isfinite(c["loss"]), f"22e train_cifar: {c}")
+    steps = str(ENTRY_FINETUNE_STEPS)
+    one = np.asarray(timed("finetune", lambda: finetune.main(["--steps", steps]))["losses"])
+    two = np.asarray(timed("finetune_tp2", lambda: finetune.main(["--steps", steps, "--mesh",
+                                                                   "1,2"]))["losses"])
+    rel = np.abs(two - one) / np.abs(one)
+    out["finetune_tp2"]["loss_rel"] = rel.tolist()
+    log(f"22e finetune: losses {np.round(one, 5).tolist()}; tp 2 ({TP_LABEL}) "
+        f"{np.round(two, 5).tolist()}, max rel {rel.max():.3e}")
+    check(np.isfinite(one).all() and one[-1] < one[0], f"22e finetune: the loss does not fall {one}")
+    check(two[-1] < two[0] and rel.max() <= TRAIN_LOSS_REL,
+          f"22e finetune tp 2: loss rel {rel.max()} > {TRAIN_LOSS_REL}")
+    with quiet() as buf:
+        t0 = time.perf_counter()
+        gate = ppl_gate.main(["--hidden", "128", "--layers", "1", "--steps", "1"])
+        gate_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    failed = ppl_gate.failures(gate)
+    verdict = text.splitlines()[-1]
+    check(json.loads(text[: text.rindex("}") + 1]) == gate
+          and verdict.startswith("PPL GATE FAILED" if failed else "PPL GATE PASSED"),
+          "22e ppl_gate: its JSON or verdict")
+    out["ppl_gate"] = dict(seconds=gate_s, verdict=verdict, rel_delta_w4g64=gate["rel_delta_w4g64"],
+                           ppl_fp=gate["ppl_fp"])
+    log(f"22e ppl_gate (hidden 128, 1 layer, 1 step): {verdict} ({gate_s:.1f} s)")
+    return out
+
+
+def phase_entry(torch):
+    """Phase 22: 22a-22e, the export in a temporary directory removed at
+    its end."""
+    t_start = time.perf_counter()
+    out = {"native": phase_entry_native(torch)}
+    with tempfile.TemporaryDirectory() as tmp:
+        fp, out["cli"] = phase_entry_cli(torch, tmp)
+        out["generate"] = phase_entry_generate(torch, fp, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["serve"] = phase_entry_serve(torch, tmp)
+    torch.cuda.empty_cache()
+    out["small"] = phase_entry_small(torch)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"22: the entry points ran {out['seconds']:.1f} s")
+    return out
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -5019,6 +5457,9 @@ def main() -> int:
 
     # tp inside the train step
     tpt_rows, tpt = phase_tpt(torch)
+
+    # the entry points
+    entry = phase_entry(torch)
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -5258,11 +5699,21 @@ def main() -> int:
             {k: sub[k] for k in keys}, label=TP_LABEL,
             max_abs_err=max(r["max_abs_err"] for r in rows), max_err=max(r["rel_err"] for r in rows),
             rows=rows)
+    # the entry points (phase 22): launches of the twins' traced runs, each
+    # equal to the count the profiler's trace holds
+    gen_run, serve_run = entry["generate"], entry["serve"]["traced"]
+    for name in ("mpq_matmul", "dequant_mpq", "flash_attention"):
+        by_name[name]["entry_points"] = dict(
+            quantize_and_generate=gen_run["counted"][name], serve=serve_run["counted"][name],
+            per="one traced run of each twin (22c: load + generate; 22d: build + serve)")
+    by_name["paged_prefix_attention_update"]["entry_points"] = dict(
+        serve=serve_run["counted"]["paged_attention"],
+        per="one traced run of the serve twin (22d), both forms of kernel 6")
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
                     "qat": qat, "checkpoint": ckpt, "ragged_g_idx": act_rows["ragged_counts"],
                     "moe": moe, "tp": tp["summary"], "par": par["summary"], "tp_train": tpt["summary"],
-                    "seconds": time.perf_counter() - t_start}))
+                    "entry": entry, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

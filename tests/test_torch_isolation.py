@@ -19,7 +19,9 @@ from bitorch_engine_tpu_torch.models import llama as tl
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(bitorch_engine_tpu_torch.__file__).parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "bitorch_engine_tpu"}
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, its twins of examples/ and chip_smoke
+SOURCES = (sorted(PKG.rglob("*.py")) + sorted((ROOT / "examples_torch").rglob("*.py"))
+           + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path):
@@ -38,8 +40,9 @@ def test_sources_import_no_jax(path):
 
 
 def test_port_imports_with_jax_blocked():
-    """Import every module of the port, and chip_smoke, with the JAX
-    packages made unimportable."""
+    """Import every module of the port (its ``tools`` and ``native``
+    subpackages included), of ``examples_torch`` and chip_smoke, with the
+    JAX packages made unimportable."""
     code = f"""
 import importlib, importlib.abc, pkgutil, sys
 BLOCKED = {sorted(FORBIDDEN)!r}
@@ -50,8 +53,17 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, {str(ROOT)!r})
 import bitorch_engine_tpu_torch as pkg
-for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(mod.name)
+import examples_torch
+seen = set()
+for top in (pkg, examples_torch):
+    for mod in pkgutil.walk_packages(top.__path__, top.__name__ + "."):
+        importlib.import_module(mod.name)
+        seen.add(mod.name)
+for name in ("bitorch_engine_tpu_torch.tools.cli", "bitorch_engine_tpu_torch.tools.ppl_gate",
+             "bitorch_engine_tpu_torch.native", "bitorch_engine_tpu_torch.utils.profiling",
+             "bitorch_engine_tpu_torch.utils.metrics", "examples_torch.llm.serve",
+             "examples_torch.mnist.train_lightning_style", "examples_torch.cifar.train_cifar"):
+    assert name in seen, name
 import chip_smoke
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("ok")

@@ -27,6 +27,14 @@ a scatter of the weight's rows back by ``q_perm``.  A tensor with a ragged
 package's simulation of its A8 kernel.  :data:`act_order_counts` counts the
 gathers, scatters and plain reconstructions.
 
+An asym tensor (a GPTQ export with ``qzeros``), or one in a TPU row
+layout, reaches the kernels as the JAX package's Pallas wrappers bring it
+there: :func:`_kernel_form` rewrites its stored rows on the fly with
+``prepare_for_kernel`` (``w = q·s − (s·z)``, the product ``s·z`` rounded
+to the scales' dtype), on the card only.  A symmetric gptq tensor goes to
+the kernels as it is, with no rewrite and no host sync.  On the CPU the
+plain dequantize keeps the JAX CPU path's ``s·(q − z)``.
+
 The backward (``_mpq_bwd`` of the JAX package) runs when the input or the
 tensor's grad shadow needs a gradient: ``grad_input = g @ Wᵀ`` with the
 weight reconstructed again (kernel 2 on the card), and the full-rank
@@ -39,7 +47,7 @@ from __future__ import annotations
 import torch
 
 from ..qtensor import MPQTensor
-from .cuda.dequant_matmul import dequant_mpq, mpq_matmul
+from .cuda.dequant_matmul import dequant_mpq, mpq_matmul, prepare_for_kernel
 from .cuda.quad_matmul import mpq_matmul_a8, mpq_matmul_a8_ref
 from .quant import _unpermute, dequantize_mpq
 
@@ -67,6 +75,16 @@ def _stored(qt: MPQTensor) -> MPQTensor:
     return qt if qt.q_perm is None else qt.replace(q_perm=None)
 
 
+def _kernel_form(qt: MPQTensor) -> MPQTensor:
+    """The stored rows in the kernels' form: a symmetric gptq tensor as it
+    is; an asym one or a TPU row layout rewritten by ``prepare_for_kernel``
+    (``mpq_matmul_pallas`` / ``dequant_mpq_pallas`` do the same)."""
+    qt = _stored(qt)
+    if qt.asym or qt.layout != "gptq":
+        qt = prepare_for_kernel(qt)
+    return qt
+
+
 def _gather(x2d: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
     """Activations in the tensor's stored row order, ``x[:, q_perm]``."""
     if qt.q_perm is None:
@@ -76,14 +94,15 @@ def _gather(x2d: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
 
 
 def reconstruct_weight(qt: MPQTensor, dtype: torch.dtype) -> torch.Tensor:
-    """Logical fp weight ``(K, N)``: on the card kernel 2 on the stored rows,
+    """Logical fp weight ``(K, N)``: on the card kernel 2 on the stored rows
+    in kernel form (an asym tensor rewritten on the fly, :func:`_kernel_form`),
     scattered back by ``q_perm`` where the tensor has one, or the plain
     dequantize for a ragged ``g_idx``; on the CPU the plain dequantize."""
     if qt.g_idx is not None:
         act_order_counts["plain"] += 1
     if qt.device.type != "cuda" or qt.g_idx is not None:
         return dequantize_mpq(qt, dtype)
-    w = dequant_mpq(_stored(qt), dtype)
+    w = dequant_mpq(_kernel_form(qt), dtype)
     if qt.q_perm is None:
         return w
     act_order_counts["scatter"] += 1
@@ -145,7 +164,10 @@ def mpq_route(qt: MPQTensor, m: int, device_type: str) -> str:
     (kernel 5, its plain version on the CPU), ``"a8_plain"`` (the A8
     regime's plain simulation, for a ragged ``g_idx``), ``"a16"`` (kernel
     1, on the card only) or ``"reconstruct"`` (the weight, then
-    ``torch.matmul``)."""
+    ``torch.matmul``).  Sym and asym tensors take the same routes: on the
+    card the kernels run an asym tensor's kernel form (:func:`_kernel_form`),
+    on the CPU kernel 5's plain version and the dequantize read it as it
+    is."""
     if qt.act_bits == 8 and m <= MAX_FUSED_ROWS:
         return "a8_plain" if qt.g_idx is not None else "a8"
     if device_type == "cuda" and m <= MAX_FUSED_ROWS_A16 and qt.g_idx is None:
@@ -169,9 +191,14 @@ def _mpq_forward(x: torch.Tensor, qt: MPQTensor, out_dtype=None) -> torch.Tensor
         act_order_counts["plain"] += 1
         out = mpq_matmul_a8_ref(x2d, qt, out_dtype)
     elif route == "a8":
-        out = mpq_matmul_a8(_gather(x2d, qt).contiguous(), _stored(qt), out_dtype)
+        kt, a8 = _stored(qt), mpq_matmul_a8
+        if x.device.type == "cuda":
+            # the rewrite keeps A8 where relayout_tpu does, else A16 (kernel 1)
+            kt = _kernel_form(qt)
+            a8 = mpq_matmul_a8 if kt.act_bits == 8 else mpq_matmul
+        out = a8(_gather(x2d, qt).contiguous(), kt, out_dtype)
     elif route == "a16":
-        out = mpq_matmul(_gather(x2d, qt).contiguous(), _stored(qt), out_dtype)
+        out = mpq_matmul(_gather(x2d, qt).contiguous(), _kernel_form(qt), out_dtype)
     else:
         w = reconstruct_weight(qt, x.dtype)
         out = torch.matmul(x2d, w) if out_dtype is None else _matmul_f32(x2d, w).to(out_dtype)

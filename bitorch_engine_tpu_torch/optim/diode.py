@@ -47,8 +47,11 @@ result equals the unsharded step's bit for bit.  Per regime:
 * MPQ: the K rows in whole quant groups and whole words (the packed words
   and, on a refresh, the zeros gathered; the scales are never written); a
   weight whose rows do not split so (the 370M ``down_proj``'s tp 2 shard
-  holds 1408 rows, 5.5 groups of 128 a rank at fsdp 2) splits its N
-  columns instead, and a column share's zeros refresh reads the whole
+  holds 1408 rows, 5.5 groups of 128 a rank at fsdp 2), and every
+  act-order weight (``q_perm`` or ``g_idx``: its stored rows' groups are
+  not its logical rows' groups), splits its N columns instead (asym: whole
+  words of zeros, ``32 // w_bit`` columns; ``q_perm`` and ``g_idx`` stay
+  whole on every rank), and a column share's zeros refresh reads the whole
   update, gathered;
 * MBWQ: the N columns of every segment (its rows are permuted and cut into
   segments of other widths);
@@ -60,14 +63,29 @@ result equals the unsharded step's bit for bit.  Per regime:
   (the same); the low-rank moments split their rows, and the normalized
   low-rank direction is gathered before it is projected back.
 
-A share that does not split raises, as do act-order MPQ rows (``g_idx``,
-``q_perm``: the stored rows' groups are not the logical rows' groups).
+A share that does not split raises.
+
+A tp row shard of an act-order MPQ tensor (``models.llama_sharding
+.row_shard``: a ``q_perm`` tensor's stored rows with their logical rows
+``tp_rows``, or a ragged ``g_idx`` tensor's rows with every group's scales
+and zeros) refreshes its zeros from the whole update, as the JAX package's
+one GSPMD program does: the ranks' rows of the update are all-gathered
+over ``tp`` (put back in logical order by the gathered ``tp_rows``, or
+grouped by the gathered ``g_idx``), the group means taken over the whole,
+and the rank keeps its groups' zeros (a ragged shard: all of them).  The
+reduction so runs on the unsharded shape, and the step equals the
+unsharded step's bit for bit.  Such a shard needs the ``mesh`` it was cut
+on.
 
 The step counter starts at 1, the bias corrections compute ``beta ** step``
 in f32 as the JAX package does; every update works in place under
-``torch.no_grad``.  On the card the dequantization is kernel 2 (bit-exact
-with the plain version), which takes only symmetric gptq tensors: an asym
-MPQ layer raises there, and trains on the CPU.
+``torch.no_grad``.  An MPQ weight is reconstructed by the JAX package's
+arithmetic, chosen by the tensor: a symmetric one through
+``ops.mpq_linear.reconstruct_weight`` (kernel 2 on the card, bit-exact with
+the plain dequantize), an asym one through the plain ``dequantize_mpq``,
+``s·(q − z)`` (kernel 2 would read its rewritten kernel form, ``q·s −
+(s·z)``, other numbers), on the card too.  :data:`update_counts` counts
+the two routes.
 """
 
 from __future__ import annotations
@@ -83,7 +101,7 @@ from ..layers.linear import MBWQLinear, MPQLinear
 from ..ops import packing
 from ..ops.mbwq_linear import reconstruct_mbwq
 from ..ops.mpq_linear import reconstruct_weight
-from ..ops.quant import nv_tensor_quant, repack_mpq, slice_mpq_n
+from ..ops.quant import dequantize_mpq, nv_tensor_quant, repack_mpq, slice_mpq_n
 from ..parallel.comm import all_gather
 from ..qtensor import BinaryEmbeddingQTensor, BinaryQTensor, IntQTensor, MPQTensor
 from ..utils.convert import quantized_layers
@@ -106,6 +124,12 @@ class DiodeHyperParams:
     correct_bias: bool = True
     zeros_update_interval: int = 5
     galore: Optional[GaLoreConfig] = None
+
+
+# DiodeMix's MPQ reconstructions by route: "kernel" (``reconstruct_weight``,
+# kernel 2 on the card) and "plain" (``dequantize_mpq``: an asym tensor);
+# the caller resets them
+update_counts = {"kernel": 0, "plain": 0}
 
 
 def _galore_eligible(shape: Tuple[int, ...], kind: str, rank: int) -> bool:
@@ -188,12 +212,6 @@ class DiodeMix:
                     f"{names[id(mod)]}: a quantized layer without a grad shadow "
                     "(call utils.convert.prepare_for_training first)"
                 )
-            if isinstance(mod, MPQLinear) and not isinstance(mod, MBWQLinear):
-                qt = mod.qweight
-                if qt.g_idx is not None and qt.scales.shape[0] * qt.group_size != qt.in_features:
-                    raise NotImplementedError(
-                        f"{names[id(mod)]}: a tp row shard of a ragged g_idx tensor holds every "
-                        "group's zeros, whose refresh reads other ranks' rows (not ported)")
             if isinstance(mod, MBWQLinear):
                 kind = "mbwq"
             elif isinstance(mod, MPQLinear):
@@ -212,6 +230,10 @@ class DiodeMix:
         self.fp = [(n, p) for n, p in model.named_parameters()
                    if p.requires_grad and id(p) not in owned]
         self.splits = self._fsdp_plan()  # name → this fsdp rank's share of its moments
+        # name → ("rows" | "g_idx", the whole index over tp) of a tp row shard
+        # of an act-order tensor (see the module's notes)
+        self.tp_whole = {name: self._tp_whole(name, mod) for name, mod in self.mpq
+                         if self._is_tp_row_shard(mod)}
         self.state: Dict[str, Dict[str, Any]] = {}
         gens: Dict[torch.device, torch.Generator] = {}
 
@@ -237,6 +259,26 @@ class DiodeMix:
         for name, p in self.fp:
             self.state[name] = self._init_state(name, tuple(p.shape), "fp", p.device)
 
+    @staticmethod
+    def _is_tp_row_shard(mod: MPQLinear) -> bool:
+        """Whether ``mod`` is a tp row shard of an act-order tensor: a
+        ``q_perm`` tensor's stored rows (``tp_rows``), or a ragged ``g_idx``
+        tensor's rows holding every group's scales and zeros."""
+        qt = mod.qweight
+        return getattr(mod, "tp_rows", None) is not None or (
+            qt.g_idx is not None and qt.scales.shape[0] * qt.group_size != qt.in_features)
+
+    def _tp_whole(self, name: str, mod: MPQLinear) -> Tuple[str, torch.Tensor]:
+        """The whole tensor's row index of a tp row shard, gathered over
+        ``tp`` once: ``("rows", q_perm)`` or ``("g_idx", g_idx)``."""
+        mesh = self.mesh
+        if mesh is None or "tp" not in mesh.shape or mesh.size("tp") == 1:
+            raise ValueError(f"{name}: a tp row shard of an act-order tensor refreshes its zeros "
+                             "from every tp rank's rows: pass DiodeMix the mesh it was cut on")
+        rows = getattr(mod, "tp_rows", None)
+        kind, index = ("rows", rows) if rows is not None else ("g_idx", mod.qweight.g_idx)
+        return kind, all_gather(mesh, index.contiguous(), "tp", dim=0).long()
+
     def _fsdp_plan(self) -> Dict[str, Split]:
         """This fsdp rank's share of each weight (see the module's notes);
         ``{}`` without fsdp."""
@@ -258,11 +300,12 @@ class DiodeMix:
 
         for name, mod in self.mpq:
             qt = mod.qweight
-            if qt.g_idx is not None or qt.q_perm is not None:
-                raise ValueError(f"{name}: act-order rows do not split over fsdp")
             k, cols = qt.logical_shape
-            plan(name, [(0, k, 32 * qt.group_size // math.gcd(32, qt.group_size)),
-                        (1, cols, 32 // qt.w_bit if qt.asym else 1)])
+            by_cols = (1, cols, 32 // qt.w_bit if qt.asym else 1)
+            if qt.g_idx is not None or qt.q_perm is not None or self._is_tp_row_shard(mod):
+                plan(name, [by_cols])  # act-order: the columns only
+            else:
+                plan(name, [(0, k, 32 * qt.group_size // math.gcd(32, qt.group_size)), by_cols])
         for name, mod in self.mbwq:
             segs = mod.qweight.segments
             plan(name, [(1, mod.qweight.out_features,
@@ -355,7 +398,7 @@ class DiodeMix:
         refresh = step % self.hp.zeros_update_interval == 0
         split = self.splits.get
         for name, mod in self.mpq:
-            self._update_mpq(mod, self.state[name], step, size, refresh, split(name))
+            self._update_mpq(name, mod, self.state[name], step, size, refresh, split(name))
         for name, mod in self.mbwq:
             self._update_mbwq(mod, self.state[name], step, size, refresh, split(name))
         for name, mod in self.binary:
@@ -382,32 +425,60 @@ class DiodeMix:
             w = w - self.hp.lr * self.hp.weight_decay * w
         p.copy_(self._gather(w.to(p.dtype), split))
 
-    def _update_mpq(self, mod: MPQLinear, st, step: int, size: float, refresh: bool,
+    def _update_mpq(self, name: str, mod: MPQLinear, st, step: int, size: float, refresh: bool,
                     split=None) -> None:
         qt = mod.qweight if split is None else _mpq_part(mod.qweight, split)
         update = size * self._direction(self._shadow_grad(mod), st, step, split)
-        w = reconstruct_weight(qt, torch.float32) - update
-        zeros = qt.zeros
         if qt.asym:
-            k, _ = qt.logical_shape
-            z_int = packing.unpack_cols(zeros, qt.w_bit)
-            if refresh:
-                g = qt.g_idx.long() if qt.g_idx is not None else (
-                    torch.arange(k, device=w.device) // qt.group_size)
-                full_z = z_int.float()[g] + update
-                grouped = self._group_mean(full_z[torch.argsort(g, stable=True)],
-                                           qt.group_size, split)
-                z_int = torch.clamp(torch.round(grouped), 1, 2 ** qt.w_bit).to(torch.int32)
-                zeros = packing.pack_cols(z_int, qt.w_bit)
+            update_counts["plain"] += 1
+            w = dequantize_mpq(qt, torch.float32) - update
+        else:
+            update_counts["kernel"] += 1
+            w = reconstruct_weight(qt, torch.float32) - update
+        zeros, z_int = qt.zeros, None
+        if refresh:
+            zeros, z_int = self._refreshed_zeros(name, qt, update, split)
+            mod._zeros_mid = False  # the zeros are no longer mid * scales
+        if qt.asym:
+            if z_int is None:
+                z_int = packing.unpack_cols(zeros, qt.w_bit)
             packed = repack_mpq(w, qt.replace(zeros=zeros), unpacked_zeros=z_int.float())
         else:
-            if refresh:
-                zeros = zeros + self._group_mean(update, qt.group_size, split).to(zeros.dtype)
-                mod._zeros_mid = False  # the zeros are no longer mid * scales
             packed = repack_mpq(w, qt.replace(zeros=zeros))
         mod.packed.copy_(self._gather(packed, split))
         if refresh:
             mod.zeros.copy_(self._gather(zeros, split))
+
+    def _refreshed_zeros(self, name: str, qt: MPQTensor, update: torch.Tensor, split):
+        """This rank's share of the refreshed zeros of ``qt`` (this rank's
+        part of the layer) from ``update``, the JAX package's rule: sym, the
+        zeros plus the group means of the update; asym, the rounded group
+        means of the integer zeros plus the update, row by row (by
+        ``g_idx`` where the tensor has one), clamped to ``[1, 2^w_bit]``.
+        A tp row shard of an act-order tensor takes the means over the whole
+        update, gathered over ``tp``.  Returns the zeros and, for asym,
+        their integer codes."""
+        zeros, g_idx = qt.zeros, qt.g_idx
+        kind, index = self.tp_whole.get(name, (None, None))
+        if kind is not None:
+            update = all_gather(self.mesh, update.contiguous(), "tp", dim=0)
+            if kind == "rows":  # stored rows back to logical order; every rank's groups
+                update = torch.empty_like(update).index_copy_(0, index, update)
+                zeros = all_gather(self.mesh, zeros.contiguous(), "tp", dim=0)
+            else:
+                g_idx = index
+        gs, k = qt.group_size, update.shape[0]
+        if qt.asym:
+            g = g_idx.long() if g_idx is not None else torch.arange(k, device=update.device) // gs
+            full_z = packing.unpack_cols(zeros, qt.w_bit).float()[g] + update
+            grouped = self._group_mean(full_z[torch.argsort(g, stable=True)], gs, split)
+            new = torch.clamp(torch.round(grouped), 1, 2 ** qt.w_bit).to(torch.int32)
+        else:
+            new = zeros + self._group_mean(update, gs, split).to(zeros.dtype)
+        if kind == "rows":  # this rank's groups
+            n_g, c = qt.scales.shape[0], self.mesh.coord("tp")
+            new = new[c * n_g : (c + 1) * n_g]
+        return (packing.pack_cols(new, qt.w_bit), new) if qt.asym else (new, None)
 
     def _update_mbwq(self, mod: MBWQLinear, st, step: int, size: float, refresh: bool,
                      split=None) -> None:

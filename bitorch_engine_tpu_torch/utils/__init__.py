@@ -1,5 +1,7 @@
-"""Parameter conversion and loading, checkpoints, metrics logging and
-profiling."""
+"""Parameter conversion and loading, checkpoints, metrics logging,
+profiling and micro-benchmark timing."""
+
+from .benchmark import time_fn_pytree, time_op  # noqa: F401
 
 from .convert import (  # noqa: F401
     MPQ_STRATEGIES,

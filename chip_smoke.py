@@ -239,7 +239,28 @@ then, failing on the first check that does not hold:
     fine-tune twin for 5 steps unsharded and at tp 2 over two ranks
     sharing the card (the loss falls; every step's loss within 1e-3 of the
     unsharded run's), and the perplexity-gate tool at its smallest
-    settings (its JSON and verdict).
+    settings (its JSON and verdict);
+23. the fine-tune of a GPTQ-format checkpoint (``phase_ft``): 23a kernels
+    1 (m 1-64) and 2 through ``mpq_linear``'s card routes on asym act-order
+    tensors at the four 8B projection shapes, each against its plain
+    version on the same tensor rewritten to kernel form and against the
+    plain asym ``s(q - z)``, the asym route timed beside the sym route,
+    and kernels 3 and 4 at the fine-tune's attention shape; 23b a seeded
+    GPTQ export of Llama-3-8B (w4 g128 asym, act-order on every
+    projection) at full width cut to 4 layers, loaded for training
+    (``llama3_8b(asym=True, ...)``), 3 DiodeMix steps at 4 x 1024 with the
+    integer zeros refreshed every step (launches of kernels 2, 3, 4, the
+    act-order routes and DiodeMix's plain asym reconstructions counted
+    exactly; the last step profiled), 16 greedy tokens by ``generate``
+    (kernel 1 counted, the last logits within 2e-2 of the plain path), and
+    the first step again through the plain versions from the same weights
+    (loss rel 1e-3, gradients 3e-2); 23c two ranks sharing the card over
+    gloo, 2 layers at 2 x 512: fsdp 2 bit-equal to the unsharded step, tp
+    2 against a one-process witness of its split sums (codes off
+    counted), a ragged ``g_idx`` down_proj-shaped layer at tp 2 bit-equal
+    to the unsharded step at a refresh; 23d ``utils.benchmark``'s
+    ``time_op`` on kernel 2 and ``time_fn_pytree`` on a 2-layer decode
+    step.
 
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -554,6 +575,33 @@ ENTRY_DEVICE_KERNELS = {
     "flash_attention": ("flash_fwd_kernel",),
     "paged_attention": ("paged_decode_kernel", "paged_attention_kernel", "paged_chunk_kernel"),
 }
+
+
+# phase 23: the fine-tune of a GPTQ-format export of Llama-3-8B (w4 g128
+# asym, act-order on every projection; zero points centered on the codes'
+# mean: phase 17's zero points, one code above it on average, give every
+# weight column a common offset, the residual stream one direction, and
+# layer 1 attention scores up to 757, a one-hot softmax whose q / k
+# gradients are bf16 rounding noise) at full width, cut to FT_LAYERS
+# layers for memory; batch FT_BATCH x FT_SEQ, DiodeMix refreshing the
+# integer zeros every step; then FT_NEW_TOKENS greedy tokens (kernel 1 at m
+# = FT_BATCH).  23a checks kernels 1 and 2 on asym tensors at each 8B
+# projection shape (projections of the shape a layer in FT_PER_LAYER)
+FT_LAYERS, FT_BATCH, FT_SEQ, FT_STEPS, FT_LR = 4, 4, 1024, 3, 1e-4
+FT_PROMPT, FT_NEW_TOKENS = 32, 16
+FT_SHAPES = (("qo", 4096, 4096), ("kv", 4096, 1024), ("up", 4096, 14336), ("down", 14336, 4096))
+FT_PER_LAYER = {"qo": 2, "kv": 2, "up": 2, "down": 1}
+FT_KERNEL1_M = (1, FT_BATCH, 8, 64)
+FT_KERNEL1_REL = 1e-5  # kernel 1 against its plain version, f32 (phase 10's per-layer bar)
+# against the plain asym s(q - z): the per-projection gate, f32 before any
+# cast (docs/DESIGN.md "Numerics gating", tools/quad_gate.py's tol)
+ASYM_PLAIN_REL = 1e-4
+FT_FLASH = ("ft_b4_nh32_nkv8_s1024_d128", FT_BATCH, 32, NKV, FT_SEQ, HD)
+# 23c: ranks sharing the card, 2 layers at batch 2 x 512; a down_proj-shaped
+# ragged g_idx layer stepped at an lr that moves its integer zeros
+FT_PAR_LAYERS, FT_PAR_BATCH, FT_PAR_SEQ = 2, 2, 512
+FT_RAGGED_SHAPE, FT_RAGGED_LR = (14336, 4096), 0.6
+FT_WORLD_TIMEOUT = 600  # s
 
 
 class CheckFailed(RuntimeError):
@@ -2569,18 +2617,21 @@ def phase_qat_path_check(torch, gen):
     return res
 
 
-def gptq_projection(torch, gen, perm_gen, k, n, w_bit=4, gs=GPTQ_GROUP):
+def gptq_projection(torch, gen, perm_gen, k, n, w_bit=4, gs=GPTQ_GROUP, centered=False):
     """A GPTQ export of one projection (K, N), HF layout: random code words,
     packed zero points within 2 of the middle code, fp16 scales of about
     2 / sqrt(K) over the code range, and an act-order ``g_idx``, a seeded
-    permutation of ``arange(K) // gs``."""
+    permutation of ``arange(K) // gs``.  ``centered``: zero points of mean
+    ``(2^w_bit - 1) / 2``, the random codes' mean (``mid - 1`` or ``mid``),
+    so that the weights have no common offset."""
     from bitorch_engine_tpu_torch.ops import packing
 
     g = k // gs
     qweight = torch.randint(-2**31, 2**31, (k * w_bit // 32, n), device="cuda", generator=gen,
                             dtype=torch.int64).to(torch.int32)
     mid = 2 ** (w_bit - 1)
-    zeros = torch.randint(mid - 1, mid + 3, (g, n), device="cuda", generator=gen, dtype=torch.int32)
+    zeros = torch.randint(mid - 1, mid + 1 if centered else mid + 3, (g, n), device="cuda",
+                          generator=gen, dtype=torch.int32)
     step = 2.0 / math.sqrt(k) / 2 ** w_bit
     scales = ((0.5 + torch.rand(g, n, device="cuda", generator=gen)) * step).to(torch.float16)
     g_idx = (torch.arange(k) // gs)[torch.randperm(k, generator=perm_gen)].to(torch.int32)
@@ -2588,11 +2639,11 @@ def gptq_projection(torch, gen, perm_gen, k, n, w_bit=4, gs=GPTQ_GROUP):
                 g_idx=g_idx.cuda())
 
 
-def write_gptq_checkpoint(torch, path, layers, seed):
+def write_gptq_checkpoint(torch, path, layers, seed, centered=False):
     """Llama-3-8B as a GPTQ export (HF names, unfused projections, w4 g128
     asym, act-order on every projection, fp16 embedding, head and norms), all
-    drawn from ``seed``, written with the port's safetensors writer.
-    Returns its bytes."""
+    drawn from ``seed``, written with the port's safetensors writer
+    (``centered``: see :func:`gptq_projection`).  Returns its bytes."""
     from bitorch_engine_tpu_torch.utils.ingest import save_safetensors
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2606,7 +2657,8 @@ def write_gptq_checkpoint(torch, path, layers, seed):
         p = f"model.layers.{i}."
         for name, (k, n) in CKPT_PROJ.items():
             block = "self_attn" if name in ("q_proj", "k_proj", "v_proj", "o_proj") else "mlp"
-            for field, v in gptq_projection(torch, gen, perm_gen, k, n).items():
+            for field, v in gptq_projection(torch, gen, perm_gen, k, n,
+                                            centered=centered).items():
                 t[f"{p}{block}.{name}.{field}"] = v
         for norm in ("input_layernorm", "post_attention_layernorm"):
             t[f"{p}{norm}.weight"] = (1 + 0.05 * torch.randn(h, device="cuda", generator=gen)).half()
@@ -3545,8 +3597,9 @@ def split_rows(torch, model):
                 return self.whole(x)
             k, acc = self.parts[0].qweight.in_features, None
             for i, p in enumerate(self.parts):
-                part = mpq_linear(x[..., i * k:(i + 1) * k].contiguous().to(p.dtype), p.qweight,
-                                  out_dtype=torch.float32)
+                rows = getattr(p, "tp_rows", None)  # an act-order shard's logical rows
+                xi = x[..., i * k:(i + 1) * k] if rows is None else x.index_select(-1, rows)
+                part = mpq_linear(xi.contiguous().to(p.dtype), p.qweight, out_dtype=torch.float32)
                 acc = part if acc is None else acc + part
             return acc.to(self.whole.dtype or x.dtype)
 
@@ -5339,6 +5392,652 @@ def phase_entry(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: fine-tune a GPTQ-format checkpoint (asym act-order MPQ weights
+# through kernels 1-4 and DiodeMix, alone, under fsdp and under tp), and the
+# timing helpers of utils/benchmark.py
+# ---------------------------------------------------------------------------
+
+
+def ft_config(torch, layers):
+    """The fine-tune's training configuration: Llama-3-8B at full width,
+    cut to ``layers``, asym projections loaded unfused (act-order), a bf16
+    embedding tied to the head, remat."""
+    from bitorch_engine_tpu_torch.models.llama import llama3_8b
+
+    return llama3_8b(num_layers=layers, asym=True, quantize_embed=False, head_w_bit=None,
+                     fuse_qkv=False, fuse_gate_up=False, dtype=torch.bfloat16, remat=True)
+
+
+def load_ft_model(torch, path, layers):
+    """The GPTQ export at ``path`` loaded into :func:`ft_config` on the card,
+    prepared for training."""
+    from bitorch_engine_tpu_torch.models.llama_loader import load_llama_from_safetensors
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    return prepare_for_training(load_llama_from_safetensors(path, ft_config(torch, layers), torch.bfloat16,
+                                                            device="cuda"))
+
+
+def ft_projections(model):
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+
+    return [(n, m) for n, m in model.named_modules() if isinstance(m, MPQLinear)]
+
+
+def ft_counts():
+    """The launch counters, the act-order routes and DiodeMix's MPQ
+    reconstruction routes."""
+    from bitorch_engine_tpu_torch.optim.diode import update_counts
+
+    return {**ckpt_counts(), **{f"diode_{k}": v for k, v in update_counts.items()}}
+
+
+def reset_ft_counts():
+    from bitorch_engine_tpu_torch.optim.diode import update_counts
+
+    reset_ckpt_counts()
+    for key in update_counts:
+        update_counts[key] = 0
+
+
+def asym_tensor(torch, gen, perm_gen, k, n):
+    """A GPTQ export's projection (``gptq_projection``: w4 g128 asym, an
+    act-order ``g_idx``) ingested as the loader ingests it: asym, f32
+    scales, ``q_perm``."""
+    from bitorch_engine_tpu_torch.utils.ingest import mpq_from_gptq
+
+    p = gptq_projection(torch, gen, perm_gen, k, n, centered=True)
+    return mpq_from_gptq(p["qweight"], p["qzeros"], p["scales"], p["g_idx"], device="cuda")
+
+
+def phase_ft_kernels(torch, flush):
+    """Phase 23a: kernels 1 (m 1 / 8 / 64) and 2 through ``mpq_linear``'s
+    card routes on asym act-order tensors at the 8B up and down shapes,
+    each against its plain version on the same rewritten tensor (kernel 1
+    f32 within ``FT_KERNEL1_REL``, kernel 2 bit-equal) and against the
+    plain asym ``s·(q − z)`` (f32, pre-cast, within ``ASYM_PLAIN_REL``);
+    the asym route (rewrite, gather or scatter included) timed beside the
+    sym route on the same tensor already in kernel form; kernels 3 and 4
+    at the fine-tune's attention shape."""
+    from bitorch_engine_tpu_torch.ops import mpq_linear as ml
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
+        dequant_mpq, dequant_mpq_ref, mpq_matmul_ref, prepare_for_kernel,
+    )
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.ops.quant import _unpermute, dequantize_mpq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    perm_gen = torch.Generator().manual_seed(SEED + 23)
+    rows = {"mpq_matmul": [], "dequant_mpq": [], "flash_attention": [], "flash_attention_bwd": []}
+    for name, k, n in FT_SHAPES:
+        qt = asym_tensor(torch, gen, perm_gen, k, n)
+        sym = prepare_for_kernel(qt)  # the same tensor already in kernel form: the sym route
+        kform = ml._kernel_form(qt)
+        plain_w = dequantize_mpq(qt, torch.float32)  # s·(q − z), logical rows
+        meta = kform.packed.nbytes + kform.scales.nbytes + kform.zeros.nbytes
+        for m in FT_KERNEL1_M:
+            x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+            reset_launch_counts()
+            got = ml.mpq_linear(x, qt, out_dtype=torch.float32)
+            check(launch_counts()["mpq_matmul"] == 1, f"23a {name} m={m}: kernel 1 did not launch")
+            want = mpq_matmul_ref(ml._gather(x, qt), kform, torch.float32)
+            rel = rel_err(got, want)
+            plain = x.float() @ plain_w
+            plain_rel = rel_err(got, plain)
+            log(f"23a kernel 1 asym {name} K={k} N={n} m={m}: vs its plain version on the kernel "
+                f"form max|d|/max|ref| {rel:.3e}; vs the plain asym s(q - z) {plain_rel:.3e}")
+            check(rel <= FT_KERNEL1_REL, f"23a kernel 1 {name} m={m}: rel {rel} > {FT_KERNEL1_REL}")
+            check(plain_rel <= ASYM_PLAIN_REL,
+                  f"23a kernel 1 {name} m={m}: {plain_rel} from s(q - z) > {ASYM_PLAIN_REL}")
+            w_bf16 = dequant_mpq_ref(sym.replace(q_perm=None), torch.bfloat16)
+            b1, by1 = bound(meta + x.nbytes + m * n * 2, 2 * m * k * n)
+            rows["mpq_matmul"].append(dict(
+                shape=f"ft_{name}_m{m}", K=k, N=n, m=m, max_abs_err=(got - want).abs().max().item(),
+                rel_err=rel, plain_asym_rel=plain_rel,
+                ms=time_ms(torch, lambda: ml.mpq_linear(x, qt), flush=flush),
+                sym_ms=time_ms(torch, lambda: ml.mpq_linear(x, sym), flush=flush),
+                plain_ms=time_ms(torch, lambda: mpq_matmul_ref(ml._gather(x, qt), kform),
+                                 flush=flush),
+                library_ms=time_ms(torch, lambda: torch.matmul(ml._gather(x, qt), w_bf16),
+                                   flush=flush),
+                bound_ms=b1, bound_by=by1))
+            del x, got, want, plain
+        reset_launch_counts()
+        got = ml.reconstruct_weight(qt, torch.bfloat16)
+        check(launch_counts()["dequant_mpq"] == 1, f"23a {name}: kernel 2 did not launch")
+        want = _unpermute(dequant_mpq_ref(kform, torch.bfloat16), qt.q_perm)
+        equal = torch.equal(got, want)
+        plain_rel = rel_err(ml.reconstruct_weight(qt, torch.float32), plain_w)
+        log(f"23a kernel 2 asym {name} K={k} N={n}: bit-equal to its plain version on the kernel "
+            f"form {equal}; f32 vs the plain asym s(q - z) max|d|/max|ref| {plain_rel:.3e}")
+        check(equal, f"23a kernel 2 {name}: not bit-equal to its plain version")
+        check(plain_rel <= ASYM_PLAIN_REL, f"23a kernel 2 {name}: {plain_rel} > {ASYM_PLAIN_REL}")
+        b2, by2 = bound(meta + k * n * 2, 2 * k * n)
+        rows["dequant_mpq"].append(dict(
+            shape=f"ft_{name}", K=k, N=n, max_abs_err=0.0, rel_err=0.0, plain_asym_rel=plain_rel,
+            ms=time_ms(torch, lambda: ml.reconstruct_weight(qt, torch.bfloat16), flush=flush),
+            sym_ms=time_ms(torch, lambda: ml.reconstruct_weight(sym, torch.bfloat16), flush=flush),
+            kernel_alone_ms=time_ms(torch, lambda: dequant_mpq(kform), flush=flush),
+            plain_ms=time_ms(torch, lambda: _unpermute(dequant_mpq_ref(kform), qt.q_perm),
+                             flush=flush),
+            library_ms=None, bound_ms=b2, bound_by=by2))
+        del qt, sym, kform, plain_w, got, want
+        torch.cuda.empty_cache()
+    fgen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    name, b, nh, nkv, s, d = FT_FLASH
+    rows["flash_attention"].append(flash_row(torch, fgen, name, b, nh, nkv, s, d, flush))
+    rows["flash_attention_bwd"].append(flash_bwd_row(torch, fgen, name, b, nh, nkv, s, d, True,
+                                                     flush))
+    for kname, rs in rows.items():
+        for r in rs:
+            sym = f"  sym route {r['sym_ms']:.4f} ms" if "sym_ms" in r else ""
+            lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            log(f"time {kname:19s} {r['shape']:24s} kernel {r['ms']:.4f} ms{sym}  plain "
+                f"{r['plain_ms']:.4f} ms  library {lib} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ft_state(model):
+    """Every tensor of ``model`` but the grad shadows, cloned."""
+    return {n: t.detach().clone() for n, t in
+            list(model.named_buffers()) + list(model.named_parameters())
+            if not n.endswith("grad_shadow")}
+
+
+def codes_differing(torch, a, b):
+    """Packed codes (w4, by rows) and integer zeros (by columns) that differ
+    between the states ``a`` and ``b``, and their totals."""
+    from bitorch_engine_tpu_torch.ops import packing
+
+    out = dict(codes=0, codes_total=0, zeros=0, zeros_total=0)
+    for n, t in a.items():
+        if n.endswith("packed"):
+            x, y = packing.unpack_rows(t, 4), packing.unpack_rows(b[n], 4)
+            out["codes"] += int((x != y).sum())
+            out["codes_total"] += x.numel()
+        elif n.endswith("zeros"):
+            x, y = packing.unpack_cols(t, 4), packing.unpack_cols(b[n], 4)
+            out["zeros"] += int((x != y).sum())
+            out["zeros_total"] += x.numel()
+    return out
+
+
+def forced_logits(torch, model, seq, plen):
+    """``generate``'s passes with its tokens forced to ``seq``: the prefill
+    of ``seq[:, :plen]``, then a decode step a token; the last logits."""
+    from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches
+
+    b, total = seq.shape
+    caches = init_kv_caches(model.cfg, b, total, device="cuda")
+    logits, caches = model(seq[:, :plen], kv_caches=caches, cache_len=0)
+    last = logits[:, -1]
+    for i in range(total - plen - 1):
+        last, caches = decode_step(model, seq[:, plen + i : plen + i + 1], caches, plen + i)
+    return last
+
+
+def phase_ft_e2e(torch, tmp):
+    """Phase 23b: the GPTQ export (``write_gptq_checkpoint``: w4 g128 asym,
+    act-order on every projection) at ``FT_LAYERS`` layers, loaded into
+    :func:`ft_config`, prepared for training, ``FT_STEPS`` DiodeMix steps
+    (lr ``FT_LR``, the integer zeros refreshed every step) at ``FT_BATCH`` x
+    ``FT_SEQ`` with remat, the last one profiled, then ``FT_NEW_TOKENS``
+    greedy tokens by ``generate``.  Checked: finite losses; each step's
+    launches (kernels 2, 3, 4), act-order routes and DiodeMix routes; the
+    first step against the same step through the plain versions on the
+    card from the same weights and moments; the generation's last logits
+    against the plain path."""
+    from bitorch_engine_tpu_torch.models.generate import generate
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams
+    from bitorch_engine_tpu_torch.training import make_train_step
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
+
+    path = str(pathlib.Path(tmp) / "llama3_8b_gptq_asym_finetune.safetensors")
+    t0 = time.perf_counter()
+    nbytes = write_gptq_checkpoint(torch, path, FT_LAYERS, SEED + 23, centered=True)
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_ft_model(torch, path, FT_LAYERS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    projs = ft_projections(model)
+    n_proj = len(projs)
+    check(n_proj == 7 * FT_LAYERS and all(
+        m.qweight.asym and m.q_perm is not None and m.g_idx is None and m.grad_shadow is not None
+        for _, m in projs), "23b: the loaded projections are not asym act-order tensors in training")
+    n_q = sum(m.grad_shadow.numel() for _, m in projs)
+    log(f"23b GPTQ export: Llama-3-8B w4 g128 asym act-order, {FT_LAYERS} layers, "
+        f"{nbytes / 2**30:.2f} GiB written in {write_s:.1f} s; loaded for training in {load_s:.1f} s, "
+        f"{n_q} quantized weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    toks = torch.randint(0, model.cfg.vocab_size, (FT_BATCH, FT_SEQ + 1), device="cuda",
+                         generator=gen)
+    start = ft_state(model)
+    hp = DiodeHyperParams(lr=FT_LR, zeros_update_interval=1)
+    step = make_train_step(model, lm_loss, hp)
+    per_step = {**counts_with(dequant_mpq=3 * n_proj, flash_attention=2 * FT_LAYERS,
+                              flash_attention_bwd=2 * FT_LAYERS),
+                "act_order_gather": 0, "act_order_scatter": 3 * n_proj, "act_order_plain": 0,
+                "diode_kernel": 0, "diode_plain": n_proj}
+    losses, step_ms, counts = [], [], []
+    prof_summary = grads = after1 = None
+    for i in range(FT_STEPS):
+        torch.cuda.synchronize()
+        reset_ft_counts()
+        prof = profiler() if i == FT_STEPS - 1 else None
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        losses.append(float(step(toks)["loss"]))  # the host reads the loss: the step has ended
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None:
+            prof.stop()
+            prof_summary = device_summary(prof, step_ms[-1] / 1e3, 1, top=8)
+        counts.append(ft_counts())
+        if i == 0:
+            grads, after1 = par_grads(model), ft_state(model)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"23b fine-tune: losses {losses}; step ms {[round(t, 2) for t in step_ms]} (the last one "
+        f"profiled); per step {counts[0]} (expected {per_step}); peak {peak:.2f} GiB")
+    log(f"23b profiled step: wall {prof_summary['wall_ms_per_call']:.2f} ms, device busy "
+        f"{prof_summary['device_busy_ms_per_call']:.2f} ms, idle share "
+        f"{prof_summary['idle_share']:.3f}, {prof_summary['launches_per_call']:.0f} launches")
+    for kern in prof_summary["top_kernels"]:
+        log(f"  {kern['ms_per_call']:8.3f} ms  {kern['launches_per_call']:6.1f}x  {kern['name']}")
+    check(all(math.isfinite(x) for x in losses), f"23b losses {losses}")
+    for i, c in enumerate(counts):
+        check(c == per_step, f"23b step {i + 1} counts {c} != {per_step}")
+    moved = codes_differing(torch, after1, start)
+    log(f"23b after step 1: {moved['codes']} of {moved['codes_total']} codes and {moved['zeros']} "
+        f"of {moved['zeros_total']} integer zeros moved")
+
+    # the generation: greedy, kernel 1 at m = FT_BATCH for every projection
+    prompt = torch.randint(0, model.cfg.vocab_size, (FT_BATCH, FT_PROMPT), device="cuda",
+                           generator=gen)
+    torch.cuda.synchronize()
+    reset_ft_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        seq = generate(model, prompt, FT_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_counts = {k: v for k, v in ft_counts().items() if v}
+    want_k1 = n_proj * (FT_NEW_TOKENS - 1)
+    with torch.no_grad():
+        last = forced_logits(torch, model, seq, FT_PROMPT)
+        reset_ft_counts()
+        with plain_kernels(), plain_mpq_forward():
+            want = forced_logits(torch, model, seq, FT_PROMPT)
+    torch.cuda.synchronize()
+    plain_counts = {k: v for k, v in ft_counts().items() if v}
+    gen_rel = rel_err(last, want)
+    log(f"23b generate: {FT_NEW_TOKENS} tokens at batch {FT_BATCH} after a {FT_PROMPT}-token "
+        f"prompt in {gen_s:.2f} s; counts {gen_counts} (kernel 1 expected {want_k1}); last logits "
+        f"vs the plain path max|d|/max|ref| {gen_rel:.3e}; the last tokens equal the forced "
+        f"run's argmax: {torch.equal(torch.argmax(last, -1), seq[:, -1])}")
+    check(gen_counts.get("mpq_matmul", 0) == want_k1,
+          f"23b generate: {gen_counts.get('mpq_matmul', 0)} kernel-1 launches != {want_k1}")
+    check(not plain_counts, f"23b the plain generation launched a kernel {plain_counts}")
+    check(bool(torch.isfinite(last).all()) and gen_rel <= 2e-2, f"23b generate: rel {gen_rel}")
+
+    # step 1 again through the plain versions, from the same weights and moments
+    del step
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        for n, t in list(model.named_buffers()) + list(model.named_parameters()):
+            if n in start:
+                t.copy_(start[n])
+    step = make_train_step(model, lm_loss, hp)
+    reset_ft_counts()
+    with plain_kernels():
+        plain_loss = float(step(toks)["loss"])
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ft_counts().items() if v and k in counts_with()}
+    check(not launched, f"23b the plain step launched a kernel {launched}")
+    loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    rels = grad_rels(model, grads)
+    worst = max(rels, key=rels.get)
+    off = codes_differing(torch, ft_state(model), after1)
+    log(f"23b step 1 vs the plain versions on the card: loss {losses[0]:.6f} vs {plain_loss:.6f} "
+        f"(rel {loss_rel:.3e}); max grad rel {rels[worst]:.3e} ({worst}, {len(rels)} tensors); "
+        f"after DiodeMix {off['codes']} of {off['codes_total']} codes and {off['zeros']} of "
+        f"{off['zeros_total']} integer zeros differ")
+    check(loss_rel <= TRAIN_LOSS_REL, f"23b plain check: loss rel {loss_rel}")
+    check(rels[worst] <= TRAIN_GRAD_REL, f"23b plain check: {worst} grad rel {rels[worst]}")
+    out = dict(layers=FT_LAYERS, batch=FT_BATCH, seq=FT_SEQ, lr=FT_LR, export_gib=nbytes / 2**30,
+               write_s=write_s, load_s=load_s, quantized_weights=n_q, losses=losses,
+               step_ms=step_ms, per_step=per_step, peak_gib=peak, profile=prof_summary,
+               moved_step1=moved, generate=dict(seconds=gen_s, counts=gen_counts, rel=gen_rel),
+               plain_check=dict(loss_rel=loss_rel, grad_rel=rels[worst], worst=worst, **off))
+    del model, step, start, after1, grads, toks
+    torch.cuda.empty_cache()
+    return out
+
+
+def ft_share(name, t, coord, rows):
+    """The part of the unsharded tensor ``name`` that tp rank ``coord``
+    holds: halves of the columns of q, k, v, gate and up; of o and down
+    the stored rows' half (packed words, zeros' and scales' groups) and,
+    for a grad shadow, its logical rows ``rows[name]`` (``tp_rows``)."""
+    proj = name.split(".")[-2] if name.count(".") >= 2 else ""
+    if proj in TPT_COLUMN:
+        n = t.shape[1] // TP
+        return t[:, coord * n : (coord + 1) * n]
+    if proj in TPT_ROW:
+        if name.endswith("grad_shadow"):
+            return t[rows[name]]
+        k = t.shape[0] // TP
+        return t[coord * k : (coord + 1) * k]
+    return t
+
+
+def ft_witness(torch, path, batch, ref):
+    """23c's one-process witness of tp 2's rounding: the unsharded model
+    with both of tp 2's split sums (``split_cols``, ``split_rows``: an
+    act-order row shard reads its ``tp_rows`` of the activation), one
+    forward and backward; its loss and gradients against the unsharded
+    step's (each shard's gradient put back in its logical place)."""
+    model = split_rows(torch, split_cols(torch, load_ft_model(torch, path, FT_PAR_LAYERS)))
+    loss = par_loss(None)(model, batch)
+    loss.backward()
+    grads = {}
+    for li, layer in enumerate(model.layers):
+        for parent, names in ((layer.attn, ("q_proj", "k_proj", "v_proj", "o_proj")),
+                              (layer.mlp, ("gate_proj", "up_proj", "down_proj"))):
+            for name in names:
+                mod = getattr(parent, name)
+                where = f"layer_{li}.{'attn' if parent is layer.attn else 'mlp'}.{name}.grad_shadow"
+                if name in TPT_ROW:
+                    rows = torch.cat([p.tp_rows for p in mod.parts])
+                    parts = torch.cat([p.grad_shadow.grad.float() for p in mod.parts])
+                    grads[where] = torch.empty_like(parts).index_copy_(0, rows, parts)
+                else:
+                    grads[where] = torch.cat([p.grad_shadow.grad.float() for p in mod.parts], dim=1)
+    for name, p in model.named_parameters():
+        if name in ref["grads"] and name not in grads:
+            grads[name] = p.grad.float()
+    rels = {n: rel_err(g, ref["grads"][n]) for n, g in grads.items()}
+    worst = max(rels, key=rels.get)
+    out = dict(loss_rel=abs(float(loss.detach()) - ref["loss"]) / abs(ref["loss"]),
+               grad_rel=rels[worst], worst=worst, tensors=len(rels), of=len(ref["grads"]))
+    del model, loss, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def ragged_layer(torch):
+    """A ``down_proj``-shaped (14336 x 4096) asym w4 g128 GPTQ tensor whose
+    act-order ``g_idx`` has unequal groups (rows moved between groups, drawn
+    from the seed), in an ``MPQLinear`` prepared for training, and a
+    gradient whose sign is constant down each column (so that the refresh
+    moves integer zeros)."""
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+    from bitorch_engine_tpu_torch.utils.ingest import mpq_from_gptq
+
+    k, n = FT_RAGGED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    perm_gen = torch.Generator().manual_seed(SEED + 25)
+    p = gptq_projection(torch, gen, perm_gen, k, n, centered=True)
+    g = k // GPTQ_GROUP
+    counts = torch.full((g,), GPTQ_GROUP, dtype=torch.int64)
+    for _ in range(16):
+        a, b = torch.randperm(g, generator=perm_gen)[:2].tolist()
+        moved = int(torch.randint(1, 9, (1,), generator=perm_gen))
+        counts[a] -= moved
+        counts[b] += moved
+    g_idx = torch.repeat_interleave(torch.arange(g), counts)[torch.randperm(k, generator=perm_gen)]
+    qt = mpq_from_gptq(p["qweight"], p["qzeros"], p["scales"], g_idx.to(torch.int32).cuda(),
+                       device="cuda")
+    check(qt.g_idx is not None and qt.q_perm is None, "23c: the ragged g_idx was canonicalized")
+    layer = prepare_for_training(MPQLinear(k, n, dtype=torch.bfloat16, qweight=qt))
+    sign = torch.where(torch.rand(n, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+    grad = 0.3 * torch.randn(k, n, device="cuda", generator=gen) + sign
+    return layer, grad
+
+
+def ft_par_rank(path):
+    """One rank of phase 23c's two-rank world (the card shared, gloo), from
+    the ``FT_PAR_LAYERS``-layer GPTQ export at ``path``:
+
+    * the unsharded fine-tune step (every rank alike), then the same step at
+      fsdp 2 (every packed word, zero and parameter compared) and at tp 2
+      (``shard_llama_params``: its loss and gradients against its share of
+      the unsharded step's, the codes that differ counted); rank 0 also runs
+      the one-process witness of tp 2's split sums (``ft_witness``);
+    * the ragged ``g_idx`` layer (``ragged_layer``), one DiodeMix step at a
+      refresh, unsharded and as this rank's tp 2 row shard.
+
+    Returns one JSON string (``json``) of its numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from bitorch_engine_tpu_torch.models.llama_sharding import row_shard, shard_llama_params
+    from bitorch_engine_tpu_torch.ops import packing
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams, DiodeMix
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.training import make_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    hp = DiodeHyperParams(lr=FT_LR, zeros_update_interval=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    toks = torch.randint(0, 128256, (FT_PAR_BATCH, FT_PAR_SEQ + 1), device="cuda", generator=gen)
+    batch = (toks[:, :-1].contiguous(), toks[:, 1:].contiguous())
+    out = dict(rank=rank)
+
+    # the unsharded step
+    model = load_ft_model(torch, path, FT_PAR_LAYERS)
+    rec = {}
+    with par_record(torch, rec, profiled=False):
+        rec["loss"] = float(make_train_step(model, par_loss(None), hp)(batch)["loss"])
+    ref = dict(loss=rec["loss"], grads=par_grads(model), after=ft_state(model))
+    out["ref"] = rec
+    del model
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["witness"] = ft_witness(torch, path, batch, ref)
+
+    # fsdp 2
+    mesh = make_mesh(fsdp=TP)
+    model = load_ft_model(torch, path, FT_PAR_LAYERS)
+    step = make_train_step(model, par_loss(mesh), hp, mesh=mesh)
+    rec = {}
+    with par_record(torch, rec, [mesh], profiled=False):
+        rec["loss"] = float(step(batch)["loss"])
+    after = ft_state(model)
+    rec["differing"] = {n: int((t != ref["after"][n]).sum()) for n, t in after.items()
+                        if not torch.equal(t, ref["after"][n])}
+    rec["tensors"] = len(after)
+    rec["splits"] = {n: list(s) for n, s in step.optimizer.splits.items() if n.startswith("layer_0.")}
+    out["fsdp"] = rec
+    del model, step, after
+    torch.cuda.empty_cache()
+
+    # tp 2
+    mesh = make_mesh(tp=TP)
+    coord = mesh.coord("tp")
+    model = shard_llama_params(load_ft_model(torch, path, FT_PAR_LAYERS), mesh)
+    step = make_train_step(model, par_loss(mesh), hp, mesh=mesh)
+    rec = {}
+    with par_record(torch, rec, [mesh], profiled=False):
+        rec["loss"] = float(step(batch)["loss"])
+    rec["loss_rel"] = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+    rows = {f"{n}.grad_shadow": m.tp_rows for n, m in model.named_modules()
+            if getattr(m, "tp_rows", None) is not None}
+    params = dict(model.named_parameters())
+    rels = {n: rel_err(params[n].grad.float(), ft_share(n, g, coord, rows))
+            for n, g in ref["grads"].items()}
+    rec["worst"] = max(rels, key=rels.get)
+    rec["grad_rel"], rec["grads"] = rels[rec["worst"]], len(rels)
+    off = dict(codes=0, codes_total=0, zeros=0, zeros_total=0)
+    for n, t in ft_state(model).items():
+        if n.endswith(("packed", "zeros")):
+            unpack = packing.unpack_rows if n.endswith("packed") else packing.unpack_cols
+            a, b = unpack(t, 4), unpack(ft_share(n, ref["after"][n], coord, rows), 4)
+            key = "codes" if n.endswith("packed") else "zeros"
+            off[key] += int((a != b).sum())
+            off[f"{key}_total"] += a.numel()
+    rec.update(off)
+    rec["row_shards"] = len(rows)
+    out["tp"] = rec
+    del model, step, params, ref
+    torch.cuda.empty_cache()
+
+    # the ragged g_idx layer at tp 2, one step at a refresh
+    rec = {}
+    for key in ("none", "tp2"):
+        layer, grad = ragged_layer(torch)
+        zeros0 = layer.zeros.clone()
+        if key == "tp2":
+            layer = row_shard(layer, mesh, "tp", "ragged_down")
+            k = layer.qweight.in_features
+            grad = grad[coord * k : (coord + 1) * k]
+        layer.grad_shadow.grad = grad.contiguous()
+        opt = DiodeMix(layer, DiodeHyperParams(lr=FT_RAGGED_LR, zeros_update_interval=1),
+                       mesh=mesh if key == "tp2" else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        rec[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3
+        rec[f"{key}_codes"] = packing.unpack_rows(layer.packed, 4)
+        rec[f"{key}_zeros"] = packing.unpack_cols(layer.zeros, 4)
+        rec[f"{key}_zeros_moved"] = int((layer.zeros != zeros0).sum())
+        del layer, grad, opt
+    k = rec["tp2_codes"].shape[0]
+    out["ragged"] = dict(
+        codes_differing=int((rec["tp2_codes"] != rec["none_codes"][coord * k : (coord + 1) * k]).sum()),
+        codes=int(rec["tp2_codes"].numel()),
+        zeros_differing=int((rec["tp2_zeros"] != rec["none_zeros"]).sum()),
+        zeros=int(rec["none_zeros"].numel()), zeros_moved=rec["none_zeros_moved"],
+        none_ms=rec["none_ms"], tp2_ms=rec["tp2_ms"])
+    torch.cuda.empty_cache()
+    return {"json": json.dumps(out)}
+
+
+def phase_ft_par(torch, tmp):
+    """Phase 23c: the ``FT_PAR_LAYERS``-layer export written here, then
+    :func:`ft_par_rank` in a two-rank world sharing the card over gloo,
+    its numbers held to their checks."""
+    from bitorch_engine_tpu_torch.parallel.multiprocess import launch_world
+
+    path = str(pathlib.Path(tmp) / "llama3_8b_gptq_asym_2l.safetensors")
+    nbytes = write_gptq_checkpoint(torch, path, FT_PAR_LAYERS, SEED + 27, centered=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = [json.loads(str(r["json"])) for r in launch_world(
+        "chip_smoke:ft_par_rank", TP, {"path": path}, timeout=FT_WORLD_TIMEOUT,
+        collective_timeout=TPT_COLLECTIVE_TIMEOUT)]
+    world_s = time.perf_counter() - t0
+    fails = []
+
+    def expect(ok, what):
+        if not ok:
+            fails.append(what)
+
+    w = ranks[0]["witness"]
+    bar = max(TRAIN_GRAD_REL, TPT_WITNESS_FACTOR * w["grad_rel"])
+    log(f"23c ({TP_LABEL}): the {FT_PAR_LAYERS}-layer export {nbytes / 2**30:.2f} GiB; world of "
+        f"{TP} ran {world_s:.1f} s; witness (one process, tp 2's split sums) vs the unsharded step: "
+        f"loss rel {w['loss_rel']:.3e}, max grad rel {w['grad_rel']:.3e} ({w['worst']}, "
+        f"{w['tensors']} of {w['of']} tensors); the tp step's bar {bar:.3e}")
+    expect(w["tensors"] == w["of"], "23c witness: a gradient missing")
+    for r in ranks:
+        f, t, g = r["fsdp"], r["tp"], r["ragged"]
+        log(f"23c rank {r['rank']} unsharded: loss {r['ref']['loss']:.6f}, wall "
+            f"{r['ref']['wall_s']:.2f} s, launches {r['ref']['launches']}, peak "
+            f"{r['ref']['peak_gib']:.2f} GiB")
+        log(f"23c rank {r['rank']} fsdp 2: loss {f['loss']:.6f}, wall {f['wall_s']:.2f} s; "
+            f"{len(f['differing'])} of {f['tensors']} tensors differ from the unsharded step "
+            f"({f['differing'] or 'none'}); layer 0's shares {f['splits']}; {comm_text(f['comm'])}")
+        log(f"23c rank {r['rank']} tp 2: loss {t['loss']:.6f} (rel {t['loss_rel']:.3e}), max grad "
+            f"rel {t['grad_rel']:.3e} ({t['worst']}, {t['grads']} tensors), {t['row_shards']} "
+            f"act-order row shards; {t['codes']} of {t['codes_total']} codes and {t['zeros']} of "
+            f"{t['zeros_total']} integer zeros off the unsharded step's share; wall "
+            f"{t['wall_s']:.2f} s; {comm_text(t['comm'])}")
+        log(f"23c rank {r['rank']} ragged g_idx {FT_RAGGED_SHAPE} tp 2: {g['codes_differing']} of "
+            f"{g['codes']} codes and {g['zeros_differing']} of {g['zeros']} zeros differ from the "
+            f"unsharded step's; the refresh moved {g['zeros_moved']} packed zero words; step "
+            f"{g['none_ms']:.1f} ms unsharded, {g['tp2_ms']:.1f} ms a tp rank")
+        expect(not f["differing"] and f["loss"] == r["ref"]["loss"],
+               f"23c rank {r['rank']} fsdp: {f['differing']}")
+        expect(len(f["splits"]) == 7 and all(s[0] == 1 for s in f["splits"].values()),
+               f"23c rank {r['rank']} fsdp shares {f['splits']}")
+        expect(t["loss_rel"] <= TRAIN_LOSS_REL, f"23c rank {r['rank']} tp loss rel {t['loss_rel']}")
+        expect(t["grad_rel"] <= bar, f"23c rank {r['rank']} tp {t['worst']} grad rel {t['grad_rel']}")
+        expect(t["row_shards"] == 2 * FT_PAR_LAYERS, f"23c rank {r['rank']} row shards")
+        expect(g["codes_differing"] == 0 and g["zeros_differing"] == 0 and g["zeros_moved"] > 0,
+               f"23c rank {r['rank']} ragged: {g}")
+    check(not fails, "; ".join(fails))
+    return dict(label=TP_LABEL, world_s=world_s, export_gib=nbytes / 2**30, witness=w, bar=bar,
+                ranks=ranks)
+
+
+def phase_ft_timing(torch, dequant_rows):
+    """Phase 23d: ``utils.benchmark.time_op`` on kernel 2 at the 8B gate|up
+    shape and ``time_fn_pytree`` on a 2-layer 8B decode step (its caches
+    chained), beside phase 2's CUDA-event reading of the same kernel."""
+    from bitorch_engine_tpu_torch.models.llama import decode_step, init_kv_caches, prefill
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq
+    from bitorch_engine_tpu_torch.utils.benchmark import time_fn_pytree, time_op
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    k, n = PROJ_SHAPES["gate_up"]
+    qt = mpq_weight(torch, gen, k, n)
+    x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
+    op_s = time_op(lambda x, qt: dequant_mpq(qt), x, qt)
+    phase2_ms = shape_row(dequant_rows, "gate_up")["ms"]
+    del qt, x
+    model = build_model(torch, 2, SEED)
+    prompt = torch.randint(0, model.cfg.vocab_size, (BATCH, PROMPT), device="cuda", generator=gen)
+    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda")
+    logits, caches = prefill(model, prompt, caches)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+
+    def step(args):
+        tok, caches = args
+        last, caches = decode_step(model, tok[:, None], caches, PROMPT, attn_window=bucket(PROMPT + 1))
+        return torch.argmax(last, dim=-1), caches
+
+    decode_s = time_fn_pytree(step, (tok, caches))
+    del model, caches
+    torch.cuda.empty_cache()
+    log(f"23d time_op: kernel 2 at gate|up {k} x {n} {op_s * 1e3:.4f} ms an execution (the output "
+        f"summed each time, no flush) beside phase 2's CUDA-event median {phase2_ms:.4f} ms (L2 "
+        f"flushed); time_fn_pytree: a 2-layer 8B decode step at b{BATCH} {decode_s * 1e3:.4f} ms")
+    check(math.isfinite(op_s) and op_s > 0 and math.isfinite(decode_s) and decode_s > 0,
+          f"23d: time_op {op_s}, time_fn_pytree {decode_s}")
+    return dict(time_op_kernel2_gate_up_ms=op_s * 1e3, phase2_kernel2_gate_up_ms=phase2_ms,
+                time_fn_pytree_decode_2l_ms=decode_s * 1e3)
+
+
+def phase_ft(torch, dequant_rows):
+    """Phase 23: 23a-23d, the exports in a temporary directory removed at
+    its end."""
+    t_start = time.perf_counter()
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    rows = phase_ft_kernels(torch, flush)
+    del flush
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["e2e"] = phase_ft_e2e(torch, tmp)
+        torch.cuda.empty_cache()
+        out["par"] = phase_ft_par(torch, tmp)
+    torch.cuda.empty_cache()
+    out["timing"] = phase_ft_timing(torch, dequant_rows)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"23: the fine-tune of a GPTQ checkpoint ran {out['seconds']:.1f} s")
+    return rows, out
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -5460,6 +6159,9 @@ def main() -> int:
 
     # the entry points
     entry = phase_entry(torch)
+
+    # the fine-tune of a GPTQ-format checkpoint
+    ft_rows, ft = phase_ft(torch, per_shape["dequant_mpq"])
 
     checks = {
         "mpq_matmul": ("max|d|/max|ref| <= 1e-3 (f32, pre-cast) per shape and per check (m 1-512, "
@@ -5709,11 +6411,42 @@ def main() -> int:
     by_name["paged_prefix_attention_update"]["entry_points"] = dict(
         serve=serve_run["counted"]["paged_attention"],
         per="one traced run of the serve twin (22d), both forms of kernel 6")
+    # the fine-tune (phase 23): launches per train step of the asym
+    # act-order 8B path (kernels 2, 3, 4; 23b) and per decode step of its
+    # generation (kernel 1), priced at 23a's rows (the asym route: the
+    # rewrite and the gather or scatter included; each row also holds the
+    # sym route's time, sym_ms)
+    fe = ft["e2e"]
+    per_train = fe["per_step"]
+    ft_passes = {
+        "mpq_matmul": (fe["generate"]["counts"]["mpq_matmul"] / (FT_NEW_TOKENS - 1),
+                       {f"ft_{s}_m{FT_BATCH}": FT_LAYERS * c for s, c in FT_PER_LAYER.items()},
+                       f"one decode step of the fine-tuned model's generation (b{FT_BATCH}, "
+                       f"{FT_LAYERS} layers)"),
+        "dequant_mpq": (per_train["dequant_mpq"],
+                        {f"ft_{s}": 3 * FT_LAYERS * c for s, c in FT_PER_LAYER.items()},
+                        f"one train step of the fine-tune ({FT_BATCH} x {FT_SEQ}, {FT_LAYERS} "
+                        "layers: forward, remat, backward)"),
+        "flash_attention": (per_train["flash_attention"], {FT_FLASH[0]: 2 * FT_LAYERS},
+                            "one train step of the fine-tune (forward and remat a layer)"),
+        "flash_attention_bwd": (per_train["flash_attention_bwd"], {FT_FLASH[0]: FT_LAYERS},
+                                "one train step of the fine-tune (a backward of 2 launches a layer)"),
+    }
+    for name, (launches, weights, per) in ft_passes.items():
+        rows = [r for r in ft_rows[name] if r["shape"] in weights]
+        sub = kernel_line(name, rows, launches, weights, per, checks[name])
+        keys = ("launches", "per", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+        line = dict({k: sub[k] for k in keys}, max_abs_err=max(r["max_abs_err"] for r in rows),
+                    max_err=max(r["rel_err"] for r in rows), rows=ft_rows[name])
+        if name in ("mpq_matmul", "dequant_mpq"):
+            line["sym_route_ms"] = sum(w * shape_row(rows, s)["sym_ms"] for s, w in weights.items())
+            line["max_plain_asym_rel"] = max(r["plain_asym_rel"] for r in ft_rows[name])
+        by_name[name]["finetune"] = line
     log(json.dumps({"e2e": e2e, "serving": serving, "paged_vs_dense": paged_vs_dense,
                     "path_check_rel": path_rel, "paged_gate": gate, "mbwq": mbwq, "train": train,
                     "qat": qat, "checkpoint": ckpt, "ragged_g_idx": act_rows["ragged_counts"],
                     "moe": moe, "tp": tp["summary"], "par": par["summary"], "tp_train": tpt["summary"],
-                    "entry": entry, "seconds": time.perf_counter() - t_start}))
+                    "entry": entry, "finetune": ft, "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -563,7 +563,6 @@ def training_world(regimes):
     from bitorch_engine_tpu_torch.layers.linear import MPQLinear
 
     fsdp4 = meshes["fsdp4"]
-    perm = torch.from_numpy(np.random.default_rng(3).permutation(256).astype(np.int32))
     refusals = {
         # 256 rows: 64 a rank, not whole groups of 128; 198 columns: not 4 equal shares
         "groups": lambda: DiodeMix(prepare_for_training(MPQLinear(
@@ -572,8 +571,6 @@ def training_world(regimes):
         "galore": lambda: DiodeMix(prepare_for_training(LlamaModel(
             tiny_llama(dtype=torch.float32), device="cpu")),
             DiodeHyperParams(galore=GaLoreConfig(rank=3)), mesh=fsdp4),
-        "act_order": lambda: DiodeMix(prepare_for_training(MPQLinear(
-            256, 256, dtype=torch.float32, qweight=mk_qt().replace(q_perm=perm))), hp, mesh=fsdp4),
     }
     for name, fn in refusals.items():
         try:
@@ -720,4 +717,92 @@ def tp_training_world(ckpt, cfg_kw, batches, lr, interval):
         out[f"act_order_{key}_w_grad"] = mod.grad_shadow.grad
         out[f"act_order_{key}_y"] = y.detach()
     out["act_order_rows"] = row_shard(layer, mesh, "tp", "act_order").tp_rows
+    return out
+
+
+def _act_order_llama(asym):
+    """The tiny f32 Llama (``asym`` projections) with a seeded ``q_perm`` on
+    every projection (an ingested act-order export's stored rows), prepared
+    for training."""
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+    from bitorch_engine_tpu_torch.models.llama import LlamaModel, tiny_llama
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    model = LlamaModel(tiny_llama(dtype=torch.float32, asym=asym), device="cpu", seed=4)
+    rng = np.random.default_rng(15)
+    for mod in model.modules():
+        if isinstance(mod, MPQLinear):
+            perm = rng.permutation(mod.qweight.in_features).astype(np.int32)
+            mod.set_qweight(mod.qweight.replace(q_perm=torch.from_numpy(perm)))
+    return prepare_for_training(model)
+
+
+ACT_ORDER_MESHES = {"none": None, "fsdp4": dict(fsdp=4), "dp2_tp2": dict(dp=2, tp=2),
+                    "dp2_fsdp2": dict(dp=2, fsdp=2)}
+
+
+def act_order_training_world(records):
+    """``test_torch_act_order_training.py`` on 4 ranks.
+
+    * fsdp: the act-order tiny Llama, sym and asym, trained 3 steps with the
+      zeros refreshed every step, unsharded, at fsdp 4, at dp 2 (a dp 2 × tp
+      2 mesh, the model not cut: tp ranks are replicas) and at dp 2 × fsdp
+      2; every packed word, zero and parameter after the steps, the losses
+      and layer 0's splits;
+    * tp: each act-order record of ``records`` (a ``torch.save`` of
+      ``{"records": {name: fields}, "grad", "lr"}``) as one layer, one
+      DiodeMix step at a refresh, unsharded and as this rank's tp 2 row
+      shard (``row_shard`` on a dp 2 × tp 2 mesh) fed its rows of the same
+      gradient."""
+    from bitorch_engine_tpu_torch.layers.linear import MPQLinear
+    from bitorch_engine_tpu_torch.models.llama_sharding import row_shard
+    from bitorch_engine_tpu_torch.optim import DiodeHyperParams, DiodeMix
+    from bitorch_engine_tpu_torch.parallel import make_mesh
+    from bitorch_engine_tpu_torch.qtensor import MPQTensor
+    from bitorch_engine_tpu_torch.training import make_train_step
+    from bitorch_engine_tpu_torch.utils.convert import prepare_for_training
+
+    out = {}
+    hp = DiodeHyperParams(lr=1e-3, zeros_update_interval=1)
+    rng = np.random.default_rng(16)
+    batches = [lm_batch(rng.integers(0, 256, (4, 16))) for _ in range(3)]
+    for asym in (False, True):
+        for key, sizes in ACT_ORDER_MESHES.items():
+            tag = f"{'asym' if asym else 'sym'}_{key}"
+            mesh = None if sizes is None else make_mesh(**sizes)
+            model = _act_order_llama(asym)
+            step = make_train_step(model, lm_loss(mesh), hp, mesh=mesh)
+            out[f"{tag}_losses"] = np.asarray([float(step(b)["loss"]) for b in batches])
+            for name, t in list(model.named_buffers()) + list(model.named_parameters()):
+                if not name.endswith("grad_shadow"):
+                    out[f"{tag}_{name}"] = t.detach()
+            out[f"{tag}_splits"] = np.asarray(
+                [[n, *map(str, sp)] for n, sp in sorted(step.optimizer.splits.items())
+                 if n.startswith("layer_0.")])
+
+    payload = torch.load(records, weights_only=False)
+    mesh = make_mesh(dp=2, tp=2)
+    r = mesh.coord("tp")
+    out["tp_coord"] = np.asarray(r)
+    hp = DiodeHyperParams(lr=payload["lr"], zeros_update_interval=1)
+    grad = payload["grad"]
+    for name, fields in payload["records"].items():
+        for key in ("none", "tp2"):
+            # a fresh copy: the step writes the layer's buffers in place
+            qt = MPQTensor(**{f: v.clone() if isinstance(v, torch.Tensor) else v
+                              for f, v in fields.items()})
+            layer = prepare_for_training(MPQLinear(qt.in_features, qt.out_features,
+                                                   dtype=torch.float32, qweight=qt))
+            if key == "tp2":
+                layer = row_shard(layer, mesh, "tp", name)
+                rows = getattr(layer, "tp_rows", None)
+                k = layer.qweight.in_features
+                layer.grad_shadow.grad = (grad[r * k : (r + 1) * k] if rows is None
+                                          else grad[rows]).clone()
+            else:
+                layer.grad_shadow.grad = grad.clone()
+            DiodeMix(layer, hp, mesh=mesh if key == "tp2" else None).step()
+            out[f"tp_{name}_{key}_packed"] = layer.packed.clone()
+            out[f"tp_{name}_{key}_zeros"] = layer.zeros.clone()
+            out[f"tp_{name}_{key}_groups"] = np.asarray(layer.scales.shape[0])
     return out

@@ -23,7 +23,8 @@ One gloo world of 4 CPU processes (``_torch_worlds.training_world``):
   ``test_torch_diode.py``'s tolerances (fp rtol 1e-5 / atol 1e-7; at most
   0.1% of MPQ / MBWQ / IntQ codes one step apart; the binary signs equal);
 * a weight that splits in neither rows nor columns raises, as do GaLore
-  moments whose rows do not split and act-order rows.
+  moments whose rows do not split (act-order weights split their columns:
+  ``test_torch_act_order_training.py``).
 """
 
 import functools
@@ -247,7 +248,6 @@ def test_fsdp_moments_keep_their_rows(world):
 @pytest.mark.parametrize("what,match", [
     ("groups", "ValueError: .* do not split over fsdp=4"),
     ("galore", "ValueError: layer_0.mlp.gate_proj: GaLore's 3 projected rows do not split"),
-    ("act_order", "ValueError: .*act-order rows do not split over fsdp"),
 ])
 def test_shapes_that_do_not_split_raise(world, what, match):
     import re

@@ -2,8 +2,9 @@
 //
 // Packed codes: int32 (K / ppw, N), ppw = 32 / w_bit; value j of word r is
 // logical row r * ppw + j, LSB first.  Group metadata: scales / zeros
-// (K / group_size, N), float32 or bfloat16; the weight is w = q * s - z
-// (the symmetric form; asymmetric tensors are rewritten to it beforehand).
+// (K / group_size, N), float32 or bfloat16; kernels 1 and 7 take the
+// symmetric form w = q * s - z (asymmetric tensors are rewritten to it
+// beforehand), kernel 2 also an asym tensor's packed integer zeros.
 //
 // bte_mpq_matmul -- replaces bitorch_engine_tpu/ops/pallas/dequant_matmul.py
 //   :_mpq_kernel (A16 branches of _accumulate_k_step), the fused
@@ -34,14 +35,36 @@
 //   output write replaces a launch and an output per segment plus the
 //   adds.  The segment table is a kernel parameter.
 //
-// bte_dequant -- replaces dequant_matmul.py:_dequant_kernel, the streaming
-//   reconstruct of the (K, N) weight for the m > 512 regime.
-//   Bound: bytes (read the packed words and metadata once, write K * N
-//   outputs once); one thread per packed word quad, coalesced 16-byte reads
-//   and 8-byte writes.  Bit-exact with the plain version and with the JAX
-//   package's jitted dequantize: w = q * s - z is rounded once, as one
-//   fused multiply-add (__fmaf_rn), which is what XLA's contraction of
-//   that expression computes.
+// bte_dequant -- replaces dequant_matmul.py:_dequant_kernel (kernel 2), the
+//   streaming reconstruct of the logical (K, N) weight in f32 or bf16 for
+//   every m > 64 forward, every backward and DiodeMix's update.  Beside the
+//   TPU kernel's arithmetic it does the two passes that used to surround
+//   it: an act-order tensor's row map (stored row r is written to row
+//   row_map[r], JAX's .at[q_perm].set(w)) and an asym tensor's zeros, read
+//   from their packed words (ZeroForm: the kernel form q * s - bf(s * z),
+//   or DiodeMix's exact s * (q - z)).
+//   Bound: bytes.  It must read the packed words, the metadata, the zero
+//   words and the row map once and write K * N outputs once, at 3.35 TB/s;
+//   at w4 with bf16 output 80% of those bytes are stores.
+//   Design: one block of 256 threads a tile of 4 packed rows x 256
+//   columns, one tile a block (the grid is computed in bte_dequant); a
+//   thread owns one packed row x 4 columns: one 16-byte load of code
+//   words, one of scales (and of sym zeros, or one zero word), then one
+//   8-byte (bf16) or 16-byte (f32) store per logical row.  Neighbouring
+//   threads write neighbouring bytes of one output row whatever the row
+//   map, so the scatter costs no extra pass and no uncoalesced write: no
+//   shared-memory staging, no barrier, no cluster.  On the H100 the -D
+//   variants below lost on the whole (chip_smoke.py --kernel2-ab, PERF.md
+//   §6 row 2): TMA bulk stores from a shared-memory tile were slower on
+//   every path, most on the 370M's short launches; 2 packed rows and/or 8
+//   columns a thread came within about 1% either way on the 8B, Mixtral and
+//   act-order paths and were slower on the 370M step, 8 columns far
+//   slower in f32.  N not a multiple of 4 (or a pointer not 16-byte
+//   aligned) takes the same walk one column at a time.  Bit-exact with the plain version (and with the JAX
+//   package's jitted dequantize in the symmetric and exact forms): each
+//   weight is rounded once, as one fused multiply-add (__fmaf_rn, XLA's
+//   contraction of q * s - z) or one product (s * (q - z), q - z exact in
+//   f32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -273,35 +296,242 @@ mbwq_matmul_kernel(const XT* __restrict__ x, OT* __restrict__ out, int M, int K,
   reduce_store<OT>(acc, red, out, M, N, m0);
 }
 
-constexpr int DQ_TX = 64;  // column quads per block
-constexpr int DQ_TY = 4;   // packed rows per block
+// Kernel 2's zero forms, chosen by the wrapper (ops/cuda/dequant_matmul.py
+// ZERO_FORMS): kSym the stored float zeros, w = fma(q, s, -z); kAsymKernel
+// the packed integer zeros of an asym tensor in the kernel form,
+// z' = (s · z) rounded to the scales' dtype, w = fma(q, s, -z');
+// kAsymExact the same zeros as s · (q - z), one f32 rounding.
+enum ZeroForm { kSym = 0, kAsymKernel = 1, kAsymExact = 2 };
 
-template <int W, typename MT, typename OT>
-__global__ void __launch_bounds__(DQ_TX * DQ_TY)
-dequant_kernel(const int32_t* __restrict__ packed, const MT* __restrict__ scales,
-               const MT* __restrict__ zeros, OT* __restrict__ out, int K, int N,
-               int group_size) {
+// Kernel 2's thread shape.  The port's build defines none of these; a
+// measurement builds variants of this source with -D (chip_smoke.py
+// --kernel2-ab, PERF.md §6 row 2): DQ_RPT packed rows and DQ_CPT columns
+// (4 or 8) a thread, and DQ_TMA_STORE=1 the block's tile staged in shared
+// memory and written by TMA bulk stores, one a logical row.
+#ifndef DQ_RPT
+#define DQ_RPT 1
+#endif
+#ifndef DQ_CPT
+#define DQ_CPT 4
+#endif
+#ifndef DQ_TMA_STORE
+#define DQ_TMA_STORE 0
+#endif
+static_assert(DQ_CPT == 4 || DQ_CPT == 8, "4 or 8 columns a thread");
+
+constexpr int DQ_TC = 64;                                  // threads side by side in a tile row
+constexpr int DQ_THREADS = 256;
+constexpr int DQ_TILE_COLS = DQ_TC * DQ_CPT;               // a tile: 256 columns
+constexpr int DQ_TILE_ROWS = DQ_THREADS / DQ_TC * DQ_RPT;  // x 4 packed rows
+constexpr int DQ_MIN_BLOCKS = DQ_RPT * DQ_CPT > 4 ? 3 : 6; // at most 40 registers a thread (80)
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) { return __bfloat162float(*p); }
+
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <> __device__ __forceinline__ float round_to<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// DQ_CPT consecutive outputs: 8-byte (bf16) or 16-byte (f32) stores of 4,
+// or one 16-byte store of 8 bf16.
+__device__ __forceinline__ void store_cpt(float* p, const float v[DQ_CPT]) {
+#pragma unroll
+  for (int c = 0; c < DQ_CPT; c += 4) store4(p + c, v + c);
+}
+__device__ __forceinline__ void store_cpt(bf16* p, const float v[DQ_CPT]) {
+  if (DQ_CPT == 8) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      u[i] = *reinterpret_cast<uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+    store4(p, v);
+  }
+}
+
+// What a column's weights subtract, from its scale s and its zero (the
+// stored float zero, or the integer zero as f32): the kernel form rounds
+// s · z to the scales' dtype first, as prepare_for_kernel stores it.
+template <int ZF, typename MT>
+__device__ __forceinline__ float zero_of(float s, float zero) {
+  return ZF == kAsymKernel ? round_to<MT>(__fmul_rn(s, zero)) : zero;
+}
+
+// One weight: q · s - z rounded once (XLA's fused multiply-add), or
+// s · (q - z) with q - z exact in f32 (codes and zeros are below 2^9).
+template <int ZF>
+__device__ __forceinline__ float dq(float q, float s, float z) {
+  return ZF == kAsymExact ? __fmul_rn(s, q - z) : __fmaf_rn(q, s, -z);
+}
+
+// Group g's scales and subtrahends at columns n0.. (the first ``cols``);
+// asym zeros are packed along N (PPW a word, the stored value one below
+// the zero), and n0 is a multiple of DQ_CPT, so a thread's zeros lie in
+// one word (PPW >= DQ_CPT) or in whole words.
+template <int W, typename MT, int ZF, bool VEC>
+__device__ __forceinline__ void load_meta(const MT* __restrict__ scales, const void* __restrict__ zeros,
+                                          int N, int g, int n0, int cols, float s[DQ_CPT],
+                                          float z[DQ_CPT]) {
+  constexpr int PPW = 32 / W;
+  const MT* srow = scales + (size_t)g * N + n0;
+  const MT* zrow = static_cast<const MT*>(zeros) + (size_t)g * N + n0;
+  if (VEC) {
+#pragma unroll
+    for (int c = 0; c < DQ_CPT; c += 4) {
+      load4(srow + c, s + c);
+      if (ZF == kSym) load4(zrow + c, z + c);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < DQ_CPT; ++c) {
+      s[c] = c < cols ? load1(srow + c) : 0.f;
+      z[c] = ZF == kSym && c < cols ? load1(zrow + c) : 0.f;
+    }
+  }
+  if (ZF != kSym) {
+    const uint32_t* words = static_cast<const uint32_t*>(zeros) + (size_t)g * (N / PPW);
+#pragma unroll
+    for (int c = 0; c < DQ_CPT; ++c) {
+      if (!VEC && c >= cols) continue;
+      const uint32_t zw = __ldg(words + n0 / PPW + c / PPW);
+      const uint32_t zq = (zw >> (((n0 + c) % PPW) * W)) & ((1u << W) - 1u);
+      z[c] = zero_of<ZF, MT>(s[c], (float)(zq + 1u));
+    }
+  }
+}
+
+// One thread's share of kernel 2: packed rows r0.. (DQ_RPT of them, those
+// below K / PPW) at columns n0.. (n0 < N).  On the vector path (VEC: N a
+// multiple of DQ_CPT, every pointer 16-byte aligned) its code words come
+// in DQ_RPT * DQ_CPT / 4 16-byte loads, all issued before the first
+// unpack; without VEC a column at a time.  Each logical (stored) row it
+// reconstructs goes to put(row, values).
+template <int W, typename MT, int ZF, bool VEC, typename Put>
+__device__ __forceinline__ void dequant_thread(const int32_t* __restrict__ packed,
+                                               const MT* __restrict__ scales,
+                                               const void* __restrict__ zeros, int K, int N,
+                                               int group_size, int r0, int n0, Put put) {
   constexpr int PPW = 32 / W;
   constexpr uint32_t MASK = (1u << W) - 1u;
-  const int n0 = (blockIdx.x * DQ_TX + threadIdx.x % DQ_TX) * 4;
-  const int r = blockIdx.y * DQ_TY + threadIdx.x / DQ_TX;
-  if (n0 >= N || r >= K / PPW) return;
-  const int4 wv = __ldg(reinterpret_cast<const int4*>(packed + (size_t)r * N + n0));
-  const uint32_t w[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
-  const int g = r * PPW / group_size;  // group_size % PPW == 0: one group per word
-  float s[4], z[4];
-  load4(scales + (size_t)g * N + n0, s);
-  load4(zeros + (size_t)g * N + n0, z);
+  const int rows = min(DQ_RPT, K / PPW - r0);
+  const int cols = VEC ? DQ_CPT : min(DQ_CPT, N - n0);
+  uint32_t w[DQ_RPT][DQ_CPT];
 #pragma unroll
-  for (int j = 0; j < PPW; ++j) {
-    float o[4];
+  for (int i = 0; i < DQ_RPT; ++i) {
+    if (i >= rows) break;
+    const int32_t* p = packed + (size_t)(r0 + i) * N + n0;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float q = (float)((w[c] >> (j * W)) & MASK);
-      o[c] = __fmaf_rn(q, s[c], -z[c]);
+    for (int c = 0; c < DQ_CPT; c += 4) {
+      if (VEC) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(p + c));
+        w[i][c] = v.x; w[i][c + 1] = v.y; w[i][c + 2] = v.z; w[i][c + 3] = v.w;
+      } else {
+#pragma unroll
+        for (int d = 0; d < 4; ++d) w[i][c + d] = c + d < cols ? (uint32_t)__ldg(p + c + d) : 0u;
+      }
     }
-    store4(out + ((size_t)r * PPW + j) * N + n0, o);
   }
+#pragma unroll
+  for (int i = 0; i < DQ_RPT; ++i) {
+    if (i >= rows) break;
+    const int r = r0 + i;
+    float s[DQ_CPT], z[DQ_CPT];
+    // group_size % PPW == 0: one group a word
+    load_meta<W, MT, ZF, VEC>(scales, zeros, N, r * PPW / group_size, n0, cols, s, z);
+#pragma unroll
+    for (int j = 0; j < PPW; ++j) {
+      float o[DQ_CPT];
+#pragma unroll
+      for (int c = 0; c < DQ_CPT; ++c) o[c] = dq<ZF>((float)((w[i][c] >> (j * W)) & MASK), s[c], z[c]);
+      put(r * PPW + j, o);
+    }
+  }
+}
+
+// The output row of stored row ``row``: row_map[row], or ``row`` without a
+// map.  A map is checked to be a permutation of [0, K) where it enters the
+// program (utils/convert.py); one out of range here stops the launch with
+// an error instead of writing outside the weight.
+__device__ __forceinline__ int out_row(const int32_t* __restrict__ row_map, int row, int K) {
+  const int dst = row_map != nullptr ? __ldg(row_map + row) : row;
+  if ((unsigned)dst >= (unsigned)K) __trap();
+  return dst;
+}
+
+#if DQ_TMA_STORE
+// The TMA variant's block: its tile's logical rows reconstructed into
+// shared memory (DQ_TILE_ROWS * PPW rows x DQ_TILE_COLS, the launch's
+// dynamic shared memory), one barrier, then one 1-D bulk copy
+// (cp.async.bulk.global.shared::cta) a row to out + row_map[row] * N.
+// Needs every row segment a multiple of 16 bytes: N * sizeof(OT) % 16 == 0.
+template <int W, typename MT, typename OT, int ZF>
+__device__ __forceinline__ void dequant_tile_tma(const int32_t* __restrict__ packed,
+                                                 const MT* __restrict__ scales,
+                                                 const void* __restrict__ zeros,
+                                                 const int32_t* __restrict__ row_map,
+                                                 OT* __restrict__ out, int K, int N,
+                                                 int group_size, int r0, int n0) {
+  constexpr int PPW = 32 / W;
+  extern __shared__ __align__(128) unsigned char dq_smem[];
+  OT* stage = reinterpret_cast<OT*>(dq_smem);
+  const int row0 = blockIdx.y * DQ_TILE_ROWS * PPW;
+  const int c0 = threadIdx.x % DQ_TC * DQ_CPT;
+  if (n0 < N)
+    dequant_thread<W, MT, ZF, true>(packed, scales, zeros, K, N, group_size, r0, n0,
+                                    [&](int row, const float* o) {
+                                      store_cpt(stage + (size_t)(row - row0) * DQ_TILE_COLS + c0, o);
+                                    });
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const int nb = blockIdx.x * DQ_TILE_COLS;
+  const int bytes = min(DQ_TILE_COLS, N - nb) * (int)sizeof(OT);
+  const int rows = min(DQ_TILE_ROWS * PPW, K - row0);
+  for (int t = threadIdx.x; t < rows; t += DQ_THREADS) {
+    OT* dst = out + (size_t)out_row(row_map, row0 + t, K) * N + nb;
+    const uint32_t src = (uint32_t)__cvta_generic_to_shared(stage + (size_t)t * DQ_TILE_COLS);
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+  }
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+#endif
+
+// Kernel 2: block (bx, by) takes the tile of column band bx (DQ_TILE_COLS
+// columns) and packed rows by * DQ_TILE_ROWS..; thread (ty, tx) =
+// divmod(threadIdx.x, DQ_TC) owns packed rows ty * DQ_RPT.. of the tile
+// and its columns tx * DQ_CPT.., and stores each logical row's DQ_CPT
+// outputs straight to row row_map[row].  No shared memory, no barrier.
+template <int W, typename MT, typename OT, int ZF, bool VEC>
+__global__ void __launch_bounds__(DQ_THREADS, DQ_MIN_BLOCKS)
+dequant_kernel(const int32_t* __restrict__ packed, const MT* __restrict__ scales,
+               const void* __restrict__ zeros, const int32_t* __restrict__ row_map,
+               OT* __restrict__ out, int K, int N, int group_size) {
+  const int n0 = (blockIdx.x * DQ_TC + threadIdx.x % DQ_TC) * DQ_CPT;
+  const int r0 = blockIdx.y * DQ_TILE_ROWS + threadIdx.x / DQ_TC * DQ_RPT;
+#if DQ_TMA_STORE
+  if (VEC && N * sizeof(OT) % 16 == 0) {
+    dequant_tile_tma<W, MT, OT, ZF>(packed, scales, zeros, row_map, out, K, N, group_size, r0, n0);
+    return;
+  }
+#endif
+  if (n0 >= N || r0 >= K / (32 / W)) return;
+  dequant_thread<W, MT, ZF, VEC>(packed, scales, zeros, K, N, group_size, r0, n0,
+                                 [&](int row, const float* o) {
+                                   OT* dp = out + (size_t)out_row(row_map, row, K) * N + n0;
+                                   if (VEC) {
+                                     store_cpt(dp, o);
+                                   } else {
+#pragma unroll
+                                     for (int c = 0; c < DQ_CPT; ++c)
+                                       if (n0 + c < N) dp[c] = from_f32<OT>(o[c]);
+                                   }
+                                 });
 }
 
 template <int W, typename XT, typename MT, typename OT>
@@ -346,26 +576,42 @@ cudaError_t mpq_by_x(int x_dtype, int meta_dtype, int out_dtype, const void* x,
   return mpq_by_meta<W, bf16>(meta_dtype, out_dtype, x, p, s, z, o, M, K, N, gs, st);
 }
 
+template <int W, typename MT, typename OT, int ZF>
+const void* dequant_by_vec(int vec) {
+  return vec ? reinterpret_cast<const void*>(&dequant_kernel<W, MT, OT, ZF, true>)
+             : reinterpret_cast<const void*>(&dequant_kernel<W, MT, OT, ZF, false>);
+}
+
 template <int W, typename MT, typename OT>
-cudaError_t launch_dequant(const void* packed, const void* scales, const void* zeros,
-                           void* out, int K, int N, int group_size, cudaStream_t stream) {
-  constexpr int PPW = 32 / W;
-  dim3 grid((N / 4 + DQ_TX - 1) / DQ_TX, (K / PPW + DQ_TY - 1) / DQ_TY);
-  dequant_kernel<W, MT, OT><<<grid, DQ_TX * DQ_TY, 0, stream>>>(
-      static_cast<const int32_t*>(packed), static_cast<const MT*>(scales),
-      static_cast<const MT*>(zeros), static_cast<OT*>(out), K, N, group_size);
-  return cudaGetLastError();
+const void* dequant_by_form(int form, int vec) {
+  switch (form) {
+    case kSym: return dequant_by_vec<W, MT, OT, kSym>(vec);
+    case kAsymKernel: return dequant_by_vec<W, MT, OT, kAsymKernel>(vec);
+    case kAsymExact: return dequant_by_vec<W, MT, OT, kAsymExact>(vec);
+    default: return nullptr;
+  }
 }
 
 template <int W>
-cudaError_t dequant_by_dtype(int meta_dtype, int out_dtype, const void* p, const void* s,
-                             const void* z, void* o, int K, int N, int gs, cudaStream_t st) {
+const void* dequant_by_dtype(int meta_dtype, int out_dtype, int form, int vec) {
   if (meta_dtype == kF32) {
-    if (out_dtype == kF32) return launch_dequant<W, float, float>(p, s, z, o, K, N, gs, st);
-    return launch_dequant<W, float, bf16>(p, s, z, o, K, N, gs, st);
+    if (out_dtype == kF32) return dequant_by_form<W, float, float>(form, vec);
+    return dequant_by_form<W, float, bf16>(form, vec);
   }
-  if (out_dtype == kF32) return launch_dequant<W, bf16, float>(p, s, z, o, K, N, gs, st);
-  return launch_dequant<W, bf16, bf16>(p, s, z, o, K, N, gs, st);
+  if (out_dtype == kF32) return dequant_by_form<W, bf16, float>(form, vec);
+  return dequant_by_form<W, bf16, bf16>(form, vec);
+}
+
+// Kernel 2's instantiation for a width, the two dtypes, a zero form and
+// the vector path or not.
+const void* dequant_fn(int w_bit, int meta_dtype, int out_dtype, int form, int vec) {
+  switch (w_bit) {
+    case 1: return dequant_by_dtype<1>(meta_dtype, out_dtype, form, vec);
+    case 2: return dequant_by_dtype<2>(meta_dtype, out_dtype, form, vec);
+    case 4: return dequant_by_dtype<4>(meta_dtype, out_dtype, form, vec);
+    case 8: return dequant_by_dtype<8>(meta_dtype, out_dtype, form, vec);
+    default: return nullptr;
+  }
 }
 
 template <typename XT, typename MT, typename OT>
@@ -407,17 +653,30 @@ extern "C" int bte_mpq_matmul(const void* x, const void* packed, const void* sca
   }
 }
 
+// Kernel 2: one block a tile of DQ_TILE_ROWS packed rows x DQ_TILE_COLS
+// columns; ``row_map`` (int32, K) or null; ``aligned``: every pointer
+// 16-byte aligned, which with N a multiple of DQ_CPT takes the vector path.
 extern "C" int bte_dequant(const void* packed, const void* scales, const void* zeros,
-                           void* out, int K, int N, int w_bit, int group_size,
-                           int meta_dtype, int out_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (w_bit) {
-    case 1: return dequant_by_dtype<1>(meta_dtype, out_dtype, packed, scales, zeros, out, K, N, group_size, st);
-    case 2: return dequant_by_dtype<2>(meta_dtype, out_dtype, packed, scales, zeros, out, K, N, group_size, st);
-    case 4: return dequant_by_dtype<4>(meta_dtype, out_dtype, packed, scales, zeros, out, K, N, group_size, st);
-    case 8: return dequant_by_dtype<8>(meta_dtype, out_dtype, packed, scales, zeros, out, K, N, group_size, st);
-    default: return cudaErrorInvalidValue;
+                           const void* row_map, void* out, int K, int N, int w_bit,
+                           int group_size, int meta_dtype, int out_dtype, int form, int aligned,
+                           void* stream) {
+  const void* fn = dequant_fn(w_bit, meta_dtype, out_dtype, form, aligned && N % DQ_CPT == 0);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid((N + DQ_TILE_COLS - 1) / DQ_TILE_COLS,
+                  (K / (32 / w_bit) + DQ_TILE_ROWS - 1) / DQ_TILE_ROWS);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  size_t smem = 0;
+#if DQ_TMA_STORE
+  smem = (size_t)DQ_TILE_ROWS * (32 / w_bit) * DQ_TILE_COLS * (out_dtype == kF32 ? 4 : 2);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
+#endif
+  void* args[] = {&packed, &scales, &zeros, &row_map, &out, &K, &N, &group_size};
+  const cudaError_t err = cudaLaunchKernel(fn, grid, dim3(DQ_THREADS), args, smem,
+                                           static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // Kernel 7 over n_seg segments (host arrays of per-segment pointers, widths,

@@ -1,13 +1,15 @@
 """Kernels 1 and 2: the fused dequant-matmul and the streaming dequant.
 
-The counterpart of ``bitorch_engine_tpu/ops/pallas/dequant_matmul.py``.  The
-kernels take the "gptq" row order with symmetric float zeros (``w = q * s -
-z``); :func:`prepare_for_kernel` brings any :class:`MPQTensor` to that form
-once, at load time.  Kernel 1 has two bodies, picked up front by
-:func:`mpq_matmul_route`: bf16 activations run kernel 7's tensor-core body
-(``csrc/mbwq_matmul.cu``) with the tensor as its one segment, f32
-activations the scalar ``mpq_matmul_kernel`` (``csrc/dequant_matmul.cu``),
-as does kernel 2.
+The counterpart of ``bitorch_engine_tpu/ops/pallas/dequant_matmul.py``.
+Kernel 1 takes the "gptq" row order with symmetric float zeros (``w = q * s
+- z``) and a tensor's stored rows; :func:`prepare_for_kernel` brings any
+:class:`MPQTensor` to that form.  Kernel 1 has two bodies, picked up front
+by :func:`mpq_matmul_route`: bf16 activations run kernel 7's tensor-core
+body (``csrc/mbwq_matmul.cu``) with the tensor as its one segment, f32
+activations the scalar ``mpq_matmul_kernel`` (``csrc/dequant_matmul.cu``).
+Kernel 2 (``dequant_kernel``, same file) reads any gptq-order tensor as it
+is stored: sym or asym zeros (:data:`ZERO_FORMS`), with a ``q_perm`` whose
+rows it writes back in place.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; it runs the plain PyTorch version beside it only for
@@ -92,7 +94,8 @@ def prepare_for_kernel(
 
 def _check_weight(qt: MPQTensor, device: torch.device, act_bits=(16,)) -> None:
     """Raise unless ``qt`` is in kernel form, in one of the regimes
-    ``act_bits``, on ``device``, at shapes and alignments the kernels take."""
+    ``act_bits``, on ``device``, at shapes and alignments kernels 1, 5 and
+    7 take (kernel 2 checks with :func:`_check_dequant`)."""
     if qt.layout != "gptq" or qt.asym:
         raise ValueError(
             "the CUDA kernels take gptq-order symmetric tensors: "
@@ -102,8 +105,8 @@ def _check_weight(qt: MPQTensor, device: torch.device, act_bits=(16,)) -> None:
         raise ValueError(f"this kernel takes act_bits in {act_bits}, the tensor has {qt.act_bits}")
     if qt.g_idx is not None or qt.q_perm is not None:
         raise ValueError(
-            "the kernels take a tensor's stored rows: ops.mpq_linear gathers the activations "
-            "by q_perm (or scatters kernel 2's rows) and sends a ragged g_idx past the kernels"
+            "kernels 1, 5 and 7 take a tensor's stored rows: ops.mpq_linear gathers the "
+            "activations by q_perm and sends a ragged g_idx past the kernels"
         )
     if qt.w_bit not in packing.SUPPORTED_BITS:
         raise ValueError(f"w_bit={qt.w_bit} unsupported")
@@ -147,7 +150,7 @@ def _mpq_fn():
 def _dequant_fn():
     return _build.function(
         "dequant_matmul", "bte_dequant",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     )
 
 
@@ -219,30 +222,99 @@ def mpq_matmul(
 mpq_matmul.launches = 0
 
 
-def dequant_mpq_ref(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Plain version of kernel 2: ``q * s - z`` rounded once to f32 (as the
-    JAX package's jitted dequantize and the kernel's FMA do), cast."""
+# Kernel 2's zero forms (csrc/dequant_matmul.cu ZeroForm): "sym" the stored
+# float zeros, ``q·s − z``; "asym_kernel" an asym tensor's integer zeros in
+# the kernel form, ``q·s − bf(s·z)`` (``s·z`` rounded to the scales' dtype,
+# as ``prepare_for_kernel`` stores it); "asym_exact" the same zeros as
+# ``s·(q − z)``, one f32 rounding (the plain ``dequantize_mpq``)
+ZERO_FORMS = {"sym": 0, "asym_kernel": 1, "asym_exact": 2}
+
+
+def zero_form(qt: MPQTensor, exact_asym: bool = False) -> str:
+    """The zero form kernel 2 reads ``qt`` in: a sym tensor's float zeros,
+    or an asym tensor's integer zeros in the kernel form or, with
+    ``exact_asym``, as ``s·(q − z)``."""
+    if not qt.asym:
+        return "sym"
+    return "asym_exact" if exact_asym else "asym_kernel"
+
+
+def dequant_mpq_ref(
+    qt: MPQTensor, dtype: torch.dtype = torch.bfloat16, exact_asym: bool = False
+) -> torch.Tensor:
+    """Plain version of kernel 2, in each zero form (:func:`zero_form`):
+    the logical weight with the rows put back by ``q_perm``.  Sym and
+    ``exact_asym``: :func:`dequantize_mpq` (``q·s − z`` rounded once, as the
+    JAX package's jitted dequantize and the kernel's FMA; ``s·(q − z)``).
+    The asym kernel form: ``dequantize_mpq(prepare_for_kernel(qt))``, the
+    JAX TPU wrapper's arithmetic."""
+    if zero_form(qt, exact_asym) == "asym_kernel":
+        qt = prepare_for_kernel(qt)
     return dequantize_mpq(qt, dtype)
 
 
-def dequant_mpq(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def _check_dequant(qt: MPQTensor, device: torch.device) -> None:
+    """Raise unless kernel 2 takes ``qt`` on ``device``: gptq rows, any
+    width of :data:`packing.SUPPORTED_BITS`, sym or asym zeros, an int32
+    ``q_perm`` or none, no ``g_idx``, either regime."""
+    if qt.layout != "gptq":
+        raise ValueError("kernel 2 reads gptq row order: repack a TPU layout first")
+    if qt.g_idx is not None:
+        raise ValueError("a g_idx tensor takes the plain dequantize (ops.mpq_linear)")
+    if qt.w_bit not in packing.SUPPORTED_BITS:
+        raise ValueError(f"w_bit={qt.w_bit} unsupported")
+    k, n = qt.logical_shape
+    ppw = 32 // qt.w_bit
+    if qt.group_size % ppw or k % qt.group_size:
+        raise ValueError(f"K={k} and group_size={qt.group_size} must tile by {ppw}-code words")
+    if qt.packed.dtype != torch.int32 or qt.scales.dtype not in _DTYPE_CODE:
+        raise ValueError("packed must be int32, scales float32 or bfloat16")
+    g = k // qt.group_size
+    if qt.asym:
+        if qt.zeros.dtype != torch.int32 or n % ppw:
+            raise ValueError("asym zeros must be int32 words packed along N")
+        zshape = (g, n // ppw)
+    else:
+        if qt.zeros.dtype != qt.scales.dtype:
+            raise ValueError("scales and zeros must share one dtype, float32 or bfloat16")
+        zshape = (g, n)
+    parts = [("packed", qt.packed, (k // ppw, n)), ("scales", qt.scales, (g, n)),
+             ("zeros", qt.zeros, zshape)]
+    if qt.q_perm is not None:
+        if qt.q_perm.dtype != torch.int32:
+            raise ValueError("q_perm must be int32")
+        parts.append(("q_perm", qt.q_perm, (k,)))
+    for name, t, shape in parts:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the tensor's codes on {device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} tensor, got {tuple(t.shape)}")
+
+
+def dequant_mpq(
+    qt: MPQTensor, dtype: torch.dtype = torch.bfloat16, exact_asym: bool = False
+) -> torch.Tensor:
     """Kernel 2: the logical weight ``(K, N)`` in ``dtype``, bit-exact with
-    :func:`dequant_mpq_ref`.  It takes A16 and A8 tensors: prefill
-    reconstructs the weight in either regime."""
+    :func:`dequant_mpq_ref`.  It takes sym and asym tensors (the zero form
+    of :func:`zero_form`), with ``q_perm`` (its rows written back in place)
+    or without, in either regime: prefill reconstructs the weight in both."""
     dev = qt.packed.device
     if dev.type == "cpu":
-        return dequant_mpq_ref(qt, dtype)
+        return dequant_mpq_ref(qt, dtype, exact_asym)
     if dev.type != "cuda":
         raise ValueError(f"dequant_mpq: unsupported device {dev}")
-    _check_weight(qt, dev, act_bits=(16, 8))
+    _check_dequant(qt, dev)
     if dtype not in _DTYPE_CODE:
         raise ValueError("dequant_mpq writes float32 or bfloat16")
     k, n = qt.logical_shape
     out = torch.empty((k, n), dtype=dtype, device=dev)
+    # the vector path (16-byte loads and stores) wants every pointer aligned
+    aligned = all(t.data_ptr() % 16 == 0 for t in (qt.packed, qt.scales, qt.zeros, out))
     err = _dequant_fn()(
-        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(), out.data_ptr(),
-        k, n, qt.w_bit, qt.group_size,
-        _DTYPE_CODE[qt.scales.dtype], _DTYPE_CODE[dtype], _stream(dev),
+        qt.packed.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(),
+        None if qt.q_perm is None else qt.q_perm.data_ptr(), out.data_ptr(),
+        k, n, qt.w_bit, qt.group_size, _DTYPE_CODE[qt.scales.dtype], _DTYPE_CODE[dtype],
+        ZERO_FORMS[zero_form(qt, exact_asym)], int(aligned), _stream(dev),
     )
     _build.check("dequant_matmul", err, "dequant_mpq launch")
     dequant_mpq.launches += 1

@@ -20,20 +20,23 @@ nothing catches a kernel's error to fall back.
 Act-order tensors follow the JAX package's branch rules.  A tensor with
 ``q_perm`` (a canonicalized act-order GPTQ checkpoint: rows stored sorted by
 group) runs kernels 1 and 5 on its stored rows after a gather of the
-activations, ``x[..., q_perm]``, and kernel 2 on its stored rows followed by
-a scatter of the weight's rows back by ``q_perm``.  A tensor with a ragged
-``g_idx`` passes both kernels, as in the JAX package: the plain dequantize
-(on the card too) and ``torch.matmul``, or in the A8 regime the JAX
-package's simulation of its A8 kernel.  :data:`act_order_counts` counts the
-gathers, scatters and plain reconstructions.
+activations, ``x[..., q_perm]``; kernel 2 writes its stored row ``r`` to
+row ``q_perm[r]`` of the weight itself (the JAX package's scatter, in the
+same launch).  A tensor with a ragged ``g_idx`` passes both kernels, as in
+the JAX package: the plain dequantize (on the card too) and
+``torch.matmul``, or in the A8 regime the JAX package's simulation of its
+A8 kernel.  :data:`act_order_counts` counts the gathers, the kernel-2 calls
+that write through ``q_perm`` and the plain reconstructions.
 
-An asym tensor (a GPTQ export with ``qzeros``), or one in a TPU row
-layout, reaches the kernels as the JAX package's Pallas wrappers bring it
-there: :func:`_kernel_form` rewrites its stored rows on the fly with
-``prepare_for_kernel`` (``w = q·s − (s·z)``, the product ``s·z`` rounded
-to the scales' dtype), on the card only.  A symmetric gptq tensor goes to
-the kernels as it is, with no rewrite and no host sync.  On the CPU the
-plain dequantize keeps the JAX CPU path's ``s·(q − z)``.
+An asym tensor (a GPTQ export with ``qzeros``) computes on the card what
+the JAX package's Pallas wrappers compute, ``w = q·s − (s·z)`` with the
+product ``s·z`` rounded to the scales' dtype: kernels 1 and 5 run its
+stored rows rewritten on the fly by ``prepare_for_kernel``
+(:func:`_kernel_form`, as is a TPU row layout), and kernel 2 reads its
+packed integer zeros itself (that form, or DiodeMix's exact ``s·(q − z)``
+with ``exact_asym``), with no rewrite.  A symmetric gptq tensor goes to the
+kernels as it is, with no rewrite and no host sync.  On the CPU the plain
+dequantize keeps the JAX CPU path's ``s·(q − z)``.
 
 The backward (``_mpq_bwd`` of the JAX package) runs when the input or the
 tensor's grad shadow needs a gradient: ``grad_input = g @ Wᵀ`` with the
@@ -47,9 +50,10 @@ from __future__ import annotations
 import torch
 
 from ..qtensor import MPQTensor
+from . import packing
 from .cuda.dequant_matmul import dequant_mpq, mpq_matmul, prepare_for_kernel
 from .cuda.quad_matmul import mpq_matmul_a8, mpq_matmul_a8_ref
-from .quant import _unpermute, dequantize_mpq
+from .quant import dequantize_mpq
 
 # The A8 regime's row limit, the crossover the JAX package measured on a
 # TPU v5e.  It decides whether the activations are quantized to int8, so
@@ -63,22 +67,22 @@ MAX_FUSED_ROWS = 512
 MAX_FUSED_ROWS_A16 = 64
 
 # the act-order routes taken, by kind: "gather" (activations gathered by
-# q_perm for kernel 1 or 5), "scatter" (kernel 2's rows scattered back by
-# q_perm, on the card) and "plain" (a ragged g_idx tensor through the plain
-# dequantize); the caller resets them
+# q_perm for kernel 1 or 5), "scatter" (kernel-2 calls that write their rows
+# through q_perm, on the card: no launch of their own) and "plain" (a ragged
+# g_idx tensor through the plain dequantize); the caller resets them
 act_order_counts = {"gather": 0, "scatter": 0, "plain": 0}
 
 
 def _stored(qt: MPQTensor) -> MPQTensor:
-    """The tensor as its rows are stored (no ``q_perm``): what the kernels
-    take."""
+    """The tensor as its rows are stored (no ``q_perm``): what kernels 1
+    and 5 take."""
     return qt if qt.q_perm is None else qt.replace(q_perm=None)
 
 
 def _kernel_form(qt: MPQTensor) -> MPQTensor:
-    """The stored rows in the kernels' form: a symmetric gptq tensor as it
-    is; an asym one or a TPU row layout rewritten by ``prepare_for_kernel``
-    (``mpq_matmul_pallas`` / ``dequant_mpq_pallas`` do the same)."""
+    """The stored rows in kernels 1 and 5's form: a symmetric gptq tensor
+    as it is; an asym one or a TPU row layout rewritten by
+    ``prepare_for_kernel`` (``mpq_matmul_pallas`` does the same)."""
     qt = _stored(qt)
     if qt.asym or qt.layout != "gptq":
         qt = prepare_for_kernel(qt)
@@ -93,20 +97,28 @@ def _gather(x2d: torch.Tensor, qt: MPQTensor) -> torch.Tensor:
     return x2d.index_select(1, qt.q_perm)
 
 
-def reconstruct_weight(qt: MPQTensor, dtype: torch.dtype) -> torch.Tensor:
-    """Logical fp weight ``(K, N)``: on the card kernel 2 on the stored rows
-    in kernel form (an asym tensor rewritten on the fly, :func:`_kernel_form`),
-    scattered back by ``q_perm`` where the tensor has one, or the plain
-    dequantize for a ragged ``g_idx``; on the CPU the plain dequantize."""
+def _gptq_rows(qt: MPQTensor) -> MPQTensor:
+    """A TPU row layout repacked in gptq order (zeros untouched): what
+    kernel 2 reads; a gptq tensor as it is."""
+    if qt.layout == "gptq":
+        return qt
+    q = packing.unpack_rows_layout(qt.packed, qt.w_bit, qt.group_size, qt.layout)
+    return qt.replace(packed=packing.pack_rows(q, qt.w_bit), layout="gptq")
+
+
+def reconstruct_weight(qt: MPQTensor, dtype: torch.dtype, exact_asym: bool = False) -> torch.Tensor:
+    """Logical fp weight ``(K, N)``: on the card one kernel-2 launch, which
+    reads sym and asym zeros and writes the rows back through ``q_perm``
+    itself (an asym tensor in the kernel form ``q·s − (s·z)``, or as
+    ``s·(q − z)`` with ``exact_asym``); the plain dequantize for a ragged
+    ``g_idx`` on the card, and for every tensor on the CPU."""
     if qt.g_idx is not None:
         act_order_counts["plain"] += 1
     if qt.device.type != "cuda" or qt.g_idx is not None:
         return dequantize_mpq(qt, dtype)
-    w = dequant_mpq(_kernel_form(qt), dtype)
-    if qt.q_perm is None:
-        return w
-    act_order_counts["scatter"] += 1
-    return _unpermute(w, qt.q_perm)
+    if qt.q_perm is not None:
+        act_order_counts["scatter"] += 1
+    return dequant_mpq(_gptq_rows(qt), dtype, exact_asym)
 
 
 def weight_grad(x2d: torch.Tensor, g2d: torch.Tensor) -> torch.Tensor:
@@ -165,9 +177,9 @@ def mpq_route(qt: MPQTensor, m: int, device_type: str) -> str:
     regime's plain simulation, for a ragged ``g_idx``), ``"a16"`` (kernel
     1, on the card only) or ``"reconstruct"`` (the weight, then
     ``torch.matmul``).  Sym and asym tensors take the same routes: on the
-    card the kernels run an asym tensor's kernel form (:func:`_kernel_form`),
-    on the CPU kernel 5's plain version and the dequantize read it as it
-    is."""
+    card kernels 1 and 5 run an asym tensor's kernel form
+    (:func:`_kernel_form`) and kernel 2 reads its zeros in that form; on
+    the CPU kernel 5's plain version and the dequantize read it as it is."""
     if qt.act_bits == 8 and m <= MAX_FUSED_ROWS:
         return "a8_plain" if qt.g_idx is not None else "a8"
     if device_type == "cuda" and m <= MAX_FUSED_ROWS_A16 and qt.g_idx is None:

@@ -42,6 +42,17 @@ def _unpermute(w: torch.Tensor, q_perm: torch.Tensor) -> torch.Tensor:
     return w.index_select(0, inverse)
 
 
+def check_row_map(q_perm: torch.Tensor, k: int) -> None:
+    """Raise unless ``q_perm`` is a permutation of ``[0, k)``.  Kernel 2
+    writes stored row ``r`` to row ``q_perm[r]``, so a map that names a row
+    twice leaves another unwritten.  One host sync: it runs where a map
+    enters the program (a loaded record), never per call."""
+    if tuple(q_perm.shape) != (k,) or not torch.equal(
+        torch.sort(q_perm.long()).values, torch.arange(k, device=q_perm.device)
+    ):
+        raise ValueError(f"q_perm must be a permutation of the {k} input rows")
+
+
 def dequantize_mpq(qt: MPQTensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Reconstruct the fp weight ``(K, N)``; the three styles of the reference:
 

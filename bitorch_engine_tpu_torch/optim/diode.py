@@ -80,12 +80,12 @@ on.
 The step counter starts at 1, the bias corrections compute ``beta ** step``
 in f32 as the JAX package does; every update works in place under
 ``torch.no_grad``.  An MPQ weight is reconstructed by the JAX package's
-arithmetic, chosen by the tensor: a symmetric one through
-``ops.mpq_linear.reconstruct_weight`` (kernel 2 on the card, bit-exact with
-the plain dequantize), an asym one through the plain ``dequantize_mpq``,
-``s·(q − z)`` (kernel 2 would read its rewritten kernel form, ``q·s −
-(s·z)``, other numbers), on the card too.  :data:`update_counts` counts
-the two routes.
+arithmetic through ``ops.mpq_linear.reconstruct_weight(...,
+exact_asym=True)``: kernel 2 on the card, bit-exact with the plain
+``dequantize_mpq`` (a symmetric tensor's ``q·s − z``, an asym one's
+``s·(q − z)``, not the forward's kernel form ``q·s − (s·z)``), fsdp column
+parts and tp row shards included; a ragged ``g_idx`` the plain dequantize.
+:data:`update_counts` counts the two routes.
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ from ..layers.linear import MBWQLinear, MPQLinear
 from ..ops import packing
 from ..ops.mbwq_linear import reconstruct_mbwq
 from ..ops.mpq_linear import reconstruct_weight
-from ..ops.quant import dequantize_mpq, nv_tensor_quant, repack_mpq, slice_mpq_n
+from ..ops.quant import nv_tensor_quant, repack_mpq, slice_mpq_n
 from ..parallel.comm import all_gather
 from ..qtensor import BinaryEmbeddingQTensor, BinaryQTensor, IntQTensor, MPQTensor
 from ..utils.convert import quantized_layers
@@ -126,8 +126,8 @@ class DiodeHyperParams:
     galore: Optional[GaLoreConfig] = None
 
 
-# DiodeMix's MPQ reconstructions by route: "kernel" (``reconstruct_weight``,
-# kernel 2 on the card) and "plain" (``dequantize_mpq``: an asym tensor);
+# DiodeMix's MPQ reconstructions by route: "kernel" (``reconstruct_weight``'s
+# kernel 2 on the card) and "plain" (its plain dequantize: a ragged g_idx);
 # the caller resets them
 update_counts = {"kernel": 0, "plain": 0}
 
@@ -429,12 +429,8 @@ class DiodeMix:
                     split=None) -> None:
         qt = mod.qweight if split is None else _mpq_part(mod.qweight, split)
         update = size * self._direction(self._shadow_grad(mod), st, step, split)
-        if qt.asym:
-            update_counts["plain"] += 1
-            w = dequantize_mpq(qt, torch.float32) - update
-        else:
-            update_counts["kernel"] += 1
-            w = reconstruct_weight(qt, torch.float32) - update
+        update_counts["plain" if qt.g_idx is not None else "kernel"] += 1
+        w = reconstruct_weight(qt, torch.float32, exact_asym=True) - update
         zeros, z_int = qt.zeros, None
         if refresh:
             zeros, z_int = self._refreshed_zeros(name, qt, update, split)

@@ -29,7 +29,7 @@ from ..layers.linear import MBWQLinear, MPQLinear, QuantLayer
 from ..models.llama import MoEExpert
 from ..models.paged_kv import PagedKV
 from ..ops.cuda.dequant_matmul import prepare_for_kernel
-from ..ops.quant import pack_binary_weight, quantize_mpq
+from ..ops.quant import check_row_map, pack_binary_weight, quantize_mpq
 from ..qtensor import (
     BinaryEmbeddingQTensor,
     BinaryQTensor,
@@ -196,7 +196,7 @@ def _is_mpq(leaf: Any) -> bool:
 
 def _mpq(leaf: Any, device) -> MPQTensor:
     code_bits = getattr(leaf, "code_bits", None)
-    return MPQTensor(
+    qt = MPQTensor(
         grad_shadow=as_tensor(getattr(leaf, "grad_shadow", None), device),
         packed=as_tensor(leaf.packed, device),
         scales=as_tensor(leaf.scales, device),
@@ -211,6 +211,9 @@ def _mpq(leaf: Any, device) -> MPQTensor:
         act_bits=int(getattr(leaf, "act_bits", 16)),
         zeros_mid=bool(getattr(leaf, "zeros_mid", False)),
     )
+    if qt.q_perm is not None:
+        check_row_map(qt.q_perm, qt.in_features)
+    return qt
 
 
 def _is_mbwq(leaf: Any) -> bool:

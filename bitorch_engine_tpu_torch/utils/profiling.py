@@ -61,12 +61,13 @@ def _activities() -> list:
     return acts
 
 
-def profiler():
+def profiler(**kwargs):
     """A ``torch.profiler.profile`` over the CPU and the card (the CPU alone
-    without one); use it as a context manager, or ``start()`` / ``stop()``."""
+    without one), ``kwargs`` passed on (a ``schedule``, say); use it as a
+    context manager, or ``start()`` / ``stop()``."""
     from torch.profiler import profile
 
-    return profile(activities=_activities())
+    return profile(activities=_activities(), **kwargs)
 
 
 @contextlib.contextmanager

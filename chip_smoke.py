@@ -14,7 +14,10 @@ then, failing on the first check that does not hold:
    Llama-3-8B w4 g128 serving path (tolerances below), kernel 1 (the A16
    GEMV on kernel 7's tensor-core body) also at m 1-512 and at w1/w2/w4/w8
    with bf16 and f32 metadata, run twice bit for bit, and once with f32
-   activations (its scalar body), kernel 3 (the flash forward) also at the
+   activations (its scalar body), kernel 2 bit-equal in bf16 and f32 output
+   and in every zero form (sym; asym act-order tensors in the kernel form
+   and in DiodeMix's exact form) at those shapes and at every width, N not
+   a multiple of 4 included, kernel 3 (the flash forward) also at the
    370M training shape, with the share of its bf16 outputs that differ from
    the plain version (both round ``p`` to bf16 against the running max of
    the reference's key tile);
@@ -128,8 +131,10 @@ then, failing on the first check that does not hold:
     the unfused serving configuration (int8 embedding, w4 head padded to
     2048), ``prepare_params_for_cuda(model, bf16)``, runs a 256-token
     prefill of 8 prompts and 32 greedy decode steps (kernel 1 on the
-    gathered activations, kernel 2 with its rows scattered back: the
-    launches, gathers and scatters counted) and holds the last logits
+    gathered activations, kernel 2 writing its rows through ``q_perm``: the
+    launches and routes counted; a profiled prefill runs no gather,
+    index_select or scatter kernel that the same model without ``q_perm``
+    does not) and holds the last logits
     against the plain path on the card (2e-2: every projection as ``x @
     dequantize_mpq(qt)`` on its logical weight, so the gather and the
     scatter are held too); times a decode step of the same model with its
@@ -243,15 +248,16 @@ then, failing on the first check that does not hold:
 23. the fine-tune of a GPTQ-format checkpoint (``phase_ft``): 23a kernels
     1 (m 1-64) and 2 through ``mpq_linear``'s card routes on asym act-order
     tensors at the four 8B projection shapes, each against its plain
-    version on the same tensor rewritten to kernel form and against the
+    version (kernel 2 bit-equal in every zero form) and against the
     plain asym ``s(q - z)``, the asym route timed beside the sym route,
     and kernels 3 and 4 at the fine-tune's attention shape; 23b a seeded
     GPTQ export of Llama-3-8B (w4 g128 asym, act-order on every
     projection) at full width cut to 4 layers, loaded for training
     (``llama3_8b(asym=True, ...)``), 3 DiodeMix steps at 4 x 1024 with the
     integer zeros refreshed every step (launches of kernels 2, 3, 4, the
-    act-order routes and DiodeMix's plain asym reconstructions counted
-    exactly; the last step profiled), 16 greedy tokens by ``generate``
+    act-order routes and DiodeMix's routes counted exactly: 112 kernel-2
+    launches a step, DiodeMix's exact-form 28 among them, none plain; the
+    last step profiled; 23b starts under 6 GiB allocated), 16 greedy tokens by ``generate``
     (kernel 1 counted, the last logits within 2e-2 of the plain path), and
     the first step again through the plain versions from the same weights
     (loss rel 1e-3, gradients 3e-2); 23c two ranks sharing the card over
@@ -265,6 +271,10 @@ then, failing on the first check that does not hold:
 It prints one JSON line describing the kernels and, as its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --kernel2-ab PARENT`` runs only the comparison of
+kernel 2 with the body it replaced, built from ``PARENT`` (a checkout of
+an earlier commit), and with its ``-D`` variants: :func:`phase_kernel2_ab`.
 """
 
 from __future__ import annotations
@@ -280,7 +290,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -602,6 +612,7 @@ FT_FLASH = ("ft_b4_nh32_nkv8_s1024_d128", FT_BATCH, 32, NKV, FT_SEQ, HD)
 FT_PAR_LAYERS, FT_PAR_BATCH, FT_PAR_SEQ = 2, 2, 512
 FT_RAGGED_SHAPE, FT_RAGGED_LR = (14336, 4096), 0.6
 FT_WORLD_TIMEOUT = 600  # s
+FT_START_GIB = 6  # allocated at 23b's start: the earlier phases hold nothing of theirs
 
 
 class CheckFailed(RuntimeError):
@@ -697,9 +708,51 @@ def mpq_weight(torch, gen, k, n, w_bit=4, gs=128, meta=None):
     return prepare_for_kernel(quantize_mpq(w, w_bit=w_bit, group_size=gs), meta or torch.bfloat16)
 
 
+def check_dequant(torch, name, qt):
+    """Kernel 2 on ``qt`` bit-equal to its plain version in every zero form
+    the tensor has (a sym tensor's one; an asym tensor's kernel form and
+    its exact form), writing bf16 and f32; the rows of the checks."""
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
+        dequant_mpq, dequant_mpq_ref, zero_form,
+    )
+
+    k, n = qt.logical_shape
+    rows = []
+    for exact in ((False, True) if qt.asym else (False,)):
+        form = zero_form(qt, exact)
+        # the plain version rounds once to f32, then casts
+        want32 = dequant_mpq_ref(qt, torch.float32, exact)
+        for dtype in (torch.bfloat16, torch.float32):
+            got = dequant_mpq(qt, dtype, exact)
+            want = want32.to(dtype)
+            equal = torch.equal(got, want)
+            err = 0.0 if equal else (got.float() - want.float()).abs().max().item()
+            del got, want
+            log(f"kernel dequant_mpq {name:22s} K={k} N={n} {form:11s} {str(dtype)[6:]:8s} "
+                f"{str(qt.scales.dtype)[6:]} meta{' q_perm' if qt.q_perm is not None else ''}: "
+                f"bit-equal={equal}")
+            check(equal, f"dequant_mpq {name} {form} {dtype}: max|d| {err} against the plain version")
+            rows.append(dict(check=name, form=form, dtype=str(dtype)[6:], q_perm=qt.q_perm is not None,
+                             max_abs_err=err))
+        del want32
+    return rows
+
+
+def asym_weight(torch, gen, k, n, w_bit=4, gs=128, meta=None):
+    """A random ``normal × 0.02`` (K, N) weight from ``gen`` quantized asym
+    (packed integer zeros; scales in ``meta``, default bf16) with a random
+    ``q_perm``: an act-order GPTQ export's form, as kernel 2 reads it."""
+    from bitorch_engine_tpu_torch.ops.quant import quantize_mpq
+
+    w = torch.randn(k, n, device="cuda", generator=gen) * 0.02
+    qt = quantize_mpq(w, w_bit=w_bit, group_size=gs, asym=True)
+    perm = torch.randperm(k, device="cuda", generator=gen).to(torch.int32)
+    return qt.replace(scales=qt.scales.to(meta or torch.bfloat16), q_perm=perm)
+
+
 def mpq_kernel_rows(torch, name, x, qt, flush, out_dtype=None):
     """Kernel 1 on ``x`` and kernel 2 at one (K, N): each against its plain
-    version (``check_mpq``; kernel 2 bit-equal in bf16), then timed beside
+    version (``check_mpq``; kernel 2 bit-equal in bf16 and f32), then timed beside
     its plain version, ``torch.matmul`` on the bf16 weight (kernel 1) and
     its bound; kernel 1 timed writing ``out_dtype`` (default ``x.dtype``;
     f32 for a row-parallel shard's partial).  Returns (kernel 1's check,
@@ -710,10 +763,8 @@ def mpq_kernel_rows(torch, name, x, qt, flush, out_dtype=None):
 
     (k, n), m = qt.logical_shape, x.shape[0]
     main = check_mpq(torch, f"{name} K={k} N={n}", x, qt)
+    check_dequant(torch, name, qt)
     w_bf16 = dequant_mpq_ref(qt, torch.bfloat16)
-    equal = torch.equal(dequant_mpq(qt, torch.bfloat16), w_bf16)
-    log(f"kernel dequant_mpq {name:8s} K={k} N={n}  bit-equal={equal}")
-    check(equal, f"dequant_mpq {name}: not bit-equal to the plain version")
     meta = qt.packed.nbytes + qt.scales.nbytes + qt.zeros.nbytes
     out_bytes = 4 if out_dtype == torch.float32 else 2
     b1, by1 = bound(meta + x.nbytes + m * n * out_bytes, 2 * m * k * n)
@@ -748,7 +799,7 @@ def phase_kernels(torch, gen, flush):
     """Phases 2 and 3: every kernel against its plain version, then timed;
     kernel 1's A16 crossover against kernel 2 + ``torch.matmul``."""
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
-        dequant_mpq, dequant_mpq_ref, mpq_matmul, mpq_matmul_route,
+        dequant_mpq, mpq_matmul, mpq_matmul_route,
     )
     from bitorch_engine_tpu_torch.ops.mpq_linear import MAX_FUSED_ROWS_A16
 
@@ -761,6 +812,8 @@ def phase_kernels(torch, gen, flush):
     # generator, so the later phases get the inputs they got before these
     # were added (the MBWQ A8 path check moves with its prompt)
     k1_gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    # kernel 2's asym and act-order checks likewise
+    k2_gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
 
     # kernel 1 and 2 at the serving shapes (w4 g128, bf16 metadata, m = 8;
     # kernel 1 also at KERNEL1_CHECK_M rows, and timed against kernel 2 +
@@ -771,6 +824,7 @@ def phase_kernels(torch, gen, flush):
         x = torch.randn(8, k, device="cuda", generator=gen).to(torch.bfloat16)
         main, row1, row2 = mpq_kernel_rows(torch, name, x, qt, flush)
         kernel1_checks.append(main)
+        check_dequant(torch, f"{name} asym act-order", asym_weight(torch, k2_gen, k, n))
         for m in KERNEL1_CHECK_M:
             xm = torch.randn(m, k, device="cuda", generator=k1_gen).to(torch.bfloat16)
             kernel1_checks.append(check_mpq(torch, f"{name} K={k} N={n}", xm, qt))
@@ -793,17 +847,22 @@ def phase_kernels(torch, gen, flush):
         qt = mpq_weight(torch, gen, 1024, 512, w_bit)
         x = torch.randn(8, 1024, device="cuda", generator=gen).to(torch.bfloat16)
         kernel1_checks.append(check_mpq(torch, f"w{w_bit}g128 K=1024 N=512", x, qt))
-        equal = torch.equal(dequant_mpq(qt), dequant_mpq_ref(qt))
-        log(f"kernel dequant_mpq w{w_bit} K=1024 N=512  bit-equal={equal}")
-        check(equal, f"dequant_mpq w{w_bit}: not bit-equal")
+        check_dequant(torch, f"w{w_bit}g128", qt)
+    # kernel 2 on asym act-order tensors with f32 scales at every width
+    for w_bit, n in ((1, 544), (2, 528), (4, 520), (8, 516)):
+        check_dequant(torch, f"w{w_bit}g128 asym act-order",
+                      asym_weight(torch, k2_gen, 1024, n, w_bit, meta=torch.float32))
     # and kernel 1 at every width, bf16 and f32 metadata, a ragged N, m 1-512
     for w_bit, gs in KERNEL1_WIDTHS:
         for meta in (torch.bfloat16, torch.float32):
             qt = mpq_weight(torch, k1_gen, 1024, 516, w_bit, gs, meta)
+            check_dequant(torch, f"w{w_bit}g{gs} N=516", qt)
             for m in KERNEL1_CHECK_M:
                 x = torch.randn(m, 1024, device="cuda", generator=k1_gen).to(torch.bfloat16)
                 kernel1_checks.append(check_mpq(
                     torch, f"w{w_bit}g{gs} K=1024 N=516 {str(meta)[6:]} meta", x, qt))
+        # N not a multiple of 4: kernel 2 a column at a time
+        check_dequant(torch, f"w{w_bit}g{gs} ragged", mpq_weight(torch, k2_gen, 1024, 518, w_bit, gs))
 
     # kernel 3: the prefill's attention, a d = 64 shape and the train shape
     # the train shape draws from its own generator, so the later phases get
@@ -1326,6 +1385,10 @@ def phase_serving(torch, model, n_requests=N_REQUESTS, prompt_lens=(32, 512), ne
     wall = time.perf_counter() - t0
     counts = launch_counts()
     hook.remove()
+    for name in ("_decode", "_prefill_chunked", "_prefill_slots", "_admit"):
+        # the wrappers close over b: the cycle held the batcher and its model
+        # (Mixtral's 23 GiB from phase 18 on) until a collection ran
+        delattr(b, name)
 
     check(len(done) == n_requests, f"serving: {len(done)} of {n_requests} requests returned")
     for r, (_, n_new) in zip(done, queue):
@@ -2774,6 +2837,71 @@ def host_cost(prof, pairs, top=10):
     return out
 
 
+# device kernels that move rows by an index (torch's gathers, index_select,
+# scatters), matched in their names
+GATHER_KERNEL_KEYS = ("index", "gather", "scatter")
+
+
+def prefill_kernels(torch, model, prompt):
+    """Two prefills of ``prompt`` under one ``torch.profiler`` (through
+    ``utils.profiling``) on a schedule: the first a warm-up it records and
+    drops (a trace's first kernels can go missing: one read counted 222 of
+    kernel 2's 225 launches), the second read.  Every device kernel's
+    launches and ms by name in the second, and the launch counters over it."""
+    from bitorch_engine_tpu_torch.models.llama import init_kv_caches, prefill
+    from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
+
+    caches = init_kv_caches(model.cfg, BATCH, CACHE, device="cuda")
+    torch.cuda.synchronize()
+    with profiler(schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        prefill(model, prompt, caches)
+        torch.cuda.synchronize()
+        prof.step()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        prefill(model, prompt, caches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        prof.step()
+    table = {}
+    for k in device_summary(prof, wall, 1, top=None)["top_kernels"]:
+        launches, ms = table.get(k["name"], (0.0, 0.0))
+        table[k["name"]] = (launches + k["launches_per_call"], ms + k["ms_per_call"])
+    return table, counts
+
+
+def gather_check(torch, model, prompt, kernel2_launches):
+    """The act-order prefill's device kernels against the same model's with
+    ``q_perm`` stripped: kernel 2 launched ``kernel2_launches`` times in
+    each and traced as often (a trace that lost a kernel fails the check,
+    since its tables could then differ or agree by chance), and no gather,
+    index_select or scatter kernel beside it that the stripped model does
+    not run too (kernel 2 writes the rows in place)."""
+    out = {}
+    for name in ("act_order", "stripped"):
+        with q_perm_stripped(model) if name == "stripped" else nullcontext():
+            table, counts = prefill_kernels(torch, model, prompt)
+        k2 = [v for kname, v in table.items() if "dequant_kernel" in kname]
+        out[name] = dict(
+            kernel2_launches=counts["dequant_mpq"],
+            kernel2_traced=sum(v[0] for v in k2), kernel2_ms=sum(v[1] for v in k2),
+            gathers={kname: v[0] for kname, v in table.items()
+                     if any(key in kname.lower() for key in GATHER_KERNEL_KEYS)})
+        log(f"act-order prefill kernels ({name}): kernel 2 {out[name]['kernel2_launches']} "
+            f"launches ({out[name]['kernel2_traced']:.0f} traced), {out[name]['kernel2_ms']:.3f} ms; "
+            f"row-moving kernels {out[name]['gathers']}")
+        check(out[name]["kernel2_launches"] == kernel2_launches,
+              f"act-order prefill ({name}): {out[name]['kernel2_launches']} kernel-2 launches")
+        check(out[name]["kernel2_traced"] == out[name]["kernel2_launches"],
+              f"act-order prefill ({name}): the trace holds {out[name]['kernel2_traced']:.0f} of "
+              f"kernel 2's {out[name]['kernel2_launches']} launches (it lost kernels)")
+    check(out["act_order"]["gathers"] == out["stripped"]["gathers"],
+          "the act-order prefill runs gather / index_select / scatter kernels beside kernel 2")
+    return out
+
+
 @contextmanager
 def q_perm_stripped(model):
     """Every MPQ projection of ``model`` without its ``q_perm`` (the stored
@@ -2870,6 +2998,7 @@ def phase_ckpt_e2e(torch, gen, tmp):
     profiled = profile_serve(torch, model, prompt, PROFILE_STEPS)
     profiled["decode"]["idle_share_estimate_unprofiled"] = (
         1.0 - profiled["decode"]["device_busy_ms_per_call"] / step_ms)
+    profiled["prefill_gathers"] = gather_check(torch, model, prompt, proj + 1)
     decode = decode_breakdown(torch, model, prompt, cfg)
     reset_ckpt_counts()
     with plain_kernels(), plain_mpq_forward():
@@ -2967,14 +3096,17 @@ def record_bytes(qt):
                if t is not None)
 
 
-def act_order_tensor(torch, gen, perm_gen, k, n, w_bit, act_bits=16):
-    """An ingested act-order GPTQ tensor in kernel form (bf16 metadata)."""
+def act_order_tensor(torch, gen, perm_gen, k, n, w_bit, act_bits=16, ingested=False):
+    """An ingested act-order GPTQ tensor in kernel form (bf16 metadata);
+    with ``ingested``, also the tensor as ingested (asym, f32 scales),
+    first."""
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import prepare_for_kernel
     from bitorch_engine_tpu_torch.utils.ingest import mpq_from_gptq
 
     qt = mpq_from_gptq(**gptq_projection(torch, gen, perm_gen, k, n, w_bit), device="cuda")
     check(qt.q_perm is not None, "the act-order tensor was not canonicalized")
-    return prepare_for_kernel(qt, torch.bfloat16, act_bits)
+    kform = prepare_for_kernel(qt, torch.bfloat16, act_bits)
+    return (qt, kform) if ingested else kform
 
 
 def exl2_tensor(torch, gen, k, n):
@@ -3003,11 +3135,13 @@ def exl2_tensor(torch, gen, k, n):
 def phase_ckpt_kernels(torch, gen, flush):
     """Phase 17b: the act-order routes per layer, each against its plain
     version on the card: kernel 1 on the gathered activations (f32 rel <=
-    1e-3 before the cast), kernel 2 + the scatter (bit-equal to
-    ``dequantize_mpq``), kernel 5 on a w2 tensor in A8 (max|d| = 0), kernel 7
-    on an exl2 tensor with odd widths and a random ``q_invperm`` (f32 rel <=
-    1e-3), each timed beside the same kernel on the tensor without
-    ``q_perm`` (the gather or scatter is the difference); a ragged ``g_idx``
+    1e-3 before the cast), kernel 2 writing its rows through ``q_perm``
+    (bit-equal to ``dequantize_mpq``, and to its plain version in every
+    zero form of the tensor in kernel form and as ingested), kernel 5 on a
+    w2 tensor in A8 (max|d| = 0), kernel 7 on an exl2 tensor with odd
+    widths and a random ``q_invperm`` (f32 rel <= 1e-3), each timed beside
+    the same kernel on the tensor without ``q_perm`` (the gather, or kernel
+    2's row map, is the difference); a ragged ``g_idx``
     shown to take the plain route.  Kernel 5's act-order route and kernel
     7's exl2 tensor are also driven through their entry points
     (``mpq_linear``, an ``MBWQLinear`` layer), the counts set to 0 just
@@ -3027,7 +3161,10 @@ def phase_ckpt_kernels(torch, gen, flush):
     out = {"mpq_matmul": [], "dequant_mpq": [], "mpq_matmul_a8": [], "mbwq_matmul": [],
            "route_launches": {"mpq_matmul_a8": 0, "mbwq_matmul": 0}}
     for name, k, n in ACT_ORDER_SHAPES:
-        qt = act_order_tensor(torch, gen, perm_gen, k, n, 4)
+        ingested, qt = act_order_tensor(torch, gen, perm_gen, k, n, 4, ingested=True)
+        check_dequant(torch, f"act-order {name}", qt)
+        check_dequant(torch, f"act-order {name} as ingested", ingested)
+        del ingested
         stored = ml._stored(qt)
         for m in ACT_ORDER_M:
             x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
@@ -3066,8 +3203,9 @@ def phase_ckpt_kernels(torch, gen, flush):
                            plain_ms=time_ms(torch, lambda: dequantize_mpq(qt, dtype), flush=flush),
                            library_ms=None, bound_ms=bms, bound_by=bby)
             out["dequant_mpq"].append(row)
-            log(f"act-order kernel 2 + scatter {name} {row['dtype']}: bit-equal {equal}" + (
-                f"; {row['ms'] * 1e3:.2f} us, kernel alone {row['kernel_ms'] * 1e3:.2f} us, plain "
+            log(f"act-order kernel 2 (rows through q_perm) {name} {row['dtype']}: bit-equal to "
+                f"dequantize_mpq {equal}" + (
+                f"; {row['ms'] * 1e3:.2f} us, without the row map {row['kernel_ms'] * 1e3:.2f} us, plain "
                 f"{row['plain_ms'] * 1e3:.1f} us, bound {row['bound_ms'] * 1e3:.2f} us"
                 if "ms" in row else ""))
             check(equal, f"act-order kernel 2 {name} {dtype}: not bit-equal to dequantize_mpq")
@@ -5453,13 +5591,16 @@ def asym_tensor(torch, gen, perm_gen, k, n):
 
 def phase_ft_kernels(torch, flush):
     """Phase 23a: kernels 1 (m 1 / 8 / 64) and 2 through ``mpq_linear``'s
-    card routes on asym act-order tensors at the 8B up and down shapes,
-    each against its plain version on the same rewritten tensor (kernel 1
-    f32 within ``FT_KERNEL1_REL``, kernel 2 bit-equal) and against the
-    plain asym ``s·(q − z)`` (f32, pre-cast, within ``ASYM_PLAIN_REL``);
-    the asym route (rewrite, gather or scatter included) timed beside the
-    sym route on the same tensor already in kernel form; kernels 3 and 4
-    at the fine-tune's attention shape."""
+    card routes on asym act-order tensors at the 8B projection shapes,
+    each against its plain version (kernel 1 on the same rewritten tensor,
+    f32 within ``FT_KERNEL1_REL``; kernel 2 bit-equal in every zero form,
+    bf16 and f32, on the asym tensor and on it in kernel form) and against
+    the plain asym ``s·(q − z)`` (f32, pre-cast, within ``ASYM_PLAIN_REL``;
+    kernel 2's exact form, DiodeMix's, bit-equal to it); the asym route
+    (kernel 1's rewrite and gather included) timed beside the sym route on
+    the same tensor already in kernel form, kernel 2's exact f32 form
+    beside the plain ``dequantize_mpq`` it replaced in DiodeMix; kernels 3
+    and 4 at the fine-tune's attention shape."""
     from bitorch_engine_tpu_torch.ops import mpq_linear as ml
     from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
         dequant_mpq, dequant_mpq_ref, mpq_matmul_ref, prepare_for_kernel,
@@ -5508,20 +5649,40 @@ def phase_ft_kernels(torch, flush):
         check(launch_counts()["dequant_mpq"] == 1, f"23a {name}: kernel 2 did not launch")
         want = _unpermute(dequant_mpq_ref(kform, torch.bfloat16), qt.q_perm)
         equal = torch.equal(got, want)
+        check_dequant(torch, f"23a {name} asym", qt)
+        check_dequant(torch, f"23a {name} sym", sym)
         plain_rel = rel_err(ml.reconstruct_weight(qt, torch.float32), plain_w)
-        log(f"23a kernel 2 asym {name} K={k} N={n}: bit-equal to its plain version on the kernel "
-            f"form {equal}; f32 vs the plain asym s(q - z) max|d|/max|ref| {plain_rel:.3e}")
+        reset_launch_counts()
+        exact = ml.reconstruct_weight(qt, torch.float32, exact_asym=True)
+        check(launch_counts()["dequant_mpq"] == 1, f"23a {name}: the exact form did not launch")
+        exact_equal = torch.equal(exact, plain_w)
+        log(f"23a kernel 2 asym {name} K={k} N={n}: bit-equal to the stored rows' kernel form "
+            f"scattered back {equal}; f32 vs the plain asym s(q - z) max|d|/max|ref| "
+            f"{plain_rel:.3e}; the exact form (DiodeMix's) bit-equal to s(q - z) {exact_equal}")
         check(equal, f"23a kernel 2 {name}: not bit-equal to its plain version")
+        check(exact_equal, f"23a kernel 2 {name}: the exact form is not s(q - z)")
         check(plain_rel <= ASYM_PLAIN_REL, f"23a kernel 2 {name}: {plain_rel} > {ASYM_PLAIN_REL}")
-        b2, by2 = bound(meta + k * n * 2, 2 * k * n)
+        nbytes = record_bytes(qt)
+        b2, by2 = bound(nbytes + k * n * 2, 0)
         rows["dequant_mpq"].append(dict(
             shape=f"ft_{name}", K=k, N=n, max_abs_err=0.0, rel_err=0.0, plain_asym_rel=plain_rel,
             ms=time_ms(torch, lambda: ml.reconstruct_weight(qt, torch.bfloat16), flush=flush),
             sym_ms=time_ms(torch, lambda: ml.reconstruct_weight(sym, torch.bfloat16), flush=flush),
-            kernel_alone_ms=time_ms(torch, lambda: dequant_mpq(kform), flush=flush),
-            plain_ms=time_ms(torch, lambda: _unpermute(dequant_mpq_ref(kform), qt.q_perm),
-                             flush=flush),
+            kernel_alone_ms=time_ms(torch, lambda: dequant_mpq(ml._stored(qt)), flush=flush),
+            plain_ms=time_ms(torch, lambda: dequant_mpq_ref(qt), flush=flush),
             library_ms=None, bound_ms=b2, bound_by=by2))
+        # DiodeMix's reconstruction: the exact form in f32 (before: the plain
+        # dequantize_mpq, which is its plain version)
+        b3, by3 = bound(nbytes + k * n * 4, 0)
+        rows["dequant_mpq"].append(dict(
+            shape=f"ft_{name}_exact_f32", K=k, N=n, max_abs_err=0.0, rel_err=0.0,
+            plain_asym_rel=0.0,
+            ms=time_ms(torch, lambda: ml.reconstruct_weight(qt, torch.float32, exact_asym=True),
+                       flush=flush),
+            sym_ms=time_ms(torch, lambda: ml.reconstruct_weight(sym, torch.float32), flush=flush),
+            plain_ms=time_ms(torch, lambda: dequantize_mpq(qt, torch.float32), flush=flush),
+            library_ms=None, bound_ms=b3, bound_by=by3))
+        del exact
         del qt, sym, kform, plain_w, got, want
         torch.cuda.empty_cache()
     fgen = torch.Generator(device="cuda").manual_seed(SEED + 24)
@@ -5595,6 +5756,10 @@ def phase_ft_e2e(torch, tmp):
     from bitorch_engine_tpu_torch.training import make_train_step
     from bitorch_engine_tpu_torch.utils.profiling import device_summary, profiler
 
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"23b starts with {held:.2f} GiB allocated")
+    check(held < FT_START_GIB, f"23b starts with {held:.2f} GiB allocated (an earlier phase's "
+          f"tensors held; the bar is {FT_START_GIB} GiB)")
     path = str(pathlib.Path(tmp) / "llama3_8b_gptq_asym_finetune.safetensors")
     t0 = time.perf_counter()
     nbytes = write_gptq_checkpoint(torch, path, FT_LAYERS, SEED + 23, centered=True)
@@ -5620,10 +5785,12 @@ def phase_ft_e2e(torch, tmp):
     start = ft_state(model)
     hp = DiodeHyperParams(lr=FT_LR, zeros_update_interval=1)
     step = make_train_step(model, lm_loss, hp)
-    per_step = {**counts_with(dequant_mpq=3 * n_proj, flash_attention=2 * FT_LAYERS,
+    # kernel 2: forward, remat and backward, then DiodeMix's exact form,
+    # each writing its rows through q_perm
+    per_step = {**counts_with(dequant_mpq=4 * n_proj, flash_attention=2 * FT_LAYERS,
                               flash_attention_bwd=2 * FT_LAYERS),
-                "act_order_gather": 0, "act_order_scatter": 3 * n_proj, "act_order_plain": 0,
-                "diode_kernel": 0, "diode_plain": n_proj}
+                "act_order_gather": 0, "act_order_scatter": 4 * n_proj, "act_order_plain": 0,
+                "diode_kernel": n_proj, "diode_plain": 0}
     losses, step_ms, counts = [], [], []
     prof_summary = grads = after1 = None
     for i in range(FT_STEPS):
@@ -6038,6 +6205,211 @@ def phase_ft(torch, dequant_rows):
     return rows, out
 
 
+# kernel 2's variants, each built from this checkout's
+# csrc/dequant_matmul.cu with the -D flags its source note names (the
+# port's build defines none): 2 packed rows, 8 columns, or both a thread;
+# the tile staged in shared memory and written by TMA bulk stores
+KERNEL2_VARIANTS = {
+    "rows2": ("-DDQ_RPT=2",),
+    "cols8": ("-DDQ_CPT=8",),
+    "rows2_cols8": ("-DDQ_RPT=2", "-DDQ_CPT=8"),
+    "tma_store": ("-DDQ_TMA_STORE=1",),
+}
+
+
+def dequant_bodies(parent, tmp):
+    """Kernel 2's bodies beside the port's own, each ``bte_dequant`` loaded
+    with ctypes: "first", the body before the redesign, from ``parent``'s
+    source (a checkout of the commit before it), and every
+    :data:`KERNEL2_VARIANTS` entry from this checkout's, all built at once
+    with the port's nvcc flags into ``tmp``."""
+    from bitorch_engine_tpu_torch.ops.cuda import _build
+
+    rel = pathlib.Path("bitorch_engine_tpu_torch") / "csrc" / "dequant_matmul.cu"
+    builds = {"first": (pathlib.Path(parent) / rel, ())}
+    builds.update({name: (ROOT / rel, flags) for name, flags in KERNEL2_VARIANTS.items()})
+    t0 = time.perf_counter()
+    jobs = {}
+    for name, (src, flags) in builds.items():
+        lib = pathlib.Path(tmp) / f"libdequant_{name}.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, proc) in jobs.items():
+        out = proc.communicate(timeout=900)[0]
+        check(proc.returncode == 0, f"nvcc on kernel 2's {name} body:\n{out}")
+        fn = ctypes.CDLL(str(lib)).bte_dequant
+        # the first body took no row map, zero form or alignment
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                       if name == "first" else
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    log(f"kernel 2's first body and {len(KERNEL2_VARIANTS)} variants built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return fns
+
+
+@contextmanager
+def dequant_body(fn):
+    """Kernel 2's wrapper launching ``fn`` (a variant's ``bte_dequant``)
+    in the port's body's place."""
+    dm = importlib.import_module("bitorch_engine_tpu_torch.ops.cuda.dequant_matmul")
+    saved = dm._dequant_fn
+    dm._dequant_fn = lambda: fn
+    try:
+        yield
+    finally:
+        dm._dequant_fn = saved
+
+
+def first_route(torch, fn, qt, dtype, exact):
+    """The route each reconstruction took before the redesign, as a
+    function: the stored rows (rewritten to the kernel form if asym)
+    through the first body, then scattered back by ``q_perm``; DiodeMix's
+    exact form the plain ``dequantize_mpq``."""
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import _DTYPE_CODE, prepare_for_kernel
+    from bitorch_engine_tpu_torch.ops.quant import _unpermute, dequantize_mpq
+
+    if exact and qt.asym:
+        return lambda: dequantize_mpq(qt, dtype)
+    k, n = qt.logical_shape
+
+    def run():
+        kt = qt.replace(q_perm=None)
+        if kt.asym:
+            kt = prepare_for_kernel(kt)
+        out = torch.empty((k, n), dtype=dtype, device="cuda")
+        err = fn(kt.packed.data_ptr(), kt.scales.data_ptr(), kt.zeros.data_ptr(), out.data_ptr(),
+                 k, n, kt.w_bit, kt.group_size, _DTYPE_CODE[kt.scales.dtype], _DTYPE_CODE[dtype],
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the first body's launch returned CUDA error {err}")
+        return out if qt.q_perm is None else _unpermute(out, qt.q_perm)
+    return run
+
+
+def kernel2_ab_paths():
+    """The paths the redesign of kernel 2 is read on: each a list of rows
+    (shape name, K, N, tensor kind, output dtype name, exact form,
+    launches a pass).  Kinds: "sym" (w4 g128, bf16 metadata, as served),
+    "act_order" (an ingested act-order export in kernel form: sym, bf16
+    metadata, q_perm), "asym" (an ingested act-order export as the
+    fine-tune loads it: asym, f32 scales, q_perm)."""
+    ckpt = [(f"ao_{name}", k, n, "act_order", "bf16", False, CKPT_LAYERS)
+            for name, (k, n) in CKPT_PROJ.items()]
+    return {
+        "8b_prefill": [(name, k, n, "sym", "bf16", False, PER_PASS[name])
+                       for name, (k, n) in PROJ_SHAPES.items()],
+        "mixtral_prefill": [(name, *(PROJ_SHAPES.get(name) or MOE_SHAPES[name]), "sym", "bf16",
+                             False, w) for name, w in MOE_PER_PASS.items()],
+        "act_order_8b_prefill": ckpt + [("head", *PROJ_SHAPES["head"], "sym", "bf16", False, 1)],
+        "finetune_step": [(f"ft_{name}", k, n, "asym", "bf16", False, 3 * FT_LAYERS * FT_PER_LAYER[name])
+                          for name, k, n in FT_SHAPES]
+        + [(f"ft_{name}_exact", k, n, "asym", "f32", True, FT_LAYERS * FT_PER_LAYER[name])
+           for name, k, n in FT_SHAPES],
+        "train_370m_step": [(name, k, n, "sym", "bf16", False, 3 * TRAIN_LAYERS)
+                            for name, (k, n) in TRAIN_SHAPES.items()]
+        + [(f"{name}_f32", k, n, "sym", "f32", False, TRAIN_LAYERS)
+           for name, (k, n) in TRAIN_SHAPES.items()],
+    }
+
+
+def phase_kernel2_ab(torch, parent):
+    """Kernel 2's redesign against its first body (built from ``parent``,
+    a checkout of the commit before) in one run, on the paths of
+    :func:`kernel2_ab_paths`: at each row the route before (the first
+    body, with the asym rewrite and the scatter around it, or the plain
+    dequantize in DiodeMix) and the route now (one ``reconstruct_weight``
+    call: one launch) bit-equal, and each of :data:`KERNEL2_VARIANTS` in the
+    port's body's place bit-equal to it; then all timed in turns (before,
+    now, the variants, the variants backwards, now, before; CUDA events,
+    median of 20, L2 flushed).  Per pass: the launches' sums beside the
+    bound (bytes at 3.35 TB/s)."""
+    from bitorch_engine_tpu_torch.ops import mpq_linear as ml
+    from bitorch_engine_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    perm_gen = torch.Generator().manual_seed(SEED + 19)
+    # every width, zero form, row map and path (16-byte and a column at a
+    # time) against the plain version first
+    for w_bit, gs, n in ((1, 128, 544), (2, 128, 528), (4, 128, 520), (8, 64, 516)):
+        for meta in (torch.bfloat16, torch.float32):
+            check_dequant(torch, f"w{w_bit}g{gs} asym", asym_weight(torch, gen, 1024, n, w_bit, gs,
+                                                                    meta))
+            check_dequant(torch, f"w{w_bit}g{gs} ragged", mpq_weight(torch, gen, 1024, 518, w_bit, gs,
+                                                                     meta))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    variants = list(KERNEL2_VARIANTS)
+    tensors, rows = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kernel2_") as tmp:
+        bodies = dequant_bodies(parent, tmp)
+        for path, path_rows in kernel2_ab_paths().items():
+            for name, k, n, kind, dt, exact, _ in path_rows:
+                if name in rows:
+                    continue
+                key = (k, n, kind)
+                if key not in tensors:
+                    if kind == "sym":
+                        tensors[key] = mpq_weight(torch, gen, k, n, 4)
+                    elif kind == "act_order":
+                        tensors[key] = act_order_tensor(torch, gen, perm_gen, k, n, 4)
+                    else:
+                        tensors[key] = asym_tensor(torch, gen, perm_gen, k, n)
+                qt, dtype = tensors[key], dtypes[dt]
+                before = first_route(torch, bodies["first"], qt, dtype, exact)
+                now = lambda qt=qt, dtype=dtype, exact=exact: ml.reconstruct_weight(  # noqa: E731
+                    qt, dtype, exact_asym=exact)
+                want = now()
+                check(torch.equal(before(), want),
+                      f"kernel 2 A/B {name}: the new route differs from the first")
+                for v in variants:
+                    with dequant_body(bodies[v]):
+                        check(torch.equal(now(), want),
+                              f"kernel 2 A/B {name}: the {v} variant differs from the port's body")
+                del want
+
+                def timed(body):
+                    if body == "first":
+                        return time_ms(torch, before, flush=flush)
+                    if body == "now":
+                        return time_ms(torch, now, flush=flush)
+                    with dequant_body(bodies[body]):
+                        return time_ms(torch, now, flush=flush)
+
+                order = ["first", "now", *variants, *variants[::-1], "now", "first"]
+                turns = [(body, timed(body)) for body in order]
+                ms = {body: statistics.mean(t for b_, t in turns if b_ == body) for body in order}
+                b, by = bound(record_bytes(qt) + k * n * dtype.itemsize, 0)
+                rows[name] = dict(shape=name, K=k, N=n, kind=kind, form=dm.zero_form(qt, exact),
+                                  dtype=dt, first_ms=ms["first"], ms=ms["now"],
+                                  variant_ms={v: ms[v] for v in variants},
+                                  turns_ms=[t for _, t in turns], bound_ms=b, bound_by=by)
+                log(f"kernel 2 A/B {name:18s} K={k:5d} N={n:6d} {kind:9s} "
+                    f"{rows[name]['form']:11s} {dt}: first route {ms['first'] * 1e3:9.2f} us, now "
+                    f"{ms['now'] * 1e3:9.2f} us, bound {b * 1e3:8.2f} us; variants "
+                    + ", ".join(f"{v} {ms[v] * 1e3:.2f}" for v in variants)
+                    + f" us (turns {' / '.join(f'{t * 1e3:.2f}' for _, t in turns)})")
+    del flush, tensors
+    torch.cuda.empty_cache()
+    out = {}
+    for path, path_rows in kernel2_ab_paths().items():
+        def total(get):
+            return sum(w * get(rows[name]) for name, *_, w in path_rows)
+
+        tot = {key: total(lambda r, key=key: r[key]) for key in ("first_ms", "ms", "bound_ms")}
+        var = {v: total(lambda r, v=v: r["variant_ms"][v]) for v in variants}
+        out[path] = dict(tot, variant_ms=var, launches=sum(r[-1] for r in path_rows),
+                         share_of_bound=tot["bound_ms"] / tot["ms"],
+                         first_share_of_bound=tot["bound_ms"] / tot["first_ms"])
+        log(f"kernel 2 A/B {path:22s} {out[path]['launches']:4d} launches: first route "
+            f"{tot['first_ms']:.4f} ms, now {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({out[path]['first_share_of_bound']:.1%} -> {out[path]['share_of_bound']:.1%} of it); "
+            + ", ".join(f"{v} {t:.4f} ms" for v, t in var.items()))
+    return dict(paths=out, rows=rows)
+
+
 def shape_row(rows, shape):
     """The row of ``rows`` measured at ``shape`` (a KeyError names a
     missing one)."""
@@ -6063,6 +6435,16 @@ def kernel_line(name, rows, launches, weights, per, check_text):
 
 
 def main() -> int:
+    """The whole run; ``--kernel2-ab PARENT`` instead times kernel 2's
+    redesign against its first body, built from ``PARENT`` (a checkout of
+    the commit before it), and prints its rows and passes as one JSON line
+    before the last."""
+    ab_parent = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernel2-ab":
+        ab_parent = sys.argv[2]
+    elif len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py [--kernel2-ab PARENT_CHECKOUT]", file=sys.stderr)
+        return 2
     if not (ROOT / "bitorch_engine_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(bitorch_engine_tpu_torch/ is missing)", file=sys.stderr)
@@ -6089,6 +6471,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, one process per source)")
+    if ab_parent is not None:
+        print(json.dumps(dict(phase_kernel2_ab(torch, ab_parent), card=smi)), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")  # 256 MiB > L2
@@ -6413,9 +6802,9 @@ def main() -> int:
         per="one traced run of the serve twin (22d), both forms of kernel 6")
     # the fine-tune (phase 23): launches per train step of the asym
     # act-order 8B path (kernels 2, 3, 4; 23b) and per decode step of its
-    # generation (kernel 1), priced at 23a's rows (the asym route: the
-    # rewrite and the gather or scatter included; each row also holds the
-    # sym route's time, sym_ms)
+    # generation (kernel 1), priced at 23a's rows (the asym route: kernel
+    # 1's rewrite and gather included, kernel 2 one launch; each row also
+    # holds the sym route's time, sym_ms)
     fe = ft["e2e"]
     per_train = fe["per_step"]
     ft_passes = {
@@ -6424,9 +6813,10 @@ def main() -> int:
                        f"one decode step of the fine-tuned model's generation (b{FT_BATCH}, "
                        f"{FT_LAYERS} layers)"),
         "dequant_mpq": (per_train["dequant_mpq"],
-                        {f"ft_{s}": 3 * FT_LAYERS * c for s, c in FT_PER_LAYER.items()},
+                        {**{f"ft_{s}": 3 * FT_LAYERS * c for s, c in FT_PER_LAYER.items()},
+                         **{f"ft_{s}_exact_f32": FT_LAYERS * c for s, c in FT_PER_LAYER.items()}},
                         f"one train step of the fine-tune ({FT_BATCH} x {FT_SEQ}, {FT_LAYERS} "
-                        "layers: forward, remat, backward)"),
+                        "layers: forward, remat, backward in bf16, DiodeMix's exact form in f32)"),
         "flash_attention": (per_train["flash_attention"], {FT_FLASH[0]: 2 * FT_LAYERS},
                             "one train step of the fine-tune (forward and remat a layer)"),
         "flash_attention_bwd": (per_train["flash_attention_bwd"], {FT_FLASH[0]: FT_LAYERS},

@@ -140,18 +140,20 @@ def test_routes_follow_the_jax_branch_rules(act_bits, m, device, act_order, rout
 
 
 def test_card_reconstruction_scatters_kernel2_rows(monkeypatch):
-    """The card's route of kernel 2 (stood in for by its plain version on the
-    stored rows): the rows scattered back by ``q_perm`` give the plain
+    """The card's route of kernel 2 (stood in for by its plain version,
+    which checks what the kernel checks): one call on the tensor with its
+    ``q_perm``, whose rows the kernel writes back in place, gives the plain
     dequantize bit for bit; a ragged tensor skips the kernel."""
     _, qt, _ = _act_order(seed=7)
     _, ragged, _ = _act_order(seed=8, ragged=True)
     qt = prepare_for_kernel(qt)
     calls = []
 
-    def kernel2(t, dtype):
-        assert t.q_perm is None and t.g_idx is None  # what _check_weight asks
+    def kernel2(t, dtype, exact_asym=False):
+        tdm._check_dequant(t, torch.device("cpu"))
+        assert t.q_perm is not None and t.g_idx is None
         calls.append(t)
-        return tdm.dequant_mpq_ref(t, dtype)
+        return tdm.dequant_mpq_ref(t, dtype, exact_asym)
 
     monkeypatch.setattr(tlin, "dequant_mpq", kernel2)
     monkeypatch.setattr(MPQTensor, "device", property(lambda self: torch.device("cuda")))
@@ -165,14 +167,18 @@ def test_card_reconstruction_scatters_kernel2_rows(monkeypatch):
 
 
 def test_kernels_refuse_act_order_tensors():
-    """``_check_weight`` raises for a tensor that still carries ``q_perm`` or
-    ``g_idx``; ``concat_mpq`` refuses act-order parts (they load unfused)."""
+    """``_check_weight`` (kernels 1, 5 and 7) raises for a tensor that still
+    carries ``q_perm`` or ``g_idx``, kernel 2's check for a ``g_idx``;
+    ``concat_mpq`` refuses act-order parts (they load unfused)."""
     _, qt, _ = _act_order(seed=9)
     _, ragged, _ = _act_order(seed=10, ragged=True)
     for t in (prepare_for_kernel(qt), prepare_for_kernel(ragged)):
         with pytest.raises(ValueError, match="q_perm"):
             tdm._check_weight(t, torch.device("cpu"))
     tdm._check_weight(tlin._stored(prepare_for_kernel(qt)), torch.device("cpu"))
+    tdm._check_dequant(prepare_for_kernel(qt), torch.device("cpu"))
+    with pytest.raises(ValueError, match="g_idx"):
+        tdm._check_dequant(prepare_for_kernel(ragged), torch.device("cpu"))
     with pytest.raises(ValueError, match="act-order"):
         concat_mpq([qt, qt])
 

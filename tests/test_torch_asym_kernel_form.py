@@ -1,16 +1,18 @@
 """Asym MPQ tensors on the card's kernel routes, against the JAX package.
 
-On the card ``ops.mpq_linear`` brings an asym tensor's stored rows to the
-kernels' form on the fly (``_kernel_form``: ``prepare_for_kernel``'s
-asym→sym rewrite, ``zeros = (s · z) in the scales' dtype``, ``w = q·s −
-zeros``), as the JAX package's ``mpq_matmul_pallas`` / ``dequant_mpq_pallas``
-do through ``relayout_tpu``.  Here the kernels' plain versions stand in for
-them, fed what the card's routes feed the kernels, and each is held **bit
-for bit** to the JAX package's ``dequantize_mpq(relayout_tpu(qt))`` (the
-TPU's arithmetic), for w 2/4/8, with and without ``q_perm``:
+On the card an asym tensor computes the JAX package's TPU arithmetic
+(``mpq_matmul_pallas`` / ``dequant_mpq_pallas`` through ``relayout_tpu``:
+``zeros = (s · z) in the scales' dtype``, ``w = q·s − zeros``): kernels 1
+and 5 run its stored rows rewritten on the fly (``_kernel_form``:
+``prepare_for_kernel``'s asym→sym rewrite), and kernel 2 receives the asym
+tensor itself, ``q_perm`` and all, and reads its packed zeros in that form.
+Here the kernels' plain versions stand in for them, fed what the card's
+routes feed the kernels, and each is held **bit for bit** to the JAX
+package's ``dequantize_mpq(relayout_tpu(qt))``, for w 2/4/8, with and
+without ``q_perm``:
 
-* kernel 2's route (``reconstruct_weight``: the stored rows in kernel form,
-  scattered back by ``q_perm``);
+* kernel 2's route (``reconstruct_weight``: one call on the asym tensor,
+  its rows written back through ``q_perm``);
 * kernel 1's plain version on the gathered activations and the kernel form;
 * kernel 5's plain version (the A8 regime; an 8-bit tensor takes kernel
   1, the A16 branch its TPU kernel runs).
@@ -20,8 +22,9 @@ it refuses one) reads the same weight: its distance to the port's kernel
 form is printed and held within ``PALLAS_REL`` of its largest element (its
 TPU layouts fold a bias into the zeros, one rounding more).  A symmetric gptq
 tensor passes the rewrite untouched (no ``prepare_for_kernel`` call, no
-``torch.equal`` host sync), and ``_check_weight`` still refuses an asym
-tensor handed to a wrapper directly.
+``torch.equal`` host sync), kernel 2's route rewrites nothing, and
+``_check_weight`` still refuses an asym tensor handed to kernels 1 and 5
+directly.
 """
 
 import jax
@@ -73,10 +76,10 @@ def on_card(monkeypatch):
     place (which checks what the kernel checks)."""
     calls = []
 
-    def kernel2(t, dtype):
-        tdm._check_weight(t, torch.device("cpu"), act_bits=(16, 8))
+    def kernel2(t, dtype, exact_asym=False):
+        tdm._check_dequant(t, torch.device("cpu"))
         calls.append(t)
-        return tdm.dequant_mpq_ref(t, dtype)
+        return tdm.dequant_mpq_ref(t, dtype, exact_asym)
 
     monkeypatch.setattr(tlin, "dequant_mpq", kernel2)
     monkeypatch.setattr(MPQTensor, "device", property(lambda self: torch.device("cuda")))
@@ -88,7 +91,8 @@ def on_card(monkeypatch):
 def test_kernel2_route_on_the_kernel_form_is_the_tpu_arithmetic(on_card, w_bit, perm):
     jqt, qt, _ = _pair(w_bit, perm)
     got = tlin.reconstruct_weight(qt, torch.float32)
-    assert len(on_card) == 1 and not on_card[0].asym
+    assert len(on_card) == 1 and on_card[0].asym
+    assert (on_card[0].q_perm is not None) == perm and on_card[0].packed is qt.packed
     assert torch.equal(got, _jax_weight(jqt))
     # the CPU's plain route keeps s·(q − z): the JAX CPU path's numbers
     want_cpu = torch.from_numpy(np.asarray(jquant.dequantize_mpq(jqt, dtype=jnp.float32)))
@@ -134,16 +138,17 @@ def test_distance_to_the_jax_pallas_dequant(w_bit):
     jqt, qt, _ = _pair(w_bit, perm=False)
     pallas = torch.from_numpy(np.asarray(dequant_mpq_pallas(jqt, dtype=jnp.float32,
                                                            interpret=True)))
-    got = tdm.dequant_mpq_ref(tlin._kernel_form(qt), torch.float32)
+    got = tdm.dequant_mpq_ref(qt, torch.float32)  # the asym tensor in kernel 2's kernel form
     dist = float((got - pallas).abs().max() / pallas.abs().max())
     print(f"w{w_bit}: max|port kernel form - JAX Pallas interpret| / max|w| = {dist:.3e}")
     assert dist <= PALLAS_REL, f"w{w_bit}: {dist:.3e} > {PALLAS_REL}"
 
 
-def test_only_asym_and_tpu_layouts_are_rewritten(monkeypatch):
-    """A symmetric gptq tensor reaches the kernels as it is: no
+def test_only_asym_and_tpu_layouts_are_rewritten(monkeypatch, on_card):
+    """A symmetric gptq tensor reaches kernels 1 and 5 as it is: no
     ``prepare_for_kernel``, no ``torch.equal`` (a host sync on the card);
-    an asym one is rewritten once a call."""
+    an asym one is rewritten once a call.  Kernel 2's route rewrites
+    neither: the kernel receives the asym ``q_perm`` tensor."""
     rewrites, syncs = [], []
     real_prepare, real_equal = tlin.prepare_for_kernel, torch.equal
     monkeypatch.setattr(tlin, "prepare_for_kernel",
@@ -158,9 +163,20 @@ def test_only_asym_and_tpu_layouts_are_rewritten(monkeypatch):
         assert not rewrites and not syncs
     kform = tlin._kernel_form(asym)
     assert len(rewrites) == 1 and not kform.asym and kform.q_perm is None
+    rewrites.clear()
+    tlin.reconstruct_weight(asym, torch.bfloat16)
+    assert not rewrites and not syncs
+    assert len(on_card) == 1 and on_card[0].asym and on_card[0].q_perm is asym.q_perm
 
 
 def test_check_weight_still_refuses_asym():
+    """Kernels 1 and 5 refuse an asym tensor; kernel 2 takes it, ``q_perm``
+    included."""
     _, qt, _ = _pair(4, perm=False)
     with pytest.raises(ValueError, match="symmetric"):
         tdm._check_weight(qt, torch.device("cpu"))
+    with pytest.raises(ValueError, match="symmetric"):
+        tdm._check_weight(qt.replace(act_bits=8), torch.device("cpu"), act_bits=(8,))
+    _, perm, _ = _pair(4, perm=True)
+    for t in (qt, perm):
+        tdm._check_dequant(t, torch.device("cpu"))

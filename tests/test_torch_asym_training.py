@@ -12,8 +12,9 @@ every step) by both packages' ``make_train_step``, from the same parameters
 batches.  The bars are the sym train-step test's: the losses within 1e-6
 relative (f32 on both sides, sums in another order), and after the steps
 every packed code and every integer zero equal.  DiodeMix reconstructs
-each asym weight through the plain ``dequantize_mpq`` (the JAX update's
-arithmetic): its route counter says so.
+each asym weight with the JAX update's arithmetic, ``s·(q − z)``, on
+``reconstruct_weight``'s kernel route (``exact_asym``: kernel 2 on the
+card, the plain dequantize here): its route counter says so.
 """
 
 import jax
@@ -102,8 +103,8 @@ def test_asym_act_order_training_matches_jax():
     before = dict(tdiode.update_counts)
     losses = [float(step(torch.from_numpy(t).long())["loss"]) for t in _batches()]
     np.testing.assert_allclose(losses, want_losses, rtol=1e-6)
-    assert tdiode.update_counts["plain"] - before["plain"] == STEPS * len(projections)
-    assert tdiode.update_counts["kernel"] == before["kernel"]
+    assert tdiode.update_counts["kernel"] - before["kernel"] == STEPS * len(projections)
+    assert tdiode.update_counts["plain"] == before["plain"]
     end = end["params"]
     for i, layer in enumerate(model.layers):
         for part, names in PROJ:

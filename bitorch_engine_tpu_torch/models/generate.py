@@ -17,17 +17,31 @@ the model (``models/llama_sharding.shard_llama_params``) and caches, and the
 sampled tokens are gathered over dp before the queue, the slots and the
 allocator move, so every rank moves them on the same values (the JAX
 package's ``_rep_out`` / ``_local``).
+
+The batcher records coarse spans (``utils/profiling.annotate``), a handful
+an iteration, profiled or not: ``bie.batcher.admit`` (one ``_admit``
+call), ``bie.batcher.wave`` (one admission wave: its uids, ``bucket``,
+``rows``, ``true_tokens``, ``padded_tokens``, ``pages``),
+``bie.batcher.reserve`` (the wave's page reservations: ``pages``,
+``pool_full``), ``bie.batcher.chunk`` (one prefill forward: ``index``,
+``true_tokens``; an unchunked wave's forward is chunk 0),
+``bie.batcher.step`` (one ``step()`` / ``step_chunk()``: the active uids)
+and ``bie.batcher.read`` (the host read that ends a wave or a step, where
+the host waits on the device: a span's own host time is its wall less its
+reads).  Counts of a wave cover all its rows; a chunk's, this rank's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..parallel.comm import all_gather
+from ..utils.profiling import annotate
 from .llama import LlamaModel, decode_step, init_kv_caches
 from .paged_kv import PageAllocator, init_paged_kv_caches
 
@@ -91,6 +105,18 @@ def generate(
 # ---------------------------------------------------------------------------
 # Continuous batching
 # ---------------------------------------------------------------------------
+
+
+def _step_span(fn):
+    """Run a batcher's decode call inside a ``bie.batcher.step`` span that
+    carries the active requests' uids."""
+
+    @functools.wraps(fn)
+    def step(self, *args):
+        with annotate("bie.batcher.step", [r.uid for r in self.active if r is not None]):
+            return fn(self, *args)
+
+    return step
 
 
 @dataclasses.dataclass
@@ -225,12 +251,22 @@ class ContinuousBatcher:
         head's bucket is prefilled in one batched call (pulled from anywhere
         in the queue, so one long head prompt does not split the short ones
         behind it); the head always goes first."""
-        while self.queue and any(r is None for r in self.active):
-            free = [s for s in range(self.num_slots) if self.active[s] is None]
-            bucket = self._bucket(len(self.queue[0].prompt))
-            batch: List[Request] = []
-            rest: List[Request] = []
-            pool_full = False
+        with annotate("bie.batcher.admit"):
+            while self.queue and any(r is None for r in self.active):
+                with annotate("bie.batcher.wave") as wave:
+                    if not self._admit_wave(wave):
+                        return  # pool exhausted: wait for decode to free pages
+
+    def _admit_wave(self, wave) -> bool:
+        """One admission wave (``wave``: its span's record); False when the
+        page pool could take none of it."""
+        free = [s for s in range(self.num_slots) if self.active[s] is None]
+        bucket = self._bucket(len(self.queue[0].prompt))
+        batch: List[Request] = []
+        rest: List[Request] = []
+        pool_full = False
+        pages = 0
+        with annotate("bie.batcher.reserve") as reserve:
             for req in self.queue:
                 take = (not pool_full and len(batch) < len(free)
                         and self._bucket(len(req.prompt)) == bucket)
@@ -239,37 +275,44 @@ class ContinuousBatcher:
                     # out mid-decode; strict FIFO: a full pool blocks the
                     # whole wave rather than let small requests starve the head
                     need = min(len(req.prompt) + req.max_new_tokens, self.max_len)
-                    if not self.allocator.alloc(free[len(batch)], need):
+                    if self.allocator.alloc(free[len(batch)], need):
+                        pages += self.allocator.pages_needed(need)
+                    else:
                         pool_full = True
                         take = False
                 if take:
                     batch.append(req)
                 else:
                     rest.append(req)
-            self.queue = rest
-            if not batch:
-                return  # pool exhausted: wait for decode to free pages
-            slots = free[: len(batch)]
-            padded = np.zeros((len(batch), bucket), np.int32)
-            for i, req in enumerate(batch):
-                padded[i, : len(req.prompt)] = req.prompt
-            true_lens = np.asarray([len(r.prompt) for r in batch], np.int32)
-            if self.prefill_chunk is not None and bucket > self.prefill_chunk:
-                logits = self._prefill_chunked(padded, slots, true_lens)
-            else:
-                logits = self._prefill_slots(padded, slots, true_lens)
-            nxt_np = self._wave_tokens(logits, slots)
-            for i, (s, req) in enumerate(zip(slots, batch)):
-                nxt = int(nxt_np[i])
-                req.generated.append(nxt)
-                if nxt == self.eos_id or req.max_new_tokens <= 1:
-                    req.done = True
-                    if self.paged:
-                        self.allocator.free_slot(s)
-                    continue  # the slot stays free for the next admit round
-                self.active[s] = req
-                self.positions[s] = len(req.prompt)
-                self.cur_tok[s, 0] = nxt
+            reserve.counts.update(pages=pages, pool_full=int(pool_full))
+        self.queue = rest
+        true_lens = np.asarray([len(r.prompt) for r in batch], np.int32)
+        wave.uids = tuple(r.uid for r in batch)
+        wave.counts.update(bucket=bucket, rows=len(batch), true_tokens=int(true_lens.sum()),
+                           padded_tokens=bucket * len(batch), pages=pages)
+        if not batch:
+            return False
+        slots = free[: len(batch)]
+        padded = np.zeros((len(batch), bucket), np.int32)
+        for i, req in enumerate(batch):
+            padded[i, : len(req.prompt)] = req.prompt
+        if self.prefill_chunk is not None and bucket > self.prefill_chunk:
+            logits = self._prefill_chunked(padded, slots, true_lens, wave.uids)
+        else:
+            logits = self._prefill_slots(padded, slots, true_lens, wave.uids)
+        nxt_np = self._wave_tokens(logits, slots)
+        for i, (s, req) in enumerate(zip(slots, batch)):
+            nxt = int(nxt_np[i])
+            req.generated.append(nxt)
+            if nxt == self.eos_id or req.max_new_tokens <= 1:
+                req.done = True
+                if self.paged:
+                    self.allocator.free_slot(s)
+                continue  # the slot stays free for the next admit round
+            self.active[s] = req
+            self.positions[s] = len(req.prompt)
+            self.cur_tok[s, 0] = nxt
+        return True
 
     def _mine(self, slots) -> List[int]:
         """Positions in ``slots`` of this rank's slots."""
@@ -278,16 +321,18 @@ class ContinuousBatcher:
     def _gather_slots(self, local: torch.Tensor) -> np.ndarray:
         """``local`` (..., this rank's slots) → (..., every slot) on the
         host, gathered over dp in slot order."""
-        local = local.cpu()
-        if self._dp > 1:
-            local = all_gather(self.mesh, local, "dp", dim=-1)
+        with annotate("bie.batcher.read"):
+            local = local.cpu()
+            if self._dp > 1:
+                local = all_gather(self.mesh, local, "dp", dim=-1)
         return local.numpy()
 
     def _wave_tokens(self, logits: torch.Tensor, slots) -> np.ndarray:
         """Each wave request's greedy token: this rank's rows of ``logits``
         are its own slots'; over dp each rank places them in a vector of
         its slot range, and :func:`_gather_slots` puts every slot's together."""
-        local = torch.argmax(logits, dim=-1).cpu()
+        with annotate("bie.batcher.read"):
+            local = torch.argmax(logits, dim=-1).cpu()
         if self._dp == 1:
             return local.numpy()
         mine = torch.zeros(self._hi - self._lo, dtype=local.dtype)
@@ -329,24 +374,26 @@ class ContinuousBatcher:
         return padded[mine], [slots[i] for i in mine], true_lens[mine]
 
     @torch.no_grad()
-    def _prefill_slots(self, padded, slots, true_lens) -> torch.Tensor:
+    def _prefill_slots(self, padded, slots, true_lens, uids=()) -> torch.Tensor:
         """Prefill n slots in one batched forward at window 0; returns each
         request's last-prompt-token logits (n, vocab), this rank's slots'
         rows only."""
         padded, slots, true_lens = self._wave_rows(padded, slots, true_lens)
         if not slots:
             return torch.zeros((0, self.cfg.vocab_size), device=self.device)
-        slots_t, rows = self._wave_tables(slots)
-        wave = self._wave_caches(slots_t, rows)
-        n = len(slots)
-        cache_len = [0] * n if self.paged else 0
-        logits, _ = self.model(self._tensor(padded), kv_caches=wave, cache_len=cache_len,
-                               attn_window=0)
-        self._wave_put(wave, slots_t)
-        return logits[torch.arange(n, device=self.device), self._tensor(true_lens).long() - 1]
+        with annotate("bie.batcher.chunk", uids, index=0, true_tokens=int(true_lens.sum())):
+            slots_t, rows = self._wave_tables(slots)
+            wave = self._wave_caches(slots_t, rows)
+            n = len(slots)
+            cache_len = [0] * n if self.paged else 0
+            logits, _ = self.model(self._tensor(padded), kv_caches=wave, cache_len=cache_len,
+                                   attn_window=0)
+            self._wave_put(wave, slots_t)
+            return logits[torch.arange(n, device=self.device),
+                          self._tensor(true_lens).long() - 1]
 
     @torch.no_grad()
-    def _prefill_chunked(self, padded, slots, true_lens) -> torch.Tensor:
+    def _prefill_chunked(self, padded, slots, true_lens, uids=()) -> torch.Tensor:
         """Sequential C-token prefill chunks over one admission wave.  Chunk
         j writes positions [j·C, (j+1)·C) and attends over the cached prefix
         window plus the chunk, causal.  Returns each request's
@@ -362,15 +409,18 @@ class ContinuousBatcher:
         last = torch.zeros((n, self.cfg.vocab_size), dtype=torch.float32, device=self.device)
         for j in range(bucket // C):
             base = j * C
-            window = 0 if j == 0 else self._window(base)
-            positions = (base + torch.arange(C, device=self.device)).expand(n, C)
-            wave = self._wave_caches(slots_t, rows)
-            logits, _ = self.model(self._tensor(padded[:, base : base + C]), positions=positions,
-                                   kv_caches=wave, cache_len=base, attn_window=window)
-            self._wave_put(wave, slots_t)
-            idx = torch.clamp(tl - 1 - base, 0, C - 1)
-            inrange = (tl - 1 >= base) & (tl - 1 < base + C)
-            last = torch.where(inrange[:, None], logits[ar, idx], last)
+            true = int(np.clip(true_lens - base, 0, C).sum())
+            with annotate("bie.batcher.chunk", uids, index=j, true_tokens=true):
+                window = 0 if j == 0 else self._window(base)
+                positions = (base + torch.arange(C, device=self.device)).expand(n, C)
+                wave = self._wave_caches(slots_t, rows)
+                logits, _ = self.model(self._tensor(padded[:, base : base + C]),
+                                       positions=positions, kv_caches=wave, cache_len=base,
+                                       attn_window=window)
+                self._wave_put(wave, slots_t)
+                idx = torch.clamp(tl - 1 - base, 0, C - 1)
+                inrange = (tl - 1 >= base) & (tl - 1 < base + C)
+                last = torch.where(inrange[:, None], logits[ar, idx], last)
         return last
 
     def _window(self, needed: int) -> int:
@@ -393,6 +443,7 @@ class ContinuousBatcher:
         nxt = sample_token(logits, self._gen, self.temperature)
         return torch.where(active, nxt, 0)
 
+    @_step_span
     def step(self):
         """One decode step across all active slots."""
         lo, hi = self._lo, self._hi
@@ -416,6 +467,7 @@ class ContinuousBatcher:
                 if self.paged:
                     self.allocator.free_slot(s)
 
+    @_step_span
     def step_chunk(self, n_steps: int):
         """``n_steps`` decode steps with the tokens kept on the device, then
         one host sync to settle EOS, quotas and evictions."""

@@ -33,6 +33,14 @@ Tensor parallelism inside the experts (``mesh`` with a ``tp`` axis,
 ``inter / tp`` columns and its down the matching rows; the down's f32
 partials are summed over tp (``comm.all_reduce_diff``) and cast once, and
 the dispatch buffer's gradient is summed over tp, Megatron's rule.
+
+While a profiler records, :func:`moe_mlp` opens fine spans
+(``utils/profiling``) for its phases: ``bie.moe.route``,
+``bie.moe.dispatch`` (the one-hot, ``cumsum`` and ``index_put``),
+``bie.moe.experts`` (the expert loop) and ``bie.moe.combine``.  Every
+call counts, from the host's shapes alone, ``moe_routed_rows`` (``T·k``)
+and ``moe_computed_rows`` (``E_local·C``, the rows the experts compute),
+on the innermost span open: a profiler's phase span, else the caller's.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from torch.nn import functional as F
 from ..device import resolve_device
 from ..parallel.comm import all_gather_diff, all_reduce_diff, sum_grad
 from ..qtensor import MPQTensor
+from ..utils.profiling import annotate, count
 from .mpq_linear import mpq_linear
 from .quant import quantize_mpq
 
@@ -191,48 +200,55 @@ def moe_mlp(
     x2 = x.reshape(-1, d)
     T, E = x2.shape[0], router_w.shape[1]
 
-    probs, gate_idx = route(x2, router_w, top_k)
-    gate_vals = probs.gather(1, gate_idx)  # (T, k)
-    if renormalize:
-        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-
-    if capacity_factor is None:
-        C = T
-    else:
-        C = max(1, min(T, math.ceil(T * top_k / E * capacity_factor)))
-    flat_e = gate_idx.reshape(-1)  # (T·k,) row-major by token
-    onehot = F.one_hot(flat_e, E).to(torch.int32)
-    pos_in_e = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_e[:, None])[:, 0]
-    keep = pos_in_e < C
-    pos_c = torch.where(keep, pos_in_e, C - 1)
-
-    tok_idx = torch.arange(T, device=x.device).repeat_interleave(top_k)
-    routed = torch.where(keep[:, None], x2[tok_idx], 0).to(x2.dtype)
-    # kept routes own distinct slots; a dropped one adds an exact zero
-    disp = torch.zeros((E, C, d), dtype=x2.dtype, device=x.device).index_put(
-        (flat_e, pos_c), routed, accumulate=True)
-
     n_ep = _axis_size(mesh, "ep")
     local = num_experts(experts)
     if local * n_ep != E:
         raise ValueError(f"{local} experts a rank over ep={n_ep} for a router of {E}")
     e0 = 0 if n_ep == 1 else mesh.coord("ep") * local
-    if n_ep > 1:
-        disp = sum_grad(mesh, disp, "ep")  # each rank's backward fills its experts' rows
-    if _axis_size(mesh, "tp") > 1:
-        disp = sum_grad(mesh, disp, "tp")  # each rank's gate and up give their columns' share
-    outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e0 + e], mesh)
-                        for e in range(local)])
-    if n_ep > 1:
-        outs = all_gather_diff(mesh, outs, "ep", dim=0)  # (E, C, d), every rank alike
 
-    w = (gate_vals.reshape(-1) * keep).float()
-    contrib = (outs[flat_e, pos_c].float() * w[:, None]).reshape(T, top_k, d)
-    y = contrib[:, 0]
-    for j in range(1, top_k):
-        y = y + contrib[:, j]
+    with annotate("bie.moe.route", fine=True):
+        probs, gate_idx = route(x2, router_w, top_k)
+        gate_vals = probs.gather(1, gate_idx)  # (T, k)
+        if renormalize:
+            gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    frac = F.one_hot(gate_idx, E).float().sum(dim=1).mean(dim=0)  # (E,)
-    aux = torch.sum(frac * probs.mean(dim=0)) * E / top_k
-    dropped = 1.0 - keep.float().mean()
+    if capacity_factor is None:
+        C = T
+    else:
+        C = max(1, min(T, math.ceil(T * top_k / E * capacity_factor)))
+    with annotate("bie.moe.dispatch", fine=True):
+        count("moe_routed_rows", T * top_k)
+        flat_e = gate_idx.reshape(-1)  # (T·k,) row-major by token
+        onehot = F.one_hot(flat_e, E).to(torch.int32)
+        pos_in_e = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_e[:, None])[:, 0]
+        keep = pos_in_e < C
+        pos_c = torch.where(keep, pos_in_e, C - 1)
+
+        tok_idx = torch.arange(T, device=x.device).repeat_interleave(top_k)
+        routed = torch.where(keep[:, None], x2[tok_idx], 0).to(x2.dtype)
+        # kept routes own distinct slots; a dropped one adds an exact zero
+        disp = torch.zeros((E, C, d), dtype=x2.dtype, device=x.device).index_put(
+            (flat_e, pos_c), routed, accumulate=True)
+
+    with annotate("bie.moe.experts", fine=True):
+        count("moe_computed_rows", local * C)
+        if n_ep > 1:
+            disp = sum_grad(mesh, disp, "ep")  # each rank's backward fills its experts' rows
+        if _axis_size(mesh, "tp") > 1:
+            disp = sum_grad(mesh, disp, "tp")  # each rank's gate and up give their columns' share
+        outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e0 + e], mesh)
+                            for e in range(local)])
+        if n_ep > 1:
+            outs = all_gather_diff(mesh, outs, "ep", dim=0)  # (E, C, d), every rank alike
+
+    with annotate("bie.moe.combine", fine=True):
+        w = (gate_vals.reshape(-1) * keep).float()
+        contrib = (outs[flat_e, pos_c].float() * w[:, None]).reshape(T, top_k, d)
+        y = contrib[:, 0]
+        for j in range(1, top_k):
+            y = y + contrib[:, j]
+
+        frac = F.one_hot(gate_idx, E).float().sum(dim=1).mean(dim=0)  # (E,)
+        aux = torch.sum(frac * probs.mean(dim=0)) * E / top_k
+        dropped = 1.0 - keep.float().mean()
     return y.to(x.dtype).reshape(*lead, d), aux, dropped

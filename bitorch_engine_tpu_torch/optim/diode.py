@@ -86,6 +86,12 @@ exact_asym=True)``: kernel 2 on the card, bit-exact with the plain
 ``s·(q − z)``, not the forward's kernel form ``q·s − (s·z)``), fsdp column
 parts and tp row shards included; a ragged ``g_idx`` the plain dequantize.
 :data:`update_counts` counts the two routes.
+
+While a profiler records, each MPQ and MBWQ weight's update opens fine
+spans (``utils/profiling``): ``bie.diode.update`` (AdamW's direction,
+through GaLore where it applies), ``bie.diode.reconstruct`` (the f32
+weight) and ``bie.diode.repack`` (zeros refreshed, codes packed, the fsdp
+gathers); the other regimes' updates share one ``bie.diode.update``.
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ from ..ops.quant import nv_tensor_quant, repack_mpq, slice_mpq_n
 from ..parallel.comm import all_gather
 from ..qtensor import BinaryEmbeddingQTensor, BinaryQTensor, IntQTensor, MPQTensor
 from ..utils.convert import quantized_layers
+from ..utils.profiling import annotate
 from .galore import (
     GaLoreConfig,
     GaLoreState,
@@ -401,14 +408,15 @@ class DiodeMix:
             self._update_mpq(name, mod, self.state[name], step, size, refresh, split(name))
         for name, mod in self.mbwq:
             self._update_mbwq(mod, self.state[name], step, size, refresh, split(name))
-        for name, mod in self.binary:
-            self._update_binary(mod, self.state[name], split(name))
-        for name, mod in self.intq:
-            self._update_intq(mod, self.state[name], size, split(name))
-        for name, mod in self.bemb:
-            self._update_binary_embedding(mod, self.state[name], split(name))
-        for name, p in self.fp:
-            self._update_fp(p, self.state[name], step, size, split(name))
+        with annotate("bie.diode.update", fine=True):
+            for name, mod in self.binary:
+                self._update_binary(mod, self.state[name], split(name))
+            for name, mod in self.intq:
+                self._update_intq(mod, self.state[name], size, split(name))
+            for name, mod in self.bemb:
+                self._update_binary_embedding(mod, self.state[name], split(name))
+            for name, p in self.fp:
+                self._update_fp(p, self.state[name], step, size, split(name))
 
     def _group_mean(self, x: torch.Tensor, group_size: int, split: Optional[Split]) -> torch.Tensor:
         """The group means of this rank's share of ``x``; a column share's
@@ -428,22 +436,25 @@ class DiodeMix:
     def _update_mpq(self, name: str, mod: MPQLinear, st, step: int, size: float, refresh: bool,
                     split=None) -> None:
         qt = mod.qweight if split is None else _mpq_part(mod.qweight, split)
-        update = size * self._direction(self._shadow_grad(mod), st, step, split)
+        with annotate("bie.diode.update", fine=True):
+            update = size * self._direction(self._shadow_grad(mod), st, step, split)
         update_counts["plain" if qt.g_idx is not None else "kernel"] += 1
-        w = reconstruct_weight(qt, torch.float32, exact_asym=True) - update
-        zeros, z_int = qt.zeros, None
-        if refresh:
-            zeros, z_int = self._refreshed_zeros(name, qt, update, split)
-            mod._zeros_mid = False  # the zeros are no longer mid * scales
-        if qt.asym:
-            if z_int is None:
-                z_int = packing.unpack_cols(zeros, qt.w_bit)
-            packed = repack_mpq(w, qt.replace(zeros=zeros), unpacked_zeros=z_int.float())
-        else:
-            packed = repack_mpq(w, qt.replace(zeros=zeros))
-        mod.packed.copy_(self._gather(packed, split))
-        if refresh:
-            mod.zeros.copy_(self._gather(zeros, split))
+        with annotate("bie.diode.reconstruct", fine=True):
+            w = reconstruct_weight(qt, torch.float32, exact_asym=True) - update
+        with annotate("bie.diode.repack", fine=True):
+            zeros, z_int = qt.zeros, None
+            if refresh:
+                zeros, z_int = self._refreshed_zeros(name, qt, update, split)
+                mod._zeros_mid = False  # the zeros are no longer mid * scales
+            if qt.asym:
+                if z_int is None:
+                    z_int = packing.unpack_cols(zeros, qt.w_bit)
+                packed = repack_mpq(w, qt.replace(zeros=zeros), unpacked_zeros=z_int.float())
+            else:
+                packed = repack_mpq(w, qt.replace(zeros=zeros))
+            mod.packed.copy_(self._gather(packed, split))
+            if refresh:
+                mod.zeros.copy_(self._gather(zeros, split))
 
     def _refreshed_zeros(self, name: str, qt: MPQTensor, update: torch.Tensor, split):
         """This rank's share of the refreshed zeros of ``qt`` (this rank's
@@ -482,23 +493,26 @@ class DiodeMix:
         if split is not None:
             qt = qt.replace(segments=tuple(_mpq_part(s, split) for s in qt.segments),
                             grad_shadow=None)
-        update = size * self._direction(self._shadow_grad(mod), st, step, split)
-        w = reconstruct_mbwq(qt, torch.float32) - update
-        if qt.q_perm is not None:
-            perm = qt.q_perm.long()
-            w, update = w[perm], update[perm]
-        off = 0
-        for seg_mod, seg in zip(mod.segments, qt.segments):
-            rows = slice(off, off + seg.in_features)
-            zeros = seg.zeros
-            if refresh:
-                zeros = zeros + self._group_mean(update[rows], seg.group_size,
-                                                 split).to(zeros.dtype)
-                seg_mod.zeros.copy_(self._gather(zeros, split))
-                seg_mod._zeros_mid = False
-            seg_mod.packed.copy_(self._gather(repack_mpq(w[rows], seg.replace(zeros=zeros)),
-                                              split))
-            off += seg.in_features
+        with annotate("bie.diode.update", fine=True):
+            update = size * self._direction(self._shadow_grad(mod), st, step, split)
+        with annotate("bie.diode.reconstruct", fine=True):
+            w = reconstruct_mbwq(qt, torch.float32) - update
+        with annotate("bie.diode.repack", fine=True):
+            if qt.q_perm is not None:
+                perm = qt.q_perm.long()
+                w, update = w[perm], update[perm]
+            off = 0
+            for seg_mod, seg in zip(mod.segments, qt.segments):
+                rows = slice(off, off + seg.in_features)
+                zeros = seg.zeros
+                if refresh:
+                    zeros = zeros + self._group_mean(update[rows], seg.group_size,
+                                                     split).to(zeros.dtype)
+                    seg_mod.zeros.copy_(self._gather(zeros, split))
+                    seg_mod._zeros_mid = False
+                seg_mod.packed.copy_(
+                    self._gather(repack_mpq(w[rows], seg.replace(zeros=zeros)), split))
+                off += seg.in_features
 
     def _update_binary(self, mod: nn.Module, st, split=None) -> None:
         hp = self.hp

@@ -36,6 +36,12 @@ its shards' gradients, its replicated parameters' gradients are whole and
 equal on every tp rank (the model's backward sums the column-parallel
 inputs' cotangents over tp), so nothing is summed over tp here; DiodeMix
 keeps each shard's moments on its rank.
+
+Each step is a coarse span ``bie.train.step`` (``utils/profiling``);
+while a profiler records, fine spans ``bie.train.forward`` (``loss_fn``),
+``bie.train.backward`` (the backward and the sums over dp and sp) and
+``bie.train.optimizer`` (the DiodeMix step, with its own
+``bie.diode.*`` spans) nest under it.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from torch import nn
 
 from .optim import DiodeHyperParams, DiodeMix
 from .parallel.comm import all_reduce
+from .utils.profiling import annotate
 
 # the mesh axes a training batch is split over: rows over dp, positions over sp
 DATA_AXES = ("dp", "sp")
@@ -125,16 +132,20 @@ def make_train_step(
     optimizer = create_train_state(model, hp, seed, mesh)
 
     def train_step(batch) -> Dict[str, Any]:
-        optimizer.zero_grad()
-        if mesh is not None:
-            batch = shard_batch(batch, mesh)
-        out = loss_fn(model, batch)
-        loss, aux = out if isinstance(out, tuple) else (out, None)
-        loss.backward()
-        if mesh is not None:
-            sum_gradients(optimizer, mesh)
-            loss = _sum_over_data_axes(mesh, loss.detach().float().clone())
-        optimizer.step()
+        with annotate("bie.train.step"):
+            optimizer.zero_grad()
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
+            with annotate("bie.train.forward", fine=True):
+                out = loss_fn(model, batch)
+            loss, aux = out if isinstance(out, tuple) else (out, None)
+            with annotate("bie.train.backward", fine=True):
+                loss.backward()
+                if mesh is not None:
+                    sum_gradients(optimizer, mesh)
+                    loss = _sum_over_data_axes(mesh, loss.detach().float().clone())
+            with annotate("bie.train.optimizer", fine=True):
+                optimizer.step()
         if isinstance(aux, torch.Tensor):
             aux = aux.detach()
         return {"loss": loss.detach(), "aux": aux}

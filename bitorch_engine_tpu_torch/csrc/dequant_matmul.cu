@@ -65,6 +65,13 @@
 //   weight is rounded once, as one fused multiply-add (__fmaf_rn, XLA's
 //   contraction of q * s - z) or one product (s * (q - z), q - z exact in
 //   f32).
+//
+// bte_dequant_grouped -- kernel 2 over S same-shaped records (a MoE
+//   layer's experts) in one launch of the same template: a table of up to
+//   DQ_MAX_SEGS segments passed by value, blockIdx.z one record, written to
+//   block z of one (S, K, N) output.  The same bytes as S single launches;
+//   it saves S - 1 launches and their host calls.  The single entry's
+//   instantiations are the template's GROUPED = false case, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -502,16 +509,46 @@ __device__ __forceinline__ void dequant_tile_tma(const int32_t* __restrict__ pac
 }
 #endif
 
+// Kernel 2's segment: one record's tensors and its (K, N) output.
+struct DqSeg {
+  const int32_t* packed;
+  const void* scales;
+  const void* zeros;
+  const int32_t* row_map;
+  void* out;
+};
+
+// Kernel 2's parameters ahead of K, N and group_size.  The single entry
+// (GROUPED false) passes one segment: the five pointers it has always
+// passed, in their order.  The grouped entry passes up to DQ_MAX_SEGS
+// same-shaped segments, blockIdx.z picks one; the table is read in place
+// (__grid_constant__), not copied to each thread's stack.
+constexpr int DQ_MAX_SEGS = 16;
+
+template <bool GROUPED>
+struct DqTable {
+  DqSeg seg;
+  __device__ __forceinline__ const DqSeg& pick() const { return seg; }
+};
+
+template <>
+struct DqTable<true> {
+  DqSeg seg[DQ_MAX_SEGS];
+  __device__ __forceinline__ const DqSeg& pick() const { return seg[blockIdx.z]; }
+};
+
 // Kernel 2: block (bx, by) takes the tile of column band bx (DQ_TILE_COLS
-// columns) and packed rows by * DQ_TILE_ROWS..; thread (ty, tx) =
-// divmod(threadIdx.x, DQ_TC) owns packed rows ty * DQ_RPT.. of the tile
-// and its columns tx * DQ_CPT.., and stores each logical row's DQ_CPT
-// outputs straight to row row_map[row].  No shared memory, no barrier.
+// columns) and packed rows by * DQ_TILE_ROWS.. of its segment; thread (ty,
+// tx) = divmod(threadIdx.x, DQ_TC) owns packed rows ty * DQ_RPT.. of the
+// tile and its columns tx * DQ_CPT.., and stores each logical row's
+// DQ_CPT outputs straight to row row_map[row].  No shared memory, no
+// barrier.
 template <int W, typename MT, typename OT, int ZF, bool VEC>
-__global__ void __launch_bounds__(DQ_THREADS, DQ_MIN_BLOCKS)
-dequant_kernel(const int32_t* __restrict__ packed, const MT* __restrict__ scales,
-               const void* __restrict__ zeros, const int32_t* __restrict__ row_map,
-               OT* __restrict__ out, int K, int N, int group_size) {
+__device__ __forceinline__ void dequant_tile(const int32_t* __restrict__ packed,
+                                             const MT* __restrict__ scales,
+                                             const void* __restrict__ zeros,
+                                             const int32_t* __restrict__ row_map,
+                                             OT* __restrict__ out, int K, int N, int group_size) {
   const int n0 = (blockIdx.x * DQ_TC + threadIdx.x % DQ_TC) * DQ_CPT;
   const int r0 = blockIdx.y * DQ_TILE_ROWS + threadIdx.x / DQ_TC * DQ_RPT;
 #if DQ_TMA_STORE
@@ -532,6 +569,14 @@ dequant_kernel(const int32_t* __restrict__ packed, const MT* __restrict__ scales
                                        if (n0 + c < N) dp[c] = from_f32<OT>(o[c]);
                                    }
                                  });
+}
+
+template <int W, typename MT, typename OT, int ZF, bool VEC, bool GROUPED>
+__global__ void __launch_bounds__(DQ_THREADS, DQ_MIN_BLOCKS)
+dequant_kernel(const __grid_constant__ DqTable<GROUPED> t, int K, int N, int group_size) {
+  const DqSeg& s = t.pick();
+  dequant_tile<W, MT, OT, ZF, VEC>(s.packed, static_cast<const MT*>(s.scales), s.zeros, s.row_map,
+                                   static_cast<OT*>(s.out), K, N, group_size);
 }
 
 template <int W, typename XT, typename MT, typename OT>
@@ -576,42 +621,65 @@ cudaError_t mpq_by_x(int x_dtype, int meta_dtype, int out_dtype, const void* x,
   return mpq_by_meta<W, bf16>(meta_dtype, out_dtype, x, p, s, z, o, M, K, N, gs, st);
 }
 
-template <int W, typename MT, typename OT, int ZF>
+template <int W, typename MT, typename OT, int ZF, bool GROUPED>
 const void* dequant_by_vec(int vec) {
-  return vec ? reinterpret_cast<const void*>(&dequant_kernel<W, MT, OT, ZF, true>)
-             : reinterpret_cast<const void*>(&dequant_kernel<W, MT, OT, ZF, false>);
+  return vec ? reinterpret_cast<const void*>(&dequant_kernel<W, MT, OT, ZF, true, GROUPED>)
+             : reinterpret_cast<const void*>(&dequant_kernel<W, MT, OT, ZF, false, GROUPED>);
 }
 
-template <int W, typename MT, typename OT>
+template <int W, typename MT, typename OT, bool GROUPED>
 const void* dequant_by_form(int form, int vec) {
   switch (form) {
-    case kSym: return dequant_by_vec<W, MT, OT, kSym>(vec);
-    case kAsymKernel: return dequant_by_vec<W, MT, OT, kAsymKernel>(vec);
-    case kAsymExact: return dequant_by_vec<W, MT, OT, kAsymExact>(vec);
+    case kSym: return dequant_by_vec<W, MT, OT, kSym, GROUPED>(vec);
+    case kAsymKernel: return dequant_by_vec<W, MT, OT, kAsymKernel, GROUPED>(vec);
+    case kAsymExact: return dequant_by_vec<W, MT, OT, kAsymExact, GROUPED>(vec);
     default: return nullptr;
   }
 }
 
-template <int W>
+template <int W, bool GROUPED>
 const void* dequant_by_dtype(int meta_dtype, int out_dtype, int form, int vec) {
   if (meta_dtype == kF32) {
-    if (out_dtype == kF32) return dequant_by_form<W, float, float>(form, vec);
-    return dequant_by_form<W, float, bf16>(form, vec);
+    if (out_dtype == kF32) return dequant_by_form<W, float, float, GROUPED>(form, vec);
+    return dequant_by_form<W, float, bf16, GROUPED>(form, vec);
   }
-  if (out_dtype == kF32) return dequant_by_form<W, bf16, float>(form, vec);
-  return dequant_by_form<W, bf16, bf16>(form, vec);
+  if (out_dtype == kF32) return dequant_by_form<W, bf16, float, GROUPED>(form, vec);
+  return dequant_by_form<W, bf16, bf16, GROUPED>(form, vec);
 }
 
-// Kernel 2's instantiation for a width, the two dtypes, a zero form and
-// the vector path or not.
+// Kernel 2's instantiation for a width, the two dtypes, a zero form, the
+// vector path or not, and the single or the grouped table.
+template <bool GROUPED>
 const void* dequant_fn(int w_bit, int meta_dtype, int out_dtype, int form, int vec) {
   switch (w_bit) {
-    case 1: return dequant_by_dtype<1>(meta_dtype, out_dtype, form, vec);
-    case 2: return dequant_by_dtype<2>(meta_dtype, out_dtype, form, vec);
-    case 4: return dequant_by_dtype<4>(meta_dtype, out_dtype, form, vec);
-    case 8: return dequant_by_dtype<8>(meta_dtype, out_dtype, form, vec);
+    case 1: return dequant_by_dtype<1, GROUPED>(meta_dtype, out_dtype, form, vec);
+    case 2: return dequant_by_dtype<2, GROUPED>(meta_dtype, out_dtype, form, vec);
+    case 4: return dequant_by_dtype<4, GROUPED>(meta_dtype, out_dtype, form, vec);
+    case 8: return dequant_by_dtype<8, GROUPED>(meta_dtype, out_dtype, form, vec);
     default: return nullptr;
   }
+}
+
+// One launch of kernel 2 over n_seg segments of the table (blockIdx.z).
+template <bool GROUPED>
+cudaError_t launch_dequant(const void* fn, DqTable<GROUPED>& t, int n_seg, int K, int N,
+                           int w_bit, int group_size, int out_dtype, cudaStream_t stream) {
+  const dim3 grid((N + DQ_TILE_COLS - 1) / DQ_TILE_COLS,
+                  (K / (32 / w_bit) + DQ_TILE_ROWS - 1) / DQ_TILE_ROWS, n_seg);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  size_t smem = 0;
+#if DQ_TMA_STORE
+  smem = (size_t)DQ_TILE_ROWS * (32 / w_bit) * DQ_TILE_COLS * (out_dtype == kF32 ? 4 : 2);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+#else
+  (void)out_dtype;
+#endif
+  void* args[] = {&t, &K, &N, &group_size};
+  const cudaError_t err = cudaLaunchKernel(fn, grid, dim3(DQ_THREADS), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename XT, typename MT, typename OT>
@@ -660,23 +728,37 @@ extern "C" int bte_dequant(const void* packed, const void* scales, const void* z
                            const void* row_map, void* out, int K, int N, int w_bit,
                            int group_size, int meta_dtype, int out_dtype, int form, int aligned,
                            void* stream) {
-  const void* fn = dequant_fn(w_bit, meta_dtype, out_dtype, form, aligned && N % DQ_CPT == 0);
+  const void* fn = dequant_fn<false>(w_bit, meta_dtype, out_dtype, form, aligned && N % DQ_CPT == 0);
   if (fn == nullptr) return cudaErrorInvalidValue;
-  const dim3 grid((N + DQ_TILE_COLS - 1) / DQ_TILE_COLS,
-                  (K / (32 / w_bit) + DQ_TILE_ROWS - 1) / DQ_TILE_ROWS);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  size_t smem = 0;
-#if DQ_TMA_STORE
-  smem = (size_t)DQ_TILE_ROWS * (32 / w_bit) * DQ_TILE_COLS * (out_dtype == kF32 ? 4 : 2);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  DqTable<false> t = {{static_cast<const int32_t*>(packed), scales, zeros,
+                       static_cast<const int32_t*>(row_map), out}};
+  return launch_dequant(fn, t, 1, K, N, w_bit, group_size, out_dtype,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 2 over n_seg same-shaped records (host arrays of their pointers;
+// a null row map for a record without one), record i written to the
+// (K, N) block i of ``out``: one launch a DQ_MAX_SEGS records.
+extern "C" int bte_dequant_grouped(int n_seg, const void* const* packed,
+                                   const void* const* scales, const void* const* zeros,
+                                   const void* const* row_maps, void* out, int K, int N,
+                                   int w_bit, int group_size, int meta_dtype, int out_dtype,
+                                   int form, int aligned, void* stream) {
+  const void* fn = dequant_fn<true>(w_bit, meta_dtype, out_dtype, form, aligned && N % DQ_CPT == 0);
+  if (fn == nullptr || n_seg < 1) return cudaErrorInvalidValue;
+  const size_t seg_bytes = (size_t)K * N * (out_dtype == kF32 ? 4 : 2);
+  for (int s0 = 0; s0 < n_seg; s0 += DQ_MAX_SEGS) {
+    const int n = n_seg - s0 < DQ_MAX_SEGS ? n_seg - s0 : DQ_MAX_SEGS;
+    DqTable<true> t = {};
+    for (int i = 0; i < n; ++i)
+      t.seg[i] = {static_cast<const int32_t*>(packed[s0 + i]), scales[s0 + i], zeros[s0 + i],
+                  static_cast<const int32_t*>(row_maps[s0 + i]),
+                  static_cast<char*>(out) + (s0 + i) * seg_bytes};
+    const cudaError_t err = launch_dequant(fn, t, n, K, N, w_bit, group_size, out_dtype,
+                                           static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
   }
-#endif
-  void* args[] = {&packed, &scales, &zeros, &row_map, &out, &K, &N, &group_size};
-  const cudaError_t err = cudaLaunchKernel(fn, grid, dim3(DQ_THREADS), args, smem,
-                                           static_cast<cudaStream_t>(stream));
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return cudaSuccess;
 }
 
 // Kernel 7 over n_seg segments (host arrays of per-segment pointers, widths,

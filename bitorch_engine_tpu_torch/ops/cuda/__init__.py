@@ -9,7 +9,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .binary_gemm import binary_packed_linear, xnor_gemm
-from .dequant_matmul import dequant_mpq, mpq_matmul
+from .dequant_matmul import dequant_mpq, dequant_mpq_grouped, mpq_matmul
 from .flash_attention import flash_attention, flash_attention_bwd
 from .mbwq_matmul import mbwq_matmul
 from .paged_attention import paged_prefix_attention, paged_prefix_attention_update
@@ -19,6 +19,7 @@ from .quad_matmul import mpq_matmul_a8
 KERNELS = {
     "mpq_matmul": mpq_matmul,
     "dequant_mpq": dequant_mpq,
+    "dequant_mpq_grouped": dequant_mpq_grouped,
     "flash_attention": flash_attention,
     "paged_prefix_attention": paged_prefix_attention,
     "paged_prefix_attention_update": paged_prefix_attention_update,

@@ -9,7 +9,8 @@ body (``csrc/mbwq_matmul.cu``) with the tensor as its one segment, f32
 activations the scalar ``mpq_matmul_kernel`` (``csrc/dequant_matmul.cu``).
 Kernel 2 (``dequant_kernel``, same file) reads any gptq-order tensor as it
 is stored: sym or asym zeros (:data:`ZERO_FORMS`), with a ``q_perm`` whose
-rows it writes back in place.
+rows it writes back in place; :func:`dequant_mpq_grouped` rebuilds several
+same-shaped tensors (a MoE layer's experts) in one launch of it.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; it runs the plain PyTorch version beside it only for
@@ -20,7 +21,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import weakref
+from typing import Optional, Sequence
 
 import torch
 
@@ -151,6 +153,14 @@ def _dequant_fn():
     return _build.function(
         "dequant_matmul", "bte_dequant",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _dequant_grouped_fn():
+    return _build.function(
+        "dequant_matmul", "bte_dequant_grouped",
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     )
 
 
@@ -322,3 +332,107 @@ def dequant_mpq(
 
 
 dequant_mpq.launches = 0
+
+
+# records a grouped launch of kernel 2 takes (csrc/dequant_matmul.cu
+# DQ_MAX_SEGS: the table is a kernel parameter); more take more launches
+DQ_MAX_SEGS = 16
+
+
+def group_key(qt: MPQTensor) -> tuple:
+    """What the records of one grouped kernel-2 call share: the shape, the
+    width, the group, the row layout, the zero form, which fields exist
+    besides ``q_perm`` (each record may have its own or none), the dtypes
+    and the device."""
+    return (qt.logical_shape, qt.w_bit, qt.group_size, qt.layout, qt.asym, qt.g_idx is None,
+            qt.packed.dtype, qt.scales.dtype, qt.zeros.dtype, qt.packed.device)
+
+
+def _tensors(qts: Sequence[MPQTensor]) -> list:
+    return [t for qt in qts for t in (qt.packed, qt.scales, qt.zeros, qt.q_perm)]
+
+
+class DequantGroup:
+    """Kernel 2's launch table for records of one :func:`group_key`,
+    checked once (on the card, each by :func:`_check_dequant`).  It keeps
+    weak references to the records' tensors, not the tensors:
+    :meth:`holds` tells whether other records are these (the same tensor
+    objects, alive), so a caller that rebuilds the same weights call after
+    call keeps one group and checks nothing again."""
+
+    def __init__(self, qts: Sequence[MPQTensor]):
+        qts = tuple(qts)
+        if not qts:
+            raise ValueError("a group needs at least one record")
+        key = group_key(qts[0])
+        for i, qt in enumerate(qts):
+            if group_key(qt) != key:
+                raise ValueError(f"record {i} differs from record 0: {group_key(qt)} != {key}")
+        first = qts[0]
+        self.size = len(qts)
+        self.shape = first.logical_shape
+        self._refs = tuple(None if t is None else weakref.ref(t) for t in _tensors(qts))
+        if first.device.type != "cuda":
+            return
+        for qt in qts:
+            _check_dequant(qt, first.device)
+        self._args = (
+            first.w_bit, first.group_size, _DTYPE_CODE[first.scales.dtype],
+            ZERO_FORMS[zero_form(first)],
+        )
+        arrays = []
+        for name in ("packed", "scales", "zeros", "q_perm"):
+            ptrs = [None if getattr(qt, name) is None else getattr(qt, name).data_ptr() for qt in qts]
+            arrays.append((_P * self.size)(*ptrs))
+        self._tables = tuple(arrays)
+        self._aligned = all(t is None or t.data_ptr() % 16 == 0 for t in _tensors(qts))
+
+    def holds(self, qts: Sequence[MPQTensor]) -> bool:
+        """Whether ``qts`` are the records this group was built from."""
+        ts = _tensors(qts)
+        return len(ts) == len(self._refs) and all(
+            t is None if r is None else r() is t for r, t in zip(self._refs, ts))
+
+
+def dequant_mpq_grouped_ref(qts: Sequence[MPQTensor],
+                            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of the grouped kernel 2: one :func:`dequant_mpq_ref` a
+    record, stacked."""
+    return torch.stack([dequant_mpq_ref(qt, dtype) for qt in qts])
+
+
+def dequant_mpq_grouped(qts: Sequence[MPQTensor], dtype: torch.dtype = torch.bfloat16,
+                        group: Optional[DequantGroup] = None) -> torch.Tensor:
+    """Kernel 2 over S records of one :func:`group_key`: their logical
+    weights as one ``(S, K, N)`` tensor in ``dtype``, bit-equal to stacking
+    :func:`dequant_mpq` of each (their own zero form and ``q_perm``), in one
+    launch a :data:`DQ_MAX_SEGS` records.  ``group`` is a
+    :class:`DequantGroup` of these records, kept by a caller that rebuilds
+    them again and again; without it one is built and checked."""
+    dev = qts[0].packed.device
+    if dev.type == "cpu":
+        return dequant_mpq_grouped_ref(qts, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"dequant_mpq_grouped: unsupported device {dev}")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError("dequant_mpq_grouped writes float32 or bfloat16")
+    if group is None:
+        group = DequantGroup(qts)
+    elif not group.holds(qts):
+        raise ValueError("the group was built from other records")
+    (k, n), s = group.shape, group.size
+    out = torch.empty((s, k, n), dtype=dtype, device=dev)
+    # the vector path wants every pointer, each record's block of out
+    # included, 16-byte aligned
+    aligned = group._aligned and out.data_ptr() % 16 == 0 and (k * n * out.element_size()) % 16 == 0
+    w_bit, group_size, meta, form = group._args
+    err = _dequant_grouped_fn()(
+        s, *group._tables, out.data_ptr(), k, n, w_bit, group_size, meta, _DTYPE_CODE[dtype],
+        form, int(aligned), _stream(dev),
+    )
+    _build.check("dequant_matmul", err, "dequant_mpq_grouped launch")
+    dequant_mpq_grouped.launches += -(-s // DQ_MAX_SEGS)
+    return out
+
+
+dequant_mpq_grouped.launches = 0

@@ -12,9 +12,17 @@ capacity ``C`` per expert: ``capacity_factor=None`` is drop-free (``C =
 T``: a token routes to an expert at most once, so the routed forward equals
 the dense Mixtral forward), a float the Switch / GShard capacity whose
 overflowing routes are dropped.  Every expert runs on its whole ``(C, d)``
-dispatch buffer in a static loop, through :func:`~.mpq_linear.mpq_linear`:
-on the card kernel 1 at ``C <= MAX_FUSED_ROWS_A16`` rows (decode), kernel
-2 + ``torch.matmul`` above (prefill).
+dispatch buffer, by one of two routes that compute the same arithmetic:
+
+* grouped, wherever :func:`~.mpq_linear.mpq_linear` would rebuild each
+  weight (on the card ``C > MAX_FUSED_ROWS_A16``, prefill; every ``C`` on
+  the CPU), nothing needs a gradient, there is no ``tp`` axis and the
+  local experts' records agree (:func:`_expert_groups`): one grouped
+  kernel-2 launch rebuilds every gate and up, one every down
+  (``dequant_mpq_grouped``), and ``torch.bmm`` runs the products on the
+  ``(E_local, C, d)`` buffer;
+* else a static loop over the experts through ``mpq_linear`` (kernel 1 at
+  ``C <= MAX_FUSED_ROWS_A16`` rows on the card: decode).
 
 Expert parallelism (``mesh`` with an ``ep`` axis): :func:`expert_shardings`
 cuts the experts' leading E axis to this rank's ``E/ep``; ``x`` is the same
@@ -36,11 +44,12 @@ the dispatch buffer's gradient is summed over tp, Megatron's rule.
 
 While a profiler records, :func:`moe_mlp` opens fine spans
 (``utils/profiling``) for its phases: ``bie.moe.route``,
-``bie.moe.dispatch`` (the one-hot, ``cumsum`` and ``index_put``),
-``bie.moe.experts`` (the expert loop) and ``bie.moe.combine``.  Every
-call counts, from the host's shapes alone, ``moe_routed_rows`` (``T·k``)
-and ``moe_computed_rows`` (``E_local·C``, the rows the experts compute),
-on the innermost span open: a profiler's phase span, else the caller's.
+``bie.moe.dispatch`` (the slots and ``index_put``), ``bie.moe.experts``
+(either route) and ``bie.moe.combine``.  Every call counts, from the
+host's shapes alone, ``moe_routed_rows`` (``T·k``), ``moe_computed_rows``
+(``E_local·C``, the rows the experts compute) and ``moe_grouped_rows``
+(the same ``E_local·C`` on the grouped route, 0 on the loop), on the
+innermost span open: a profiler's phase span, else the caller's.
 """
 
 from __future__ import annotations
@@ -51,12 +60,14 @@ from typing import Optional, Tuple
 
 import torch
 from torch.nn import functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..device import resolve_device
 from ..parallel.comm import all_gather_diff, all_reduce_diff, sum_grad
 from ..qtensor import MPQTensor
 from ..utils.profiling import annotate, count
-from .mpq_linear import mpq_linear
+from .cuda.dequant_matmul import DequantGroup, dequant_mpq_grouped, group_key
+from .mpq_linear import mpq_linear, mpq_route, needs_grad
 from .quant import quantize_mpq
 
 EXPERT_PROJS = ("gate", "up", "down")
@@ -160,6 +171,66 @@ def _expert_mlp(exp, x: torch.Tensor, mesh=None) -> torch.Tensor:
     return all_reduce_diff(mesh, part, "tp").to(x.dtype)
 
 
+# a layer's kernel-2 groups (or None: its experts take the loop), by its
+# first gate's codes, dropped with them
+_GROUPS = WeakIdKeyDictionary()
+
+
+def _expert_groups(gate_up, down, device_type: str):
+    """The grouped route's kernel-2 groups of a layer's experts, every gate
+    then every up, and every down; None where they do not group: records
+    of another :func:`group_key` or ``act_bits`` in either set, a ragged
+    ``g_idx``, a TPU row layout, or asym zeros off the card (the loop's
+    CPU reconstruction reads them as ``s·(q − z)``, kernel 2's plain
+    version in the kernel form).  Checked once a layer: the groups hold
+    the records' tensors weakly and are kept while they match."""
+    hit = _GROUPS.get(gate_up[0].packed, False)
+    if hit is None or (hit and hit[0].holds(gate_up) and hit[1].holds(down)):
+        return hit
+    groups = None
+    if all(len({group_key(qt) + (qt.act_bits,) for qt in qts}) == 1
+           and qts[0].g_idx is None and qts[0].layout == "gptq"
+           and (not qts[0].asym or device_type == "cuda") for qts in (gate_up, down)):
+        groups = DequantGroup(gate_up), DequantGroup(down)
+    _GROUPS[gate_up[0].packed] = groups
+    return groups
+
+
+def _grouped_experts(experts, xs: torch.Tensor, mesh) -> Optional[torch.Tensor]:
+    """Every local expert's SwiGLU on its buffer ``xs[e]`` (``xs`` is
+    ``(E_local, C, d)``) in batched launches, ``(E_local, C, d)``; None
+    where the loop runs instead (see the module's notes).  The loop's
+    arithmetic: each weight from kernel 2 in ``xs.dtype``, the products
+    from one batched GEMM each (their sums in another order than the
+    loop's ``torch.matmul`` may take), the SwiGLU's elementwise chain."""
+    if _axis_size(mesh, "tp") > 1:
+        return None
+    local, rows = xs.shape[0], xs.shape[1]
+    records = [_expert_slice(experts, e) for e in range(local)]
+    gate_up = [r["gate"] for r in records] + [r["up"] for r in records]
+    down = [r["down"] for r in records]
+    dev = xs.device.type
+    if any(needs_grad(xs, qt.grad_shadow) for qt in gate_up + down):
+        return None
+    groups = _expert_groups(gate_up, down, dev)
+    if groups is None or any(mpq_route(qts[0], rows, dev) != "reconstruct" for qts in (gate_up, down)):
+        return None
+    w = dequant_mpq_grouped(gate_up, xs.dtype, groups[0])
+    gate = F.silu(torch.bmm(xs, w[:local]).float()).to(xs.dtype)
+    h = gate * torch.bmm(xs, w[local:])
+    return torch.bmm(h, dequant_mpq_grouped(down, xs.dtype, groups[1]))
+
+
+def _slots(flat_e: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Each route's slot in its expert's buffer: the count of earlier
+    routes (row-major by token) to the same expert, from a stable sort by
+    expert and each expert's first place in the sorted routes."""
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    first = torch.searchsorted(sorted_e, torch.arange(num_experts, device=flat_e.device))
+    rank = torch.arange(flat_e.numel(), device=flat_e.device) - first[sorted_e]
+    return torch.empty_like(rank).scatter_(0, order, rank)
+
+
 def _axis_size(mesh, axis: str) -> int:
     return 1 if mesh is None or axis not in mesh.shape else mesh.size(axis)
 
@@ -219,8 +290,7 @@ def moe_mlp(
     with annotate("bie.moe.dispatch", fine=True):
         count("moe_routed_rows", T * top_k)
         flat_e = gate_idx.reshape(-1)  # (T·k,) row-major by token
-        onehot = F.one_hot(flat_e, E).to(torch.int32)
-        pos_in_e = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_e[:, None])[:, 0]
+        pos_in_e = _slots(flat_e, E)
         keep = pos_in_e < C
         pos_c = torch.where(keep, pos_in_e, C - 1)
 
@@ -236,8 +306,11 @@ def moe_mlp(
             disp = sum_grad(mesh, disp, "ep")  # each rank's backward fills its experts' rows
         if _axis_size(mesh, "tp") > 1:
             disp = sum_grad(mesh, disp, "tp")  # each rank's gate and up give their columns' share
-        outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e0 + e], mesh)
-                            for e in range(local)])
+        outs = _grouped_experts(experts, disp[e0:e0 + local], mesh)
+        count("moe_grouped_rows", 0 if outs is None else local * C)
+        if outs is None:
+            outs = torch.stack([_expert_mlp(_expert_slice(experts, e), disp[e0 + e], mesh)
+                                for e in range(local)])
         if n_ep > 1:
             outs = all_gather_diff(mesh, outs, "ep", dim=0)  # (E, C, d), every rank alike
 

@@ -275,6 +275,9 @@ checkout, it exits non-zero and prints no result.
 ``python3 chip_smoke.py --kernel2-ab PARENT`` runs only the comparison of
 kernel 2 with the body it replaced, built from ``PARENT`` (a checkout of
 an earlier commit), and with its ``-D`` variants: :func:`phase_kernel2_ab`.
+``python3 chip_smoke.py --moe-grouped PARENT`` runs only the grouped
+expert route's readings on one Mixtral layer, kernel 2's single entry
+against ``PARENT``'s included: :func:`phase_moe_grouped`.
 """
 
 from __future__ import annotations
@@ -489,6 +492,14 @@ MOE_EXPERTS = 8
 MOE_PER_PASS = {"qkv": LAYERS, "o": LAYERS, "moe_up": 2 * MOE_EXPERTS * LAYERS,
                 "moe_down": MOE_EXPERTS * LAYERS, "moe_head": 1}
 MOE_QUEUE = dict(n_requests=8, prompt_lens=(32, 256), new_tokens=(16, 32))  # phase 18c
+
+
+def moe_prefill_launches(layers: int) -> dict:
+    """Kernel-2 launches of a Mixtral prefill, by wrapper: q|k|v and o a
+    layer and the head single, a layer's (local) experts' gates and ups in
+    one grouped launch (16 records, or 8 at ep 2) and their downs in
+    another."""
+    return dict(dequant_mpq=2 * layers + 1, dequant_mpq_grouped=2 * layers)
 
 # the parallel slice (phase 19): Llama-3-8B at tp 2 over torch.distributed,
 # the two ranks sharing the one card through gloo.  Kernels 1 and 2 at one
@@ -1268,10 +1279,11 @@ def profile_serve(torch, model, prompt, steps):
     return out
 
 
-def phase_e2e(torch, gen, model, proj=4 * LAYERS + 1, label="e2e"):
+def phase_e2e(torch, gen, model, proj=4 * LAYERS + 1, label="e2e", prefill=None):
     """Phase 4 (and 18b): the full-width serving path, with the launch
-    counts: ``proj`` projection launches per pass (kernel 1 per decode
-    step, kernel 2 per prefill), one flash launch per layer per prefill."""
+    counts: ``proj`` projection launches per decode step (kernel 1), the
+    kernel-2 launches ``prefill`` per prefill (by wrapper; default ``proj``
+    single ones), one flash launch per layer per prefill."""
     from bitorch_engine_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     layers = model.cfg.num_layers
@@ -1297,10 +1309,11 @@ def phase_e2e(torch, gen, model, proj=4 * LAYERS + 1, label="e2e"):
     step_ms = (t_end - marks["prefill"]) * 1e3 / DECODE_STEPS
     pre = marks["counts_prefill"]
     log(f"{label} launches at prefill {pre}; over the run {counts}")
-    check(pre == counts_with(dequant_mpq=proj, flash_attention=layers),
+    prefill = prefill or dict(dequant_mpq=proj)
+    check(pre == counts_with(flash_attention=layers, **prefill),
           f"{label} prefill launches {pre}")
-    check(counts == counts_with(mpq_matmul=proj * DECODE_STEPS, dequant_mpq=proj,
-                                flash_attention=layers), f"{label} run launches {counts}")
+    check(counts == counts_with(mpq_matmul=proj * DECODE_STEPS, flash_attention=layers,
+                                **prefill), f"{label} run launches {counts}")
     check(bool(torch.isfinite(last).all()), "decode logits are not finite")
     check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()), "token ids out of range")
     e2e = dict(
@@ -1514,15 +1527,17 @@ def phase_paged_vs_dense(torch, model):
 
 @contextmanager
 def plain_kernels():
-    """Route the model's and the optimizer's nine kernel calls to their
+    """Route the model's and the optimizer's ten kernel calls to their
     plain versions (the flash forward and backward inside the autograd
     Function, the dequant in the linears' backward and in DiodeMix, the
-    packed binary linear's fused XNOR GEMM)."""
+    MoE's grouped dequant, the packed binary linear's fused XNOR GEMM)."""
     from bitorch_engine_tpu_torch.models import llama
-    from bitorch_engine_tpu_torch.ops import binary_linear, mbwq_linear, mpq_linear
+    from bitorch_engine_tpu_torch.ops import binary_linear, mbwq_linear, moe, mpq_linear
     from bitorch_engine_tpu_torch.ops.cuda.binary_gemm import binary_packed_linear_ref
     from bitorch_engine_tpu_torch.ops.cuda import paged_attention as pa
-    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import dequant_mpq_ref, mpq_matmul_ref
+    from bitorch_engine_tpu_torch.ops.cuda.dequant_matmul import (
+        dequant_mpq_grouped_ref, dequant_mpq_ref, mpq_matmul_ref,
+    )
     from bitorch_engine_tpu_torch.ops.cuda.mbwq_matmul import mbwq_matmul_ref
     from bitorch_engine_tpu_torch.ops.cuda.quad_matmul import mpq_matmul_a8_ref
 
@@ -1532,6 +1547,8 @@ def plain_kernels():
             mock.patch.object(mpq_linear, "mpq_matmul_a8", mpq_matmul_a8_ref), \
             mock.patch.object(mbwq_linear, "mbwq_matmul", mbwq_matmul_ref), \
             mock.patch.object(mpq_linear, "dequant_mpq", dequant_mpq_ref), \
+            mock.patch.object(moe, "dequant_mpq_grouped",
+                              lambda qts, dtype, group=None: dequant_mpq_grouped_ref(qts, dtype)), \
             mock.patch.object(fa, "flash_attention", fa.flash_attention_ref), \
             mock.patch.object(fa, "flash_attention_bwd", fa.flash_attention_bwd_ref), \
             mock.patch.object(llama, "paged_prefix_attention", pa.paged_prefix_attention_ref), \
@@ -3418,14 +3435,16 @@ def phase_moe_e2e(torch, gen):
     cfg = model.cfg
     log(f"MoE model: Mixtral-8x7B w4 g128, {cfg.num_layers} layers x {cfg.moe_num_experts} "
         f"experts (top {cfg.moe_top_k}), built in {build_s:.1f} s, {gib:.2f} GiB allocated")
-    # every kernel-1 (decode) or kernel-2 (prefill) launch of a pass: q|k|v,
-    # o and the experts' gate, up and down in each layer, then the head
+    # every kernel-1 launch of a decode step: q|k|v, o and the experts'
+    # gate, up and down in each layer, then the head; a prefill rebuilds
+    # the experts' weights in two grouped kernel-2 launches a layer
     proj = cfg.num_layers * (2 + 3 * cfg.moe_num_experts) + 1
     check(proj == sum(MOE_PER_PASS.values()), f"MoE launches per pass {proj}")
     dropped = []
     hook = model.register_forward_hook(
         lambda mod, inp, out: dropped.append(torch.stack(moe_losses(mod)["moe_dropped"])))
-    counts, e2e = phase_e2e(torch, gen, model, proj=proj, label="MoE e2e")
+    counts, e2e = phase_e2e(torch, gen, model, proj=proj, label="MoE e2e",
+                            prefill=moe_prefill_launches(cfg.num_layers))
     hook.remove()
     drops = torch.stack(dropped)
     check(drops.shape == (len(dropped), cfg.num_layers) and bool((drops == 0).all()),
@@ -3477,7 +3496,7 @@ def phase_moe_path_check(torch, gen):
         h.remove()
     check(all(n == 0 for n in launch_counts().values()), "the plain path launched a kernel")
     proj = 2 * (2 + 3 * MOE_EXPERTS) + 1
-    check(launched == counts_with(mpq_matmul=4 * proj, dequant_mpq=proj, flash_attention=2),
+    check(launched == counts_with(mpq_matmul=4 * proj, flash_attention=2, **moe_prefill_launches(2)),
           f"MoE path check launches {launched}")
     flips = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(kernel_routes, routes, strict=True))
     n_routes = sum(a.shape[0] for a in kernel_routes)
@@ -4741,8 +4760,7 @@ def phase_par(torch):
                f"20b fsdp rank {r['rank']}: launches {rec['launches']} != {rec['expected']}")
     report("ep", "20d ep 2")
     ep_pass = counts_with(mpq_matmul=EP_LAYERS * (2 + 3 * MOE_EXPERTS // PAR) + 1)
-    ep_prefill = counts_with(dequant_mpq=EP_LAYERS * (2 + 3 * MOE_EXPERTS // PAR) + 1,
-                             flash_attention=EP_LAYERS)
+    ep_prefill = counts_with(flash_attention=EP_LAYERS, **moe_prefill_launches(EP_LAYERS))
     for r in ranks:
         rec = r["ep"]
         recs = rec["records"]
@@ -6434,16 +6452,188 @@ def kernel_line(name, rows, launches, weights, per, check_text):
     )
 
 
+MOE_GROUPED_ROWS = 512  # one Mixtral MoE layer's dispatch rows (C = T, drop-free)
+
+
+def ptxas_dequant(log_text: str) -> dict:
+    """``-Xptxas -v`` lines of kernel 2's instantiations, by kind ("single"
+    or "grouped": the template's last argument), as the most registers and
+    stack-frame bytes any of them takes."""
+    import re
+
+    out, name, frame = {}, None, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if "dequant_kernel" in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            frame = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            # the template's last argument, GROUPED (the parent's has none)
+            grouped = re.search(r"dequant_kernelI\w*?Lb[01]ELb([01])EE", name)
+            kind = "grouped" if grouped and grouped.group(1) == "1" else "single"
+            cur = out.setdefault(kind, dict(kernels=0, max_registers=0, max_stack_frame=0))
+            cur["kernels"] += 1
+            cur["max_registers"] = max(cur["max_registers"], int(m.group(1)))
+            cur["max_stack_frame"] = max(cur["max_stack_frame"], frame or 0)
+            name = None
+    return out
+
+
+def phase_moe_grouped(torch, parent):
+    """The grouped expert route on one Mixtral layer (8 experts, w4 g128,
+    bf16 metadata, as served): (a) kernel 2's single entry against
+    ``parent``'s (a checkout of the commit before), bit-equal and timed in
+    turns (parent, now, now, parent) at the expert and fine-tune shapes,
+    with both builds' ``-Xptxas -v`` summary; (b) the grouped launches (16
+    gate|up records, 8 downs) against the 24 single launches, bit-equal
+    and timed; (c) one ``moe_mlp`` call at ``MOE_GROUPED_ROWS`` rows on the
+    grouped route and on the loop: output, device kernels per call, host
+    time to enqueue a call, wall and device time per call."""
+    from bitorch_engine_tpu_torch.ops import moe
+    from bitorch_engine_tpu_torch.ops.cuda import _build
+    from bitorch_engine_tpu_torch.ops.cuda import dequant_matmul as dm
+
+    rel = pathlib.Path("bitorch_engine_tpu_torch") / "csrc" / "dequant_matmul.cu"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_grouped_") as tmp:
+        lib = pathlib.Path(tmp) / "libdequant_parent.so"
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                               str(pathlib.Path(parent) / rel)], capture_output=True, text=True,
+                              timeout=900)
+        check(proc.returncode == 0, f"nvcc on the parent's kernel 2:\n{proc.stdout}{proc.stderr}")
+        now_log = _build._lib_path(_build.CSRC / "dequant_matmul.cu").with_suffix(".log").read_text()
+        out["ptxas"] = dict(parent=ptxas_dequant(proc.stdout + proc.stderr),
+                            now=ptxas_dequant(now_log))
+        log(f"ptxas, kernel 2: parent {out['ptxas']['parent']}; now {out['ptxas']['now']}")
+        fn = ctypes.CDLL(str(lib)).bte_dequant
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        # (a) the single entry, parent against now
+        singles = {
+            "moe_up": mpq_weight(torch, gen, *MOE_SHAPES["moe_up"]),
+            "moe_down": mpq_weight(torch, gen, *MOE_SHAPES["moe_down"]),
+            "ft_up_asym": asym_weight(torch, gen, 4096, 14336),
+            "ft_down_asym": asym_weight(torch, gen, 14336, 4096),
+        }
+        rows = []
+        for name, qt in singles.items():
+            for dtype, exact in ((torch.bfloat16, False), (torch.float32, qt.asym)):
+                def now():
+                    return dm.dequant_mpq(qt, dtype, exact)
+                with dequant_body(fn):
+                    equal = torch.equal(now(), dm.dequant_mpq(qt, dtype, exact))
+                check(equal, f"kernel 2 single entry {name} {dtype}: differs from the parent's")
+                times = {"parent": [], "now": []}
+                for side in ("parent", "now", "now", "parent"):
+                    with (dequant_body(fn) if side == "parent" else nullcontext()):
+                        times[side].append(time_ms(torch, now, flush=flush))
+                row = dict(shape=name, dtype=str(dtype)[6:], exact=exact, bit_equal=equal,
+                           parent_ms=statistics.mean(times["parent"]),
+                           now_ms=statistics.mean(times["now"]), turns=times)
+                rows.append(row)
+                log(f"kernel 2 single entry {name:13s} {row['dtype']:8s}: parent "
+                    f"{row['parent_ms']:.4f} ms, now {row['now_ms']:.4f} ms ({times})")
+        out["single_entry"] = rows
+
+    # (b) one layer's 24 reconstructions: 24 single launches against 2 grouped
+    experts = moe.init_moe_experts(gen, MOE_EXPERTS, 4096, 14336, w_bit=4, group_size=128,
+                                   stack=False, device="cuda")
+    experts = tuple({k: dm.prepare_for_kernel(v, torch.bfloat16) for k, v in e.items()}
+                    for e in experts)
+    gate_up = [e["gate"] for e in experts] + [e["up"] for e in experts]
+    down = [e["down"] for e in experts]
+    groups = dm.DequantGroup(gate_up), dm.DequantGroup(down)
+
+    def single():
+        return [dm.dequant_mpq(qt, torch.bfloat16) for qt in gate_up + down]
+
+    def grouped():
+        return (dm.dequant_mpq_grouped(gate_up, torch.bfloat16, groups[0]),
+                dm.dequant_mpq_grouped(down, torch.bfloat16, groups[1]))
+
+    ws, (gu, dn) = single(), grouped()
+    check(torch.equal(torch.stack(ws[:16]), gu) and torch.equal(torch.stack(ws[16:]), dn),
+          "grouped kernel 2 differs from its 24 single launches")
+    del ws, gu, dn
+    nbytes = sum(qt.packed.numel() * 4 + qt.scales.numel() * 2 + qt.zeros.numel() * 2
+                 + qt.in_features * qt.out_features * 2 for qt in gate_up + down)
+    t = {"single": [], "grouped": []}
+    for side in ("single", "grouped", "grouped", "single"):
+        t[side].append(time_ms(torch, single if side == "single" else grouped, flush=flush))
+    out["layer_reconstruct"] = dict(
+        single_ms=statistics.mean(t["single"]), grouped_ms=statistics.mean(t["grouped"]),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, launches_single=24,
+        launches_grouped=2, turns=t)
+    log(f"one Mixtral layer's 24 reconstructions: single {out['layer_reconstruct']['single_ms']:.4f} ms "
+        f"(24 launches), grouped {out['layer_reconstruct']['grouped_ms']:.4f} ms (2 launches), "
+        f"bound {out['layer_reconstruct']['bound_ms']:.4f} ms (bytes)")
+
+    # (c) one moe_mlp call, grouped against the loop
+    router = torch.randn(4096, MOE_EXPERTS, device="cuda", generator=gen) * 0.02
+    x = torch.randn(MOE_GROUPED_ROWS, 4096, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def call():
+        return moe.moe_mlp(x, router, experts, top_k=2, capacity_factor=None)[0]
+
+    loop = mock.patch.object(moe, "_grouped_experts", lambda *a: None)
+    routes = {}
+    with torch.no_grad():
+        for name in ("grouped", "loop", "loop", "grouped"):
+            with (loop if name == "loop" else nullcontext()):
+                for _ in range(3):
+                    y = call()
+                torch.cuda.synchronize()
+                host, wall = [], []
+                for _ in range(20):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    host.append((t1 - t0) * 1e3)
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                dev = time_ms(torch, call)
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    call()
+                    torch.cuda.synchronize()
+                kernels = sum(e.count for e in prof.key_averages()
+                              if e.device_type == torch.autograd.DeviceType.CUDA)
+            r = routes.setdefault(name, dict(host_ms=[], wall_ms=[], device_ms=[], kernels=kernels,
+                                             y=y))
+            r["host_ms"].append(statistics.median(host))
+            r["wall_ms"].append(statistics.median(wall))
+            r["device_ms"].append(dev)
+    yg, yl = routes["grouped"].pop("y"), routes["loop"].pop("y")
+    rel_y = ((yg.float() - yl.float()).abs().max() / yl.float().abs().max()).item()
+    check(rel_y <= 2e-2, f"moe_mlp grouped against the loop: max rel {rel_y}")
+    out["moe_mlp"] = dict(rows=MOE_GROUPED_ROWS, rel_y=rel_y, bit_equal=bool(torch.equal(yg, yl)),
+                          **routes)
+    log(f"moe_mlp at {MOE_GROUPED_ROWS} rows: {json.dumps(out['moe_mlp'])}")
+    del experts, flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     """The whole run; ``--kernel2-ab PARENT`` instead times kernel 2's
     redesign against its first body, built from ``PARENT`` (a checkout of
     the commit before it), and prints its rows and passes as one JSON line
     before the last."""
-    ab_parent = None
+    ab_parent = moe_parent = None
     if len(sys.argv) == 3 and sys.argv[1] == "--kernel2-ab":
         ab_parent = sys.argv[2]
+    elif len(sys.argv) == 3 and sys.argv[1] == "--moe-grouped":
+        moe_parent = sys.argv[2]
     elif len(sys.argv) > 1:
-        print("usage: python3 chip_smoke.py [--kernel2-ab PARENT_CHECKOUT]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--kernel2-ab | --moe-grouped PARENT_CHECKOUT]",
+              file=sys.stderr)
         return 2
     if not (ROOT / "bitorch_engine_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -6471,8 +6661,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, one process per source)")
-    if ab_parent is not None:
-        print(json.dumps(dict(phase_kernel2_ab(torch, ab_parent), card=smi)), flush=True)
+    if ab_parent is not None or moe_parent is not None:
+        res = (phase_kernel2_ab(torch, ab_parent) if ab_parent is not None
+               else phase_moe_grouped(torch, moe_parent))
+        print(json.dumps(dict(res, card=smi)), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
@@ -6701,8 +6893,9 @@ def main() -> int:
     moe_passes = {
         "mpq_matmul": (moe_counts["mpq_matmul"] / DECODE_STEPS, MOE_PER_PASS,
                        "one decode step of the Mixtral path (b8)"),
-        "dequant_mpq": (moe_counts["dequant_mpq"], MOE_PER_PASS,
-                        "one prefill of the Mixtral path (8 x 256)"),
+        "dequant_mpq": (moe_counts["dequant_mpq"] + moe_counts["dequant_mpq_grouped"], MOE_PER_PASS,
+                        "one prefill of the Mixtral path (8 x 256; each layer's experts in 2 "
+                        "grouped launches, priced as their 24 records' single launches)"),
         "flash_attention": (moe_counts["flash_attention"], {FLASH_PREFILL: LAYERS},
                             "one prefill of the Mixtral path (8 x 256)"),
     }

@@ -2,7 +2,9 @@
 inputs): ``moe_mlp`` in both expert forms over top-k, renormalization and
 capacity, the tie rule, router gradients, and a tiny f32 MoE Llama loaded
 from the JAX parameters (logits, greedy tokens, the sown losses, the
-checkpoint, fusing, ``generate`` and ``ContinuousBatcher``).
+checkpoint, fusing, ``generate`` and ``ContinuousBatcher``); and the
+grouped expert route against the per-expert loop it replaces where the
+weights are rebuilt (the loop stays the reference).
 
 ``moe_mlp`` is held to atol 1e-5 / rtol 1e-4 (``y``) and 1e-6 (``aux``,
 ``dropped``): both sides compute in f32 with sums in other orders.  The
@@ -13,6 +15,7 @@ floor of 1e-4 of the largest logit), its tokens exactly.
 import dataclasses
 import functools
 import json
+import math
 import os
 
 import jax
@@ -29,7 +32,9 @@ from bitorch_engine_tpu.utils import checkpoint as jckpt
 from bitorch_engine_tpu_torch.models import generate as tg
 from bitorch_engine_tpu_torch.models import llama as tl
 from bitorch_engine_tpu_torch.ops import moe as tmoe
+from bitorch_engine_tpu_torch.parallel.mesh import Mesh, make_axes_mesh
 from bitorch_engine_tpu_torch.qtensor import MPQTensor
+from bitorch_engine_tpu_torch.utils import profiling
 from bitorch_engine_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from bitorch_engine_tpu_torch.utils.convert import (
     load_jax_params, params_tree, prepare_for_training, quantized_layers,
@@ -182,6 +187,142 @@ def test_router_gradients_match_jax(setup):
     got = rw.grad.numpy()
     assert np.abs(got).max() > 0
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# The grouped expert route against the per-expert loop
+# ---------------------------------------------------------------------------
+
+# the loop's reference tolerance, set from the dtype: the batched GEMM may
+# sum in another order than the loop's torch.matmul (f32: a few ulps; bf16:
+# an intermediate may round one bf16 ulp, 2^-8, the other way)
+GROUPED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _with_q_perm(experts, seed):
+    """The experts with a random act-order row permutation on every record."""
+    rng = np.random.default_rng(seed)
+    return tuple({name: qt.replace(q_perm=torch.from_numpy(
+        rng.permutation(qt.in_features).astype(np.int32))) for name, qt in e.items()}
+        for e in experts)
+
+
+def _loop(monkeypatch):
+    """Force the per-expert loop (what every call ran before the grouped route)."""
+    monkeypatch.setattr(tmoe, "_grouped_experts", lambda *a: None)
+
+
+def _counted(fn):
+    with profiling.annotate("bie.test.moe") as rec:
+        out = fn()
+    return out, rec.counts
+
+
+@pytest.mark.parametrize("mesh", [None, "ep"])
+@pytest.mark.parametrize("q_perm", [False, True], ids=["stored", "q_perm"])
+@pytest.mark.parametrize("capacity", [None, 1.0], ids=["dropfree", "cf1.0"])
+@pytest.mark.parametrize("top_k", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_route_equals_the_loop(setup, monkeypatch, dtype, top_k, capacity, q_perm, mesh):
+    forms, router, x = setup
+    experts = _port_experts(forms["tuple"])
+    if q_perm:
+        experts = _with_q_perm(experts, 7)
+    mesh = make_axes_mesh(ep=1) if mesh else None
+    xt = torch.from_numpy(np.array(x)).to(dtype)
+    rw = torch.from_numpy(np.array(router))
+
+    def run():
+        return tmoe.moe_mlp(xt, rw, experts, top_k=top_k, capacity_factor=capacity, mesh=mesh)
+
+    (y, aux, dropped), counts = _counted(run)
+    assert counts["moe_grouped_rows"] == counts["moe_computed_rows"] > 0
+    _loop(monkeypatch)
+    (want, want_aux, want_dropped), counts = _counted(run)
+    assert counts["moe_grouped_rows"] == 0
+    tol = GROUPED_TOL[dtype]
+    np.testing.assert_allclose(y.float().numpy(), want.float().numpy(), rtol=tol,
+                               atol=tol * want.float().abs().max().item())
+    assert float(aux) == float(want_aux) and float(dropped) == float(want_dropped)
+
+
+def _one_hot_slots(flat_e, num_experts):
+    """The slots as the route computed them before: the cumsum of the
+    (T·k, E) one-hot."""
+    onehot = torch.nn.functional.one_hot(flat_e, num_experts).to(torch.int32)
+    return (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_e[:, None])[:, 0]
+
+
+@pytest.mark.parametrize("routes", ["random", "skewed"])
+def test_slots_equal_the_one_hot_cumsum(routes):
+    rng = np.random.default_rng(11)
+    for n, e in ((1, 4), (37, 4), (512, 8), (2048, 8)):
+        if routes == "random":
+            flat = rng.integers(0, e, n)
+        else:  # most routes to one expert, some experts never routed to
+            flat = np.where(rng.random(n) < 0.9, e - 1, rng.integers(0, 2, n))
+        flat_e = torch.from_numpy(flat.astype(np.int64))
+        got = tmoe._slots(flat_e, e)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, _one_hot_slots(flat_e, e))
+
+
+@pytest.mark.parametrize("route", ["grouped", "loop"])
+def test_route_is_called_once_a_call_and_its_indices_combined(setup, monkeypatch, route):
+    """The harness logs each layer's experts by wrapping ``ops.moe.route``:
+    every ``moe_mlp`` call calls it once by that name, on both routes, and
+    combines the experts it returns (here a fixed choice, not the router's)."""
+    forms, router, x = setup
+    experts = _port_experts(forms["tuple"])
+    xt, rw = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(router))
+    choice = torch.tensor([[3, 1], [0, 2]]).repeat(xt.shape[0] // 2, 1)
+    real_route, calls = tmoe.route, []
+
+    def fixed_route(x2, router_w, top_k):
+        calls.append(x2.shape)
+        return real_route(x2, router_w, top_k)[0], choice
+
+    monkeypatch.setattr(tmoe, "route", fixed_route)
+    if route == "loop":
+        _loop(monkeypatch)
+    (y, _, _), counts = _counted(lambda: tmoe.moe_mlp(xt, rw, experts, top_k=2,
+                                                        capacity_factor=None))
+    assert calls == [xt.shape]
+    assert (counts["moe_grouped_rows"] > 0) == (route == "grouped")
+    probs = torch.softmax(xt @ rw, dim=-1)
+    gates = probs.gather(1, choice)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    want = sum(gates[:, j:j + 1] * torch.cat([tmoe._expert_mlp(experts[int(e)], xt[t:t + 1])
+                                                for t, e in enumerate(choice[:, j])])
+               for j in range(2))
+    np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["grouped", "autograd", "tp"])
+def test_grouped_rows_count_only_on_the_grouped_route(setup, case):
+    """Under autograd (a grad shadow that needs a gradient) and on a tp
+    mesh the loop runs and ``moe_grouped_rows`` counts 0; on the grouped
+    route it counts ``E_local·C``."""
+    forms, router, x = setup
+    experts = _port_experts(forms["tuple"])
+    xt, rw = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(router))
+    mesh = None
+    if case == "autograd":
+        shadow = torch.zeros(experts[2]["up"].logical_shape, requires_grad=True)
+        experts = tuple(dict(e, up=e["up"].replace(grad_shadow=shadow)) if i == 2 else e
+                        for i, e in enumerate(experts))
+    elif case == "tp":
+        # a tp axis of two whose collectives are identities: every "shard"
+        # is the whole expert, so the loop computes the unsharded MLP
+        mesh = Mesh(shape={"tp": 2}, rank=0, groups={"tp": None}, ranks={"tp": (0, 1)})
+    (y, _, _), counts = _counted(lambda: tmoe.moe_mlp(xt, rw, experts, top_k=2,
+                                                        capacity_factor=0.5, mesh=mesh))
+    c = math.ceil(xt.shape[0] * 2 / E * 0.5)
+    assert counts["moe_computed_rows"] == E * c
+    assert counts["moe_grouped_rows"] == (E * c if case == "grouped" else 0)
+    if case == "autograd":
+        y.sum().backward()
+        assert shadow.grad is not None and shadow.grad.abs().max() > 0
 
 
 # ---------------------------------------------------------------------------

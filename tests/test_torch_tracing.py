@@ -107,7 +107,8 @@ def test_wave_counts_are_the_waves_prompts(model):
 
 def test_moe_counts_are_the_routed_and_computed_rows(model):
     """Every chunk and step forward counts T·k routed and E·C computed rows
-    per MoE layer (drop-free: C = T), and a capacity cuts C."""
+    per MoE layer (drop-free: C = T), and a capacity cuts C; the grouped
+    route counts its E·C rows."""
     _, _, _, recs = serve(model)
     by_id = _by_id(recs)
     layers, k, e = model.cfg.num_layers, model.cfg.moe_top_k, MOE_KW["moe_num_experts"]
@@ -117,6 +118,7 @@ def test_moe_counts_are_the_routed_and_computed_rows(model):
             t = wave["rows"] * min(wave["bucket"], CHUNK)
             assert r.counts["moe_routed_rows"] == layers * t * k
             assert r.counts["moe_computed_rows"] == layers * e * t
+            assert r.counts["moe_grouped_rows"] == layers * e * t  # every C groups on the CPU
         elif r.name == "bie.batcher.step":
             assert r.counts["moe_routed_rows"] == layers * 2 * k  # every slot decodes
             assert r.counts["moe_computed_rows"] == layers * e * 2
@@ -127,7 +129,8 @@ def test_moe_counts_are_the_routed_and_computed_rows(model):
     for cap, c in ((None, 15), (1.25, 10)):
         with tp.annotate("bie.test.moe") as rec:
             tmoe.moe_mlp(x, router, experts, top_k=2, capacity_factor=cap)
-        assert rec.counts == {"moe_routed_rows": 30, "moe_computed_rows": 4 * c}
+        assert rec.counts == {"moe_routed_rows": 30, "moe_computed_rows": 4 * c,
+                              "moe_grouped_rows": 4 * c}
 
 
 def test_no_profiler_no_fine_span_and_no_record_function(model, monkeypatch):

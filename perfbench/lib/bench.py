@@ -4,7 +4,16 @@ Everything that belongs to one configuration, traffic mix, per-layer metric
 or kernel family lives in a file of its own under ``perfbench/``, found by
 name:
 
-* ``configs/<config>.json``: the model configuration as it is run;
+* ``configs/<config>.json``: the model configuration as it is run; its
+  ``"arch"`` key names its architecture (``"llama"`` where it has none);
+* ``archs/<arch>.py``: the architecture, a module of functions of the
+  configuration dict: ``shape(cfg)`` (a ``flops.Shape``), the seeded
+  weights ``layer(cfg, seed, i, device)`` as the reference reads them and
+  ``tree(cfg, seed, device)`` as the port's loader takes them,
+  ``port_config(cfg, max_seq_len)`` (the port's model config), the plain
+  reference's ``logits_at`` (``reference/llama_ref.py``'s signature, its
+  route statistics in ``stats``), and for a training cell ``train_steps``,
+  ``dequant``, ``PROJS`` and ``NORMS`` (``reference/train_ref.py``'s);
 * ``mixes/<traffic>.json``: the traffic parameters (its ``kind`` picks the
   loop: ``closed_loop`` serving or ``train_steps``);
 * ``metrics/<name>.py``: the reader of per-layer metric ``<name>``, a
@@ -14,8 +23,8 @@ name:
 * ``limits/<workload>.json``: the limit of each number the cell's check
   compares with the reference.
 
-A new cell, mix, metric or kernel family is new files plus new entries in
-``BENCHMARK.json``; no file here changes.
+A new cell, mix, metric, kernel family or architecture is new files plus new
+entries in ``BENCHMARK.json``; no file here changes.
 """
 
 from __future__ import annotations
@@ -71,6 +80,11 @@ class Plan:
     run_seconds: int
     root: Path
     limits: Dict[str, Any]
+    arch: Any  # the configuration's ``archs/<arch>.py`` module
+
+    @property
+    def shape(self):
+        return self.arch.shape(self.config)
 
     def reader(self, metric: Metric) -> Callable[[Any], Optional[float]]:
         return load_reader(self.root / "perfbench" / "metrics" / f"{metric.name}.py")
@@ -96,6 +110,19 @@ def load_reader(path: Path) -> Callable[[Any], Optional[float]]:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def load_arch(cfg: Dict[str, Any], root: Path = ROOT) -> Any:
+    """The architecture module a configuration names, loaded from
+    ``root/perfbench/archs/<arch>.py``."""
+    name = cfg.get("arch", "llama")
+    path = root / "perfbench" / "archs" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"perfbench_arch_{name}", path)
+    if spec is None or not path.is_file():
+        raise FileNotFoundError(f"no architecture {name!r} at {path}")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_kernels(root: Path) -> List[KernelFamily]:
@@ -129,13 +156,15 @@ def plan(workload: str, root: Path = ROOT) -> Plan:
     cell = cells[workload]
     configs = {c["name"]: c for c in bench["configs"]}
     cfg_entry = configs[cell["config"]]
+    config = load_json(root / cfg_entry["file"])
     e2e = [m for m in map(_metric, bench["end_to_end"]) if _applies(m, workload, [])]
     names = [m.name for m in e2e]
     per_layer = [m for m in map(_metric, bench["per_layer"]) if _applies(m, workload, names)]
     return Plan(
-        workload=workload, chips=int(cell["chips"]), config=load_json(root / cfg_entry["file"]),
+        workload=workload, chips=int(cell["chips"]), config=config,
         mix=load_json(root / "perfbench" / "mixes" / f"{cell['traffic']}.json"),
         end_to_end=e2e, per_layer=per_layer, kernels=load_kernels(root),
         run_seconds=int(bench["run_seconds"]), root=root,
         limits=load_json(root / "perfbench" / "limits" / f"{workload}.json"),
+        arch=load_arch(config, root),
     )

@@ -133,7 +133,7 @@ def run_serve(plan: Plan, seed: int, seconds: float, tracing: bool, device, t_st
               check: bool = True) -> Dict[str, Any]:
     from . import serve
 
-    loop = serve.ServeLoop(plan.config, plan.mix, seed, device)
+    loop = serve.ServeLoop(plan, seed, device)
     span = span_fn(tracing)
     cuda = torch.device(device).type == "cuda"
     if tracing and cuda:
@@ -172,21 +172,23 @@ def check_serve(plan: Plan, seed: int, data, window, device, control: bool = Fal
     """The served tokens against the reference: a sample, drawn from the
     seed, of the requests finished in the window, with the
     longest in it; the reference runs once over each prompt with its
-    served tokens, along the experts the program routed them to.
+    served tokens, along the experts the program routed them to (the
+    configuration's architecture's ``logits_at``).
     Numbers compared: ``served_gap_mean``, the mean gap by which a served
     token's reference logit lies below the reference's best at its
     position; ``served_far``, how many served tokens lie more than the
     limits file's ``far_gap`` logits below it (limit 0: one wrong token
-    fails the run); and for an MoE model ``route_gap_mean`` (``reference/
-    llama_ref.py``).  The widest of each gap is printed beside them, with
-    no limit (the fp8 control reads under three times the program's there:
-    PERF.md §2).
+    fails the run); and for a model with routed layers ``route_gap_mean``
+    (``reference/llama_ref.py``).  The widest of each gap is printed beside
+    them, with no limit (the fp8 control reads under three times the
+    program's there: PERF.md §2).
     ``control``: the same two for the fp8 control in the program's place
     (its own routes; its first token at each position)."""
-    from ..reference.llama_ref import logits_at, served_gaps
+    from ..reference.llama_ref import served_gaps
 
+    logits_at = plan.arch.logits_at
     t0, t1 = window
-    moe = Shape.from_config(plan.config).experts > 0
+    moe = plan.shape.routed_layers > 0
     done = [r for r in data["recs"] if r.t_done is not None and t0 <= r.t_done <= t1]
     n = plan.mix["check"]["requests"]
     longest = max(done, key=lambda r: r.prompt_len + len(r.tokens))
@@ -261,7 +263,7 @@ def run_cell(plan: Plan, seed: int, seconds: float, tracing: bool, device, t_sta
         failed = raw["data"]["failed"]
     else:
         raise ValueError(f"unknown mix kind {kind!r}")
-    shape = Shape.from_config(plan.config)
+    shape = plan.shape
     peaks = card_peaks(torch.cuda.get_device_name() if torch.cuda.is_available() else "H100")
     run = Run(plan, shape, peaks, raw["window"], raw["data"])
     metrics: Dict[str, Dict[str, Any]] = {}

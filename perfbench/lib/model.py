@@ -1,8 +1,11 @@
 """The system under test: the port's model, loaded with the benchmark's weights.
 
-The configuration file's ``port`` section names the port's factory in
-``models.llama`` and the settings it is run with.  The benchmark makes the
-weights (``weights.py``), hands them to the port's loading entry point
+The configuration's architecture module (``archs/<arch>.py``) gives the
+port's model config and the flax-named tree of the benchmark's seeded
+weights; for the Llama family they are ``port_config`` and ``tree`` here:
+the configuration file's ``port`` section names the port's factory in
+``models.llama`` and the settings it is run with, and the weights are
+``weights.py``'s.  ``build`` hands the tree to the port's loading entry point
 (``utils.convert.load_jax_params`` into a ``LlamaModel`` skeleton on the
 ``meta`` device, the path ``models.llama_loader`` takes for checkpoints),
 then brings the model to the form it is served or trained in
@@ -18,22 +21,24 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import weights
-from .flops import Shape
+from .bench import load_arch
+from .flops import llama_shape
 
 
 def port_config(cfg: Dict[str, Any], max_seq_len: int):
-    """The port's ``LlamaConfig`` of a configuration file."""
+    """The port's ``LlamaConfig`` of a Llama-family configuration file."""
     from bitorch_engine_tpu_torch.models import llama
 
     port = dict(cfg["port"])
     factory = getattr(llama, port.pop("factory"))
     port.pop("prepare", None)
-    s = Shape.from_config(cfg)
-    if s.experts:
-        port.update(moe_num_experts=s.experts, moe_top_k=s.top_k)
+    s = llama_shape(cfg)
+    m = s.mlps[0]
+    if m.experts:
+        port.update(moe_num_experts=m.experts, moe_top_k=m.top_k)
     return factory(
         num_layers=s.layers, vocab_size=s.vocab, hidden_size=s.hidden,
-        intermediate_size=s.intermediate, num_heads=s.heads, num_kv_heads=s.kv_heads,
+        intermediate_size=m.width, num_heads=s.heads, num_kv_heads=s.kv_heads,
         rope_theta=float(cfg["rope_theta"]), rms_eps=float(cfg["rms_norm_eps"]),
         w_bit=s.w_bit, group_size=s.group_size, max_seq_len=max_seq_len,
         dtype=torch.bfloat16, **port,
@@ -64,8 +69,8 @@ def _proj(rec, asym):
 
 
 def tree(cfg: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
-    """The model's parameters, flax-named, drawn from ``seed``."""
-    s = Shape.from_config(cfg)
+    """A Llama-family model's parameters, flax-named, drawn from ``seed``."""
+    s = llama_shape(cfg)
     asym = cfg["quantization_config"]["form"] == "gptq_act_order"
     out: Dict[str, Any] = {}
     for i in range(s.layers):
@@ -88,19 +93,22 @@ def tree(cfg: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def build(cfg: Dict[str, Any], seed: int, device, max_seq_len: int):
+def build(cfg: Dict[str, Any], seed: int, device, max_seq_len: int, arch=None):
     """The port's model of ``cfg`` holding the weights of ``seed``, on
-    ``device``, in the form the configuration runs in."""
+    ``device``, in the form the configuration runs in: the config and the
+    weights as its architecture module (``arch``, else the one ``cfg``
+    names) gives them."""
     from bitorch_engine_tpu_torch.models.llama import LlamaModel, fuse_llama_params
     from bitorch_engine_tpu_torch.utils.convert import (
         load_jax_params, prepare_for_training, prepare_params_for_cuda,
     )
 
-    lcfg = port_config(cfg, max_seq_len)
+    arch = arch or load_arch(cfg)
+    lcfg = arch.port_config(cfg, max_seq_len)
     # a dense MLP's gate and up load apart, then fuse as the configuration asks
     fuse_mlp = lcfg.fuse_gate_up and not lcfg.moe_num_experts
     model = LlamaModel(lcfg.replace(fuse_gate_up=lcfg.fuse_gate_up and not fuse_mlp), device="meta")
-    load_jax_params(model, tree(cfg, seed, device), device=device)
+    load_jax_params(model, arch.tree(cfg, seed, device), device=device)
     if fuse_mlp:
         fuse_llama_params(model, fuse_qkv=False, fuse_gate_up=True)
     prepare = cfg["port"].get("prepare")

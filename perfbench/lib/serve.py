@@ -12,11 +12,11 @@ after such a read, so a token's time is when the host had it.
 With no think time the schedule depends only on the order of completions,
 never on the clock: a seed gives the same waves and steps on every run.
 
-The experts each MoE layer chose are logged from the program's own
+The experts each routed layer chose are logged from the program's own
 routing call (:class:`RouteLog`, no device work of its own)
 and kept with each request by position, for the check: the reference
-follows the program's routes and judges them apart (``reference/
-llama_ref.py``).
+follows the program's routes and judges them apart (the architecture's
+``logits_at``; ``reference/llama_ref.py`` for the Llama family).
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ import numpy as np
 import torch
 
 from . import model as model_lib
-from .flops import Shape
 from .traffic import RequestStream
 
 clock = time.perf_counter
@@ -53,7 +52,8 @@ class RouteLog:
         moe.route = route
 
     def take(self, layers: int) -> List[torch.Tensor]:
-        """The forwards since the last take, each ``(layers, rows, k)``."""
+        """The forwards since the last take, each ``(layers, rows, k)``:
+        ``layers`` the model's routed layers, in order."""
         calls, self.calls = self.calls, []
         return [torch.stack(calls[i : i + layers]) for i in range(0, len(calls), layers)]
 
@@ -72,13 +72,13 @@ class Rec:
     token_times: List[float] = dataclasses.field(default_factory=list)
     t_done: Optional[float] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
-    # the experts its tokens were routed to: prompt chunks' (layers, C, k),
-    # then one (layers, k) a decode step
+    # the experts its tokens were routed to: prompt chunks' (routed layers,
+    # C, k), then one (routed layers, k) a decode step
     routes: List[torch.Tensor] = dataclasses.field(default_factory=list)
 
     def route_table(self) -> torch.Tensor:
-        """``(layers, positions, k)`` for its prompt and every served token
-        but the last (the positions the reference reads)."""
+        """``(routed layers, positions, k)`` for its prompt and every served
+        token but the last (the positions the reference reads)."""
         prompt = torch.cat([r for r in self.routes if r.dim() == 3], dim=1)[:, : self.prompt_len]
         steps = [r[:, None] for r in self.routes if r.dim() == 2]
         return torch.cat([prompt] + steps[: len(self.tokens) - 1], dim=1)
@@ -117,15 +117,17 @@ def check_mix(mix: Dict[str, Any]) -> None:
 
 
 class ServeLoop:
-    def __init__(self, cfg: Dict[str, Any], mix: Dict[str, Any], seed: int, device):
+    def __init__(self, plan, seed: int, device):
+        mix = plan.mix
         check_mix(mix)
         self.mix = mix
-        self.shape = Shape.from_config(cfg)
+        self.shape = plan.shape
+        self.routed = self.shape.routed_layers
         self.stream = RequestStream(mix, self.shape.vocab, seed)
         b = mix["batcher"]
         self.page = b["kv_page_size"]
         self.max_len = max_len_for(self.stream, self.page)
-        self.model = model_lib.build(cfg, seed, device, self.max_len)
+        self.model = model_lib.build(plan.config, seed, device, self.max_len, plan.arch)
         from bitorch_engine_tpu_torch.models.generate import ContinuousBatcher
 
         slots = b["num_slots"]
@@ -147,7 +149,7 @@ class ServeLoop:
             for s in slots:
                 self.wave_times[s] = t
             if self.route_log is not None:
-                fwds = self.route_log.take(self.shape.layers)
+                fwds = self.route_log.take(self.routed)
                 for row, s in enumerate(slots):
                     self.wave_routes[s] = [f.view(f.shape[0], len(slots), -1, f.shape[-1])[:, row]
                                           for f in fwds]
@@ -159,8 +161,8 @@ class ServeLoop:
             self._submit(clock())
 
     def log_routes(self, on: bool) -> None:
-        """Log the MoE layers' routes from now on (a dense model has none)."""
-        if on and self.shape.experts and self.route_log is None:
+        """Log the routed layers' routes from now on (a dense model has none)."""
+        if on and self.routed and self.route_log is None:
             self.route_log = RouteLog()
         elif not on and self.route_log is not None:
             self.route_log.close()
@@ -217,7 +219,7 @@ class ServeLoop:
                 b.step()
             s1 = clock()
             it.step = (s0, s1)
-            step_routes = self.route_log.take(self.shape.layers)[0] if self.route_log else None
+            step_routes = self.route_log.take(self.routed)[0] if self.route_log else None
             for s, req in enumerate(decoding):
                 rec = self.recs[req.uid]
                 if step_routes is not None:

@@ -1,11 +1,14 @@
 """The training loop: back-to-back fine-tune steps through ``make_train_step``.
 
 Set-up builds one object, the train step with its model and DiodeMix
-state, and drives it through the first ``check_steps`` steps with the
-window's own call and feed; those steps are the warm-up and the ones the
-reference follows.  The window hands the same object on: step after step,
-each on its own seeded batch, the host reading each step's loss (the one
-host sync a step, as a training loop that logs its loss has).
+state (the weights and the reference are the configuration's
+architecture's, ``archs/<arch>.py``: one without a train reference has
+no training cell), and drives it through the first ``check_steps`` steps
+with the window's own call and feed; those steps are the warm-up and the
+ones the reference follows.  The window hands the same object on: step
+after step, each on its own seeded batch, the host reading each step's
+loss (the one host sync a step, as a training loop that logs its loss
+has).
 
 The numbers compared with the reference (each by the worst leaf where it
 is a norm, as a share of the reference's norm of that leaf or of the
@@ -40,7 +43,6 @@ import torch
 
 from . import model as model_lib
 from . import weights
-from .flops import Shape
 
 clock = time.perf_counter
 _BATCH_SALT = 2_000_000
@@ -111,9 +113,12 @@ def run_train(plan, seed: int, seconds: float, tracing: bool, device, t_start: f
     from .cells import Profiled, span_fn, sync, trace_path, warm_profiler
 
     cfg, mix = plan.config, plan.mix
-    s = Shape.from_config(cfg)
+    if not hasattr(plan.arch, "train_steps"):
+        raise ValueError(f"architecture {cfg.get('arch')!r} has no train reference: "
+                         f"{plan.workload} cannot be checked")
+    s = plan.shape
     cuda = torch.device(device).type == "cuda"
-    model = model_lib.build(cfg, seed, device, mix["seq_len"])
+    model = model_lib.build(cfg, seed, device, mix["seq_len"], plan.arch)
     hp = DiodeHyperParams(lr=cfg["train"]["lr"],
                           zeros_update_interval=cfg["train"]["zeros_update_interval"])
     step = make_train_step(model, lm_loss, hp)
@@ -194,19 +199,17 @@ def worst_gap(prog: Dict[str, float], ref: Dict[str, float], names) -> float:
 
 
 def reference_readings(plan, seed, device, precision: str = "f32") -> Dict[str, Any]:
-    """The reference's first steps from the seed (``reference/train_ref``):
-    its losses, first gradient norms, moment norms and each leaf's change
+    """The reference's first steps from the seed (the architecture's
+    ``train_steps``; ``reference/train_ref`` for the Llama family): its
+    losses, first gradient norms, moment norms and each leaf's change
     norm; its state is freed before this returns."""
-    from ..reference.train_ref import train_steps
-
-    cfg, mix = plan.config, plan.mix
-    s = Shape.from_config(cfg)
-    batches = [batch(mix, s.vocab, seed, i, device) for i in range(mix["check_steps"])]
-    ref = train_steps(cfg, seed, batches, cfg["train"]["lr"], device, precision)
+    cfg, mix, arch = plan.config, plan.mix, plan.arch
+    batches = [batch(mix, plan.shape.vocab, seed, i, device) for i in range(mix["check_steps"])]
+    ref = arch.train_steps(cfg, seed, batches, cfg["train"]["lr"], device, precision)
     m = ref.pop("model")
     ref["moments"] = {"m": {k: float(a.m.norm()) for k, a in m.adam.items()},
                       "v": {k: float(a.v.sqrt().norm()) for k, a in m.adam.items()}}
-    ref["change"] = changes(cfg, seed, list(ref["first_grad_norms"]), device,
+    ref["change"] = changes(arch, cfg, seed, list(ref["first_grad_norms"]), device,
                             lambda k, rec: m.weight_of(k))
     del m
     if torch.device(device).type == "cuda":
@@ -214,26 +217,23 @@ def reference_readings(plan, seed, device, precision: str = "f32") -> Dict[str, 
     return ref
 
 
-def changes(cfg, seed, names, device, value_of) -> Dict[str, float]:
+def changes(arch, cfg, seed, names, device, value_of) -> Dict[str, float]:
     """Each leaf's change norm over the first steps: ``value_of(name,
     record)`` is the side's f32 value after them (``record``: a quantized
     leaf's initial record, else ``None``)."""
-    from ..reference.llama_ref import dequant
-
     out = {}
-    for k, w0 in initial_values(cfg, seed, names, device):
+    for k, w0 in initial_values(arch, cfg, seed, names, device):
         rec = w0 if isinstance(w0, dict) else None
-        w0 = dequant(rec) if rec is not None else w0
+        w0 = arch.dequant(rec) if rec is not None else w0
         out[k] = float((value_of(k, rec) - w0).norm())
         del w0
     return out
 
 
-def program_value(after, device):
+def program_value(after, device, dequant):
     """The program's leaf after the first steps, from its host snapshot:
-    a quantized leaf's packed codes and zeros dequantized with its record's
-    scales and row map."""
-    from ..reference.llama_ref import dequant
+    a quantized leaf's packed codes and zeros dequantized (``dequant``)
+    with its record's scales and row map."""
 
     def value(k, rec):
         if isinstance(after[k], dict):
@@ -269,26 +269,24 @@ def check_train(plan, seed, losses, first, moments, after, device, ref=None) -> 
     reference's readings, if already taken."""
     ref = ref or reference_readings(plan, seed, device)
     side = {"losses": losses, "first_grad_norms": first, "moments": moments,
-            "change": changes(plan.config, seed, list(ref["first_grad_norms"]), device,
-                              program_value(after, device))}
+            "change": changes(plan.arch, plan.config, seed, list(ref["first_grad_norms"]), device,
+                              program_value(after, device, plan.arch.dequant))}
     return compare(side, ref, plan.limits)
 
 
-def initial_values(cfg, seed, names, device):
+def initial_values(arch, cfg, seed, names, device):
     """``(name, initial value)`` of each leaf in ``names``, made again from
-    the seed one layer at a time: a quantized leaf's record, an fp leaf's
-    f32 value."""
-    from ..reference.train_ref import NORMS, PROJS
-
-    s = Shape.from_config(cfg)
+    the seed one layer at a time (``arch.layer``; the head, the embedding
+    and the final norm are ``weights.py``'s): a quantized leaf's record, an
+    fp leaf's f32 value."""
     names = set(names)
-    for i in range(s.layers):
-        mine = [n for n in PROJS + NORMS if f"layer_{i}.{n}" in names]
+    for i in range(arch.shape(cfg).layers):
+        mine = [n for n in arch.PROJS + arch.NORMS if f"layer_{i}.{n}" in names]
         if not mine:
             continue
-        w = weights.layer(cfg, seed, i, device)
+        w = arch.layer(cfg, seed, i, device)
         for n in mine:
-            if n in NORMS:
+            if n in arch.NORMS:
                 yield f"layer_{i}.{n}", w[n].float()
             else:
                 yield f"layer_{i}.{n}", (w["attn"] if n in ("q", "k", "v", "o") else w["mlp"])[n]

@@ -2,12 +2,21 @@
 
 Both sides read these arrays: the program through its loading entry point
 (``utils.convert.load_jax_params`` into a ``meta`` skeleton), the
-reference by unpacking them itself.  Each layer (and the embedding, the
-head and the final norm) draws from a ``torch.Generator`` of its own,
-seeded from the run's seed and the layer's index, in a few large calls:
-every code word of a layer in one draw, every scale in another.  So the
-reference can make any layer again, on its own, after the program's state
-is freed.
+reference by unpacking them itself.
+
+The seeding rule, which every architecture's weights keep (``archs/``):
+one generator a layer, from the seed and the layer's index
+(``generator(seed, i, device)``; the embedding, the head and the final
+norm each from their own salt), drawn in a few large calls: every code
+word of a layer in one draw, every scale in another.  So the reference
+can make any layer again, on its own, after the program's state is freed.
+The public helpers are the blocks a new architecture builds its layers
+from: ``generator``, ``sym_records``, ``gptq_records``, ``norms``,
+``pack_cols``, and ``embedding``, ``head`` and ``final_norm``.  These three
+read ``vocab_size`` and ``hidden_size``, and of the ``port`` section
+``quantize_embed`` (``embedding``: an int8 table, else bf16) and
+``head_pad_to`` (``head``: the vocabulary padded to a multiple of it).
+``layer`` is the Llama family's.
 
 Forms (``quantization_config.form`` of a configuration file):
 
@@ -37,7 +46,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from .flops import Shape
+from .flops import llama_shape
 
 # salts of the generators: a layer's own, then the model's other tensors
 _EMBED, _HEAD, _FINAL = 1_000_001, 1_000_002, 1_000_003
@@ -116,16 +125,16 @@ def layer(cfg: Dict[str, Any], seed: int, i: int, device) -> Dict[str, Any]:
     ``q``, ``k``, ``v``, ``o`` for gptq), ``mlp`` (``gate``, ``up``,
     ``down``) or ``experts`` (a list of such) and ``router``, and the two
     norms."""
-    s = Shape.from_config(cfg)
+    s = llama_shape(cfg)
     form = cfg["quantization_config"]["form"]
     init = cfg.get("init", {})
     g = generator(seed, i, device)
-    h, hd, gs = s.hidden, s.head_dim, s.group_size
+    h, hd, gs, m = s.hidden, s.head_dim, s.group_size, s.mlps[0]
     out: Dict[str, Any] = {}
     out["input_norm"], out["post_attn_norm"] = norms(g, h, 2, device)
-    mlp_shapes = [(h, s.intermediate), (h, s.intermediate), (s.intermediate, h)]
+    mlp_shapes = [(h, m.width), (h, m.width), (m.width, h)]
     if form == "sym_w4":
-        n_mlp = max(1, s.experts)
+        n_mlp = max(1, m.experts)
         rms, out_rms = init.get("rms", 0.02), init.get("out_rms", 0.02)
         recs = sym_records(g, [(h, (s.heads + 2 * s.kv_heads) * hd)] + mlp_shapes[:2] * n_mlp,
                            rms, gs, device)
@@ -140,9 +149,9 @@ def layer(cfg: Dict[str, Any], seed: int, i: int, device) -> Dict[str, Any]:
         mlps = [dict(zip(("gate", "up", "down"), recs[4:7]))]
     else:
         raise ValueError(f"unknown weight form {form!r}")
-    if s.experts:
+    if m.experts:
         out["experts"] = mlps
-        out["router"] = (torch.randn(h, s.experts, generator=g, device=device)
+        out["router"] = (torch.randn(h, m.experts, generator=g, device=device)
                          * init.get("router_std", 0.02))
     else:
         out["mlp"] = mlps[0]
@@ -152,24 +161,24 @@ def layer(cfg: Dict[str, Any], seed: int, i: int, device) -> Dict[str, Any]:
 def embedding(cfg: Dict[str, Any], seed: int, device) -> Dict[str, torch.Tensor]:
     """``{"data", "scale"}`` (int8 table, bf16-valued f32 row scales) for a
     quantized embedding, ``{"table"}`` (bf16) otherwise."""
-    s = Shape.from_config(cfg)
+    vocab, hidden = cfg["vocab_size"], cfg["hidden_size"]
     g = generator(seed, _EMBED, device)
     if cfg["port"].get("quantize_embed"):
-        data = torch.randint(-127, 128, (s.vocab, s.hidden), generator=g, device=device,
+        data = torch.randint(-127, 128, (vocab, hidden), generator=g, device=device,
                              dtype=torch.int16).to(torch.int8)
-        z = torch.randn(s.vocab, generator=g, device=device)
+        z = torch.randn(vocab, generator=g, device=device)
         scale = (0.02 / 73.6 * torch.exp(0.1 * z)).to(torch.bfloat16).float()
         return {"data": data, "scale": scale}
-    table = torch.randn(s.vocab, s.hidden, generator=g, device=device) * 0.02
+    table = torch.randn(vocab, hidden, generator=g, device=device) * 0.02
     return {"table": table.to(torch.bfloat16)}
 
 
 def head(cfg: Dict[str, Any], seed: int, device) -> Dict[str, torch.Tensor]:
     """The symmetric w4 g128 head ``(hidden, vocab padded to head_pad_to)``."""
-    s = Shape.from_config(cfg)
-    pad = cfg["port"].get("head_pad_to", 0)
-    n = -(-s.vocab // pad) * pad if pad else s.vocab
-    return sym_records(generator(seed, _HEAD, device), [(s.hidden, n)], 0.02, 128, device)[0]
+    vocab, pad = cfg["vocab_size"], cfg["port"].get("head_pad_to", 0)
+    n = -(-vocab // pad) * pad if pad else vocab
+    return sym_records(generator(seed, _HEAD, device), [(cfg["hidden_size"], n)], 0.02, 128,
+                       device)[0]
 
 
 def final_norm(cfg: Dict[str, Any], seed: int, device) -> torch.Tensor:

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..lib import weights
-from ..lib.flops import Shape
+from ..lib.flops import llama_shape
 
 FP8_MAX = 448.0
 
@@ -176,7 +176,7 @@ def embed(cfg: Dict[str, Any], seed: int, tokens: torch.Tensor, device) -> torch
 def attn_block(x, w, pos, cfg, ops: Ops, int8_kv: bool) -> torch.Tensor:
     """One layer's attention on one sequence's rows ``x (L, h)`` (the
     residual not added)."""
-    s = Shape.from_config(cfg)
+    s = llama_shape(cfg)
     hd = s.head_dim
     h = rms_norm(x, w["input_norm"], cfg["rms_norm_eps"])
     a = w["attn"]
@@ -205,7 +205,7 @@ def logits_at(cfg: Dict[str, Any], seed: int, seqs: List[torch.Tensor], wanted: 
     each sequence's ``(layers, len, k)`` experts to follow; ``stats``
     collects each precision's ``route_gap`` and its chosen ``routes``."""
     no_tf32()
-    s = Shape.from_config(cfg)
+    s = llama_shape(cfg)
     int8_kv = cfg["port"].get("kv_cache_dtype") == "int8"
     lens = [len(t) for t in seqs]
     x0 = embed(cfg, seed, torch.cat(seqs), device)
@@ -226,7 +226,7 @@ def logits_at(cfg: Dict[str, Any], seed: int, seqs: List[torch.Tensor], wanted: 
             h = rms_norm(x, w["post_attn_norm"], cfg["rms_norm_eps"])
             if "experts" in w:
                 forced = None if routes is None else torch.cat([r[i] for r in routes])
-                x = x + moe(h, w, s.top_k, ops, forced, stats[p])
+                x = x + moe(h, w, s.mlps[i].top_k, ops, forced, stats[p])
             else:
                 m = w["mlp"]
                 x = x + swiglu(h, dequant(m["gate"]), dequant(m["up"]), dequant(m["down"]), ops)

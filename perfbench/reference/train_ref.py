@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..lib import weights
-from ..lib.flops import Shape
+from ..lib.flops import llama_shape
 from .llama_ref import Ops, attention, no_tf32, rms_norm, rope, unpack_rows, unpack_zero_points
 
 BETA1, BETA2, EPS = 0.99, 0.9999, 1e-6
@@ -97,7 +97,7 @@ class Adam:
 
 def _layer(x, w, cfg, ops):
     """One block on ``x (b, L, h)`` with logical f32 weights ``w``."""
-    s = Shape.from_config(cfg)
+    s = llama_shape(cfg)
     b, L, _ = x.shape
     hd = s.head_dim
     eps = cfg["rms_norm_eps"]
@@ -121,7 +121,7 @@ class Model:
 
     def __init__(self, cfg: Dict[str, Any], seed: int, device):
         self.cfg, self.device = cfg, device
-        s = Shape.from_config(cfg)
+        s = llama_shape(cfg)
         self.q: Dict[str, QLeaf] = {}
         self.fp: Dict[str, torch.Tensor] = {}
         for i in range(s.layers):
@@ -167,7 +167,7 @@ def train_steps(cfg: Dict[str, Any], seed: int, batches: List[torch.Tensor], lr:
     last step."""
     no_tf32()
     ops = Ops(precision)
-    s = Shape.from_config(cfg)
+    s = llama_shape(cfg)
     eps = cfg["rms_norm_eps"]
     m = Model(cfg, seed, device)
     losses: List[float] = []

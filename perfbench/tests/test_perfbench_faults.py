@@ -1,16 +1,17 @@
 """A run drives its check to the end: sound, it comes out correct; with the
 timed path broken underneath, not correct.  Tiny cells on the CPU; the
-harness's look for a card is skipped (``run_cell`` on ``cpu``)."""
-
-import time
+harness's look for a card is skipped (``run_cell`` on ``cpu``).  Serving
+runs on the tiny cell's own clock (``tiny.tick``), so a seed checks the
+same requests on every CPU."""
 
 import pytest
 import torch
 
+from perfbench.lib import cells
 from perfbench.lib.bench import plan
 from perfbench.lib.cells import run_cell
 
-from .tiny import workspace
+from .tiny import tick, workspace
 
 SEED = 2**33 + 21
 
@@ -21,18 +22,23 @@ def root(tmp_path_factory):
     return workspace(tmp_path_factory.mktemp("faults"))
 
 
+@pytest.fixture
+def ticked(monkeypatch):
+    tick(monkeypatch)
+
+
 def run(root, cell, seconds=1.0, tracing=False):
-    return run_cell(plan(cell, root), SEED, seconds, tracing, "cpu", time.perf_counter())
+    return run_cell(plan(cell, root), SEED, seconds, tracing, "cpu", cells.clock())
 
 
-def test_serving_sound_run_is_correct(root):
+def test_serving_sound_run_is_correct(root, ticked):
     out = run(root, "tiny-rag")
     assert out["correct"], out["checks"]
     assert out["attempted"] > 0 and out["failed"] == 0
     assert set(out["metrics"]) == {"ttft_p90_ms", "itl_p90_ms", "setup_s"}
 
 
-def test_serving_altered_token_is_caught(root, monkeypatch):
+def test_serving_altered_token_is_caught(root, ticked, monkeypatch):
     from bitorch_engine_tpu_torch.models import generate
 
     real = generate.sample_token
@@ -45,7 +51,7 @@ def test_serving_altered_token_is_caught(root, monkeypatch):
     assert not out["correct"], out["checks"]
 
 
-def test_serving_traced_run_reads_its_metrics(root):
+def test_serving_traced_run_reads_its_metrics(root, ticked):
     out = run(root, "tiny-rag", tracing=True)
     assert out["correct"]
     got = set(out["metrics"])
@@ -79,13 +85,13 @@ def test_training_half_batch_is_caught(root, monkeypatch):
     assert not out["correct"], out["checks"]
 
 
-def test_serving_control_is_not_correct(root):
+def test_serving_control_is_not_correct(root, ticked):
     """The fp8 control in the program's place fails a limit the program
     keeps (tiny limits, set from tiny readings as PERF.md sets the cell's)."""
     from perfbench.lib.cells import check_serve, correct_of, run_serve
 
     p = plan("tiny-rag", root)
-    raw = run_serve(p, SEED, 1.5, False, "cpu", time.perf_counter(), check=False)
+    raw = run_serve(p, SEED, 1.5, False, "cpu", cells.clock(), check=False)
     c = check_serve(p, SEED, raw["data"], raw["window"], "cpu", control=True)
     mine = {k: v for k, v in c.items() if not k.startswith("control_")}
     ctl = {k[len("control_"):]: v for k, v in c.items() if k.startswith("control_")}
@@ -102,7 +108,7 @@ def test_training_control_is_not_correct(root):
     assert any(v["value"] > v["limit"] for v in ctl.values()), ctl
 
 
-def test_traced_run_fails_on_an_unclaimed_kernel(root, monkeypatch):
+def test_traced_run_fails_on_an_unclaimed_kernel(root, ticked, monkeypatch):
     """A kernel that no pattern under ``kernels/`` claims (here a fused expert kernel
     launched by no aten operator) stops a traced run: a roofline would
     leave its time out."""

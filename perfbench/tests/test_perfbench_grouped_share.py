@@ -3,17 +3,17 @@
 on the CPU, where every expert weight is rebuilt, so every row groups."""
 
 import json
-import time
 import types
 
 import pytest
 import torch
 
 from bitorch_engine_tpu_torch.utils import profiling
+from perfbench.lib import cells
 from perfbench.lib.bench import PERFBENCH, load_reader, plan
 from perfbench.lib.cells import run_cell
 
-from .tiny import workspace
+from .tiny import tick, workspace
 
 NAME = "moe_grouped_share.rag"
 SEED = 2**33 + 23
@@ -66,14 +66,15 @@ def test_nothing_from_a_program_without_the_count(synthetic, monkeypatch, progra
     assert read(synthetic) is None
 
 
-def test_a_traced_cpu_run_reads_every_row_grouped(tmp_path):
+def test_a_traced_cpu_run_reads_every_row_grouped(tmp_path, monkeypatch):
     torch.set_num_threads(2)
+    tick(monkeypatch)
     root = workspace(tmp_path)
     bench = json.loads((root / "BENCHMARK.json").read_text())
     for m in bench["per_layer"]:
         if m["name"] == NAME:
             m["workloads"].append("tiny-rag")
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    out = run_cell(plan("tiny-rag", root), SEED, 1.0, True, "cpu", time.perf_counter())
+    out = run_cell(plan("tiny-rag", root), SEED, 1.0, True, "cpu", cells.clock())
     assert out["correct"]
     assert out["metrics"][NAME]["value"] == 100.0

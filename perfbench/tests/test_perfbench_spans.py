@@ -4,20 +4,19 @@ run on the CPU, where they agree with the harness's own record."""
 
 import gzip
 import json
-import time
 import types
 
 import pytest
 import torch
 
 from bitorch_engine_tpu_torch.utils import profiling
-from perfbench.lib import reading
+from perfbench.lib import cells, reading
 from perfbench.lib.bench import load_reader, plan, PERFBENCH
 from perfbench.lib.cells import run_cell
 from perfbench.lib.serve import Iter
 from perfbench.lib.trace import Span, Trace
 
-from .tiny import workspace
+from .tiny import tick, workspace
 
 NEW = [
     ("decode_host_ms.rag", "ms", "lower", "program_span", "model step", "itl_p90_ms"),
@@ -110,7 +109,9 @@ def traced(tmp_path_factory):
                             "moves": moves, "workloads": ["tiny-rag"]}
                            for n, u, b, s, layer, moves in NEW]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    return run_cell(plan("tiny-rag", root), SEED, 1.0, True, "cpu", time.perf_counter())
+    with pytest.MonkeyPatch.context() as mp:
+        tick(mp)
+        return run_cell(plan("tiny-rag", root), SEED, 1.0, True, "cpu", cells.clock())
 
 
 def test_a_traced_cpu_run_reads_the_programs_spans(traced):

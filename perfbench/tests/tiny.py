@@ -7,9 +7,14 @@ from __future__ import annotations
 
 import json
 import shutil
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
+
+# a serving run's clock tick: a 1 s window holds about ten loop iterations
+# (and no whole number of ticks, so no window ends on a tie)
+TICK = 1 / 55.5
 
 # the serving cell's metrics, as a change that adds a serving cell adds them
 SERVE_E2E = [
@@ -17,7 +22,7 @@ SERVE_E2E = [
     {"name": "itl_p90_ms", "unit": "ms", "better": "lower", "bound": 0.25, "source": "host_clock"},
 ]
 SERVE_PER_LAYER = [
-    ("decode_step_ms.rag", "ms", "lower", "program_span", "model step", "itl_p90_ms"),
+    ("decode_step_ms.rag", "ms", "lower", "host_clock", "model step", "itl_p90_ms"),
     ("serve_mfu.rag", "%", "higher", "host_clock", "model step", "ttft_p90_ms"),
     ("prefill_matmul_roofline.rag", "%", "higher", "device_trace", "kernels", "ttft_p90_ms"),
     ("launches_per_decode_step.rag", "launches", "lower", "device_trace", "device", "itl_p90_ms"),
@@ -70,7 +75,40 @@ def workspace(tmp: Path, limits_serve=None, limits_ft=None) -> Path:
         {"name": n, "unit": u, "better": b, "source": src, "layer": layer, "moves": moves,
          "workloads": ["tiny-rag"]} for n, u, b, src, layer, moves in SERVE_PER_LAYER]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    (pb / "limits/tiny-rag.json").write_text(json.dumps(limits_serve or {"served_gap_mean": 1e-4, "served_far": 0, "far_gap": 1e-2, "route_gap_mean": 3e-5}))
+    # set from 15 seeds at windows of 6-20 iterations (PERF.md §6): sound
+    # runs read served_gap_mean up to 1.04e-3, a served token 0.012 under
+    # the best and route_gap_mean up to 1.11e-5; the fp8 control as low as
+    # 0, 0 and 2.98e-5, so route_gap_mean alone holds it here; tokens
+    # altered where they are produced read 0.87 or more, widest 1.33 or more
+    (pb / "limits/tiny-rag.json").write_text(json.dumps(limits_serve or {"served_gap_mean": 3e-3, "served_far": 0, "far_gap": 3e-2, "route_gap_mean": 2e-5}))
     (pb / "limits/tiny-ft.json").write_text(json.dumps(
         limits_ft or {"loss": 1e-3, "grad": 0.05, "moments": 0.05, "change": 0.05}))
     return root
+
+
+def tick(mp) -> None:
+    """Run serving on a clock of its own (``mp``: a ``pytest.MonkeyPatch``).
+    Each reading the harness takes advances it by ``TICK``, each stamp of
+    the program's spans by a millionth of that, so a window of ``seconds``
+    holds the same loop iterations on any CPU.  With no think time the
+    closed loop's schedule turns only on the order of completions: a seed
+    then finishes the same requests, and its check samples the same ones,
+    every run.  It starts a million seconds past the real clock and past
+    every span record the program holds, so the records of other runs in
+    this process never fall in its window."""
+    from bitorch_engine_tpu_torch.utils import profiling
+    from perfbench.lib import cells, serve
+
+    now = [max([time.perf_counter()] + [r.end for r in profiling.records()]) + 1e6]
+
+    def harness():
+        now[0] += TICK
+        return now[0]
+
+    def program():
+        now[0] += TICK * 1e-6
+        return now[0]
+
+    mp.setattr(cells, "clock", harness)
+    mp.setattr(serve, "clock", harness)
+    mp.setattr(profiling, "_clock", program)
